@@ -1,0 +1,385 @@
+"""Span tracer + flight recorder — the node's black box.
+
+The reference node's only window into consensus is the metricsgen
+Prometheus set (node/node.go:1062-1065); aggregates answer "how fast on
+average" but not "where did height H's 900 ms go". This module adds the
+missing axis: a thread-safe fixed-size ring buffer of span records
+`{name, t0, dur, height, round, fields}` over `time.perf_counter`,
+nestable via contextvars, with near-zero cost when disabled (one
+attribute read per call site).
+
+Stdlib only — the tracer is imported by the vote hot path, the WAL, the
+p2p layer and the chaos subsystem, none of which may grow a dependency.
+
+Two consumers:
+
+- the `dump_traces` RPC route ships the raw ring plus a Chrome
+  `trace_event` JSON export (load it in Perfetto / chrome://tracing);
+- the flight recorder view groups the ring into the last N heights'
+  step timelines, assigning height-less annotations (chaos faults, WAL
+  fsyncs, p2p stalls) to the height whose span window contains them.
+
+Enabling: construct `Tracer(enabled=True)`, flip `.enabled` on the
+process-wide `default_tracer()`, or set TM_TPU_TRACE=1 in the
+environment before import (bench/soak/CI entry points).
+"""
+
+from __future__ import annotations
+
+import contextvars
+import os
+import threading
+import time
+from collections import deque
+from typing import Optional
+
+# ring capacity default: ~6 step spans + a handful of annotations per
+# height per node -> 8192 records cover hundreds of heights
+DEFAULT_RING_SIZE = 8192
+
+# current span-name stack for parent attribution; contextvars make the
+# nesting follow asyncio tasks, not threads
+_stack: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "tm_tpu_span_stack", default=()
+)
+
+
+class SpanRecord:
+    """One ring entry. `kind` is "span" (has a duration) or "event" (an
+    instant annotation). Times are seconds relative to the tracer epoch
+    (`Tracer.epoch_wall_ns` anchors them to the wall clock)."""
+
+    __slots__ = ("name", "t0", "dur", "height", "round", "kind", "fields")
+
+    def __init__(self, name, t0, dur, height, round_, kind, fields):
+        self.name = name
+        self.t0 = t0
+        self.dur = dur
+        self.height = height
+        self.round = round_
+        self.kind = kind
+        self.fields = fields
+
+    def to_json(self) -> dict:
+        out = {
+            "name": self.name,
+            "t0": round(self.t0, 6),
+            "dur": round(self.dur, 6),
+            "height": self.height,
+            "round": self.round,
+            "kind": self.kind,
+        }
+        if self.fields:
+            out["fields"] = self.fields
+        return out
+
+    @classmethod
+    def from_json(cls, d: dict) -> "SpanRecord":
+        return cls(
+            d.get("name", ""),
+            d.get("t0", 0.0),
+            d.get("dur", 0.0),
+            d.get("height", 0),
+            d.get("round", 0),
+            d.get("kind", "span"),
+            d.get("fields") or {},
+        )
+
+
+class _Span:
+    """Context manager recording one span on exit."""
+
+    __slots__ = ("_tracer", "name", "height", "round", "fields", "_t0", "_tok")
+
+    def __init__(self, tracer, name, height, round_, fields):
+        self._tracer = tracer
+        self.name = name
+        self.height = height
+        self.round = round_
+        self.fields = fields
+        self._t0 = 0.0
+        self._tok = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        self._tok = _stack.set(_stack.get() + (self.name,))
+        return self
+
+    def __exit__(self, *exc):
+        if self._tok is not None:
+            _stack.reset(self._tok)
+        self._tracer.add_span(
+            self.name,
+            self._t0,
+            time.perf_counter() - self._t0,
+            height=self.height,
+            round=self.round,
+            **self.fields,
+        )
+        return False
+
+
+class _NopSpan:
+    """Shared no-op context manager: the disabled-tracer fast path
+    allocates nothing per call."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOP_SPAN = _NopSpan()
+
+
+class Tracer:
+    """Thread-safe fixed-size ring of SpanRecords."""
+
+    # how often the wall anchor is refreshed (seconds of perf_counter
+    # time); perf_counter and the wall clock drift apart on the order of
+    # ppm, so minutes-scale re-anchoring bounds the error at micro-
+    # seconds while a multi-hour soak against a creation-time anchor
+    # would accumulate milliseconds — enough to corrupt cross-node merge
+    DEFAULT_REANCHOR_INTERVAL = 300.0
+
+    def __init__(
+        self,
+        enabled: bool = False,
+        ring_size: int = DEFAULT_RING_SIZE,
+        reanchor_interval_s: float = DEFAULT_REANCHOR_INTERVAL,
+    ):
+        self.enabled = enabled
+        self._ring: deque[SpanRecord] = deque(maxlen=max(16, ring_size))
+        self._lock = threading.Lock()
+        # perf_counter epoch all record times are relative to, anchored
+        # to the wall clock for cross-process correlation
+        self.epoch = time.perf_counter()
+        self.epoch_wall_ns = time.time_ns()
+        self.reanchor_interval_s = reanchor_interval_s
+        self._last_anchor_pc = self.epoch
+
+    # --- recording --------------------------------------------------------
+
+    def span(self, name: str, /, height: int = 0, round: int = 0, **fields):
+        """Context manager timing a block; no-op singleton when disabled."""
+        if not self.enabled:
+            return _NOP_SPAN
+        return _Span(self, name, height, round, fields)
+
+    def add_span(
+        self,
+        name: str,
+        t0: float,
+        dur: float,
+        /,
+        height: int = 0,
+        round: int = 0,
+        **fields,
+    ) -> None:
+        """Record a span retroactively from an absolute perf_counter t0
+        (the consensus step seam measures between transitions and only
+        knows the duration after the fact)."""
+        if not self.enabled:
+            return
+        parents = _stack.get()
+        if parents:
+            fields = dict(fields, parent=parents[-1])
+        with self._lock:
+            self._maybe_reanchor_locked(time.perf_counter())
+            self._ring.append(
+                SpanRecord(
+                    name, t0 - self.epoch, dur, height, round, "span", fields
+                )
+            )
+
+    def event(
+        self, name: str, /, height: int = 0, round: int = 0, **fields
+    ) -> None:
+        """Instant annotation (chaos fault, queue-full, peer ban...)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            now = time.perf_counter()
+            self._maybe_reanchor_locked(now)
+            self._ring.append(
+                SpanRecord(
+                    name,
+                    now - self.epoch,
+                    0.0,
+                    height,
+                    round,
+                    "event",
+                    fields,
+                )
+            )
+
+    def now(self) -> float:
+        """Current time on the tracer's own clock (seconds since epoch)."""
+        return time.perf_counter() - self.epoch
+
+    # --- wall-anchor maintenance -----------------------------------------
+
+    def _maybe_reanchor_locked(self, now_pc: float) -> None:
+        if (
+            self.reanchor_interval_s > 0
+            and now_pc - self._last_anchor_pc >= self.reanchor_interval_s
+        ):
+            self._reanchor_locked(now_pc)
+
+    def _reanchor_locked(self, now_pc: float) -> None:
+        # re-derive what epoch_wall_ns SHOULD be given the current
+        # perf_counter<->wall relationship; record times (epoch-relative
+        # perf_counter) are untouched, only the wall mapping refreshes
+        self.epoch_wall_ns = time.time_ns() - int(
+            (now_pc - self.epoch) * 1e9
+        )
+        self._last_anchor_pc = now_pc
+
+    def reanchor(self) -> None:
+        """Refresh the monotonic->wall anchor now (normally automatic
+        every reanchor_interval_s on the recording path)."""
+        with self._lock:
+            self._reanchor_locked(time.perf_counter())
+
+    def wall_anchor_age_s(self) -> float:
+        """perf_counter seconds since the anchor was last refreshed."""
+        return time.perf_counter() - self._last_anchor_pc
+
+    # --- reading ----------------------------------------------------------
+
+    def records(self) -> list[SpanRecord]:
+        with self._lock:
+            return list(self._ring)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    # --- exports ----------------------------------------------------------
+
+    def to_chrome_trace(
+        self, records: Optional[list[SpanRecord]] = None
+    ) -> dict:
+        """Chrome trace_event JSON (the dict; json.dumps it for a file
+        Perfetto / chrome://tracing loads directly). Spans become complete
+        ("X") events, annotations instant ("i") events; each height gets
+        its own tid so Perfetto renders one track per height."""
+        if records is None:
+            records = self.records()
+        events = []
+        for r in records:
+            ev = {
+                "name": r.name,
+                "ph": "X" if r.kind == "span" else "i",
+                "ts": round(r.t0 * 1e6, 1),
+                "pid": 1,
+                "tid": r.height,
+                "args": {"height": r.height, "round": r.round, **r.fields},
+            }
+            if r.kind == "span":
+                ev["dur"] = round(r.dur * 1e6, 1)
+            else:
+                ev["s"] = "g"  # global-scope instant
+            events.append(ev)
+        return {
+            "traceEvents": events,
+            "displayTimeUnit": "ms",
+            "otherData": {"epoch_wall_ns": self.epoch_wall_ns},
+        }
+
+    def flight(self, n_heights: int = 16) -> dict[int, list[dict]]:
+        """Flight-recorder view: the last `n_heights` heights' full step
+        timelines, each a time-ordered list of record dicts. Records with
+        height=0 (WAL fsync, p2p stalls, chaos faults — seams that don't
+        know the consensus height) are binned into the height whose span
+        window `[first t0, last t0+dur]` contains their timestamp."""
+        return flight_snapshot(self.records(), n_heights)
+
+
+def flight_snapshot(
+    records: list[SpanRecord], n_heights: int = 16
+) -> dict[int, list[dict]]:
+    by_height: dict[int, list[SpanRecord]] = {}
+    windows: dict[int, list[float]] = {}  # height -> [min_t0, max_end]
+    unassigned: list[SpanRecord] = []
+    for r in records:
+        if r.height > 0:
+            by_height.setdefault(r.height, []).append(r)
+            w = windows.setdefault(r.height, [r.t0, r.t0 + r.dur])
+            w[0] = min(w[0], r.t0)
+            w[1] = max(w[1], r.t0 + r.dur)
+        else:
+            unassigned.append(r)
+    for r in unassigned:
+        # prefer the highest height whose window contains the record — a
+        # multi-node shared ring has overlapping windows, and the fault
+        # belongs to the height that was in progress when it fired
+        best = None
+        for h, (lo, hi) in windows.items():
+            if lo <= r.t0 <= hi and (best is None or h > best):
+                best = h
+        if best is not None:
+            by_height.setdefault(best, []).append(r)
+    keep = sorted(by_height)[-n_heights:]
+    return {
+        h: [r.to_json() for r in sorted(by_height[h], key=lambda r: r.t0)]
+        for h in keep
+    }
+
+
+# --- consensus height hint --------------------------------------------------
+# The state machine publishes its current (height, round) here on every
+# step transition; seams that submit work on the consensus node's behalf
+# but never see a height (the remote verify client stamping trace
+# context onto UDS submissions) read it back. A plain module tuple —
+# atomic under the GIL, one attribute store per step transition. In-proc
+# multi-node harnesses share it (last writer wins), which is fine for a
+# HINT: the real deployment runs one consensus instance per process, and
+# harness nodes track within a height of each other.
+
+_height_hint: tuple = (0, 0)
+
+
+def set_height_hint(height: int, round_: int = 0) -> None:
+    """Publish the consensus height/round in progress (state machine)."""
+    global _height_hint
+    _height_hint = (height, round_)
+
+
+def height_hint() -> tuple:
+    """(height, round) last published by the consensus state machine;
+    (0, 0) before consensus starts."""
+    return _height_hint
+
+
+_default: Optional[Tracer] = None
+_default_lock = threading.Lock()
+
+
+def default_tracer() -> Tracer:
+    """Process-wide tracer shared by every subsystem that isn't handed an
+    explicit one (batch verifier, WAL, p2p, chaos). Starts enabled iff
+    TM_TPU_TRACE=1."""
+    global _default
+    if _default is None:
+        with _default_lock:
+            if _default is None:
+                _default = Tracer(
+                    enabled=os.environ.get("TM_TPU_TRACE") == "1"
+                )
+    return _default
+
+
+def set_default_tracer(tracer: Tracer) -> Tracer:
+    """Install `tracer` as the process-wide default (node assembly does
+    this so config-driven settings apply to every seam). Returns it."""
+    global _default
+    with _default_lock:
+        _default = tracer
+    return tracer

@@ -1,0 +1,630 @@
+"""ValidatorSet — membership, proposer rotation, and commit verification.
+
+Reference: types/validator_set.go. Two things matter here:
+
+1. **Proposer priority arithmetic** (validator_set.go:105-246): the
+   deterministic weighted-round-robin. Reproduced exactly (rescale to the
+   2×total window, center on zero, add voting power, pick max, subtract
+   total) because every node must agree on the proposer.
+
+2. **Commit verification** (VerifyCommit :676, VerifyCommitLight :730,
+   VerifyCommitLightTrusting :782) — the reference's serial per-signer
+   ed25519 loops with 2/3 early exit. Here each becomes ONE TPU batch:
+   gather (pubkey, sign-bytes, sig) for every counted signer, verify all at
+   once, tally voting power under the accept mask (SURVEY.md §2.3: "full-
+   batch verify + masked power tally"). Semantics note: the reference
+   fails on the first invalid signature it happens to scan before reaching
+   2/3; the masked tally simply never counts invalid signatures, so any
+   commit carrying ≥2/3 of valid power verifies — never weaker, order-
+   independent, and branch-free on device. VerifyCommit (the full variant)
+   still requires every non-absent signature to be valid, as upstream does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+from ..crypto import merkle
+from ..crypto.batch_verifier import BatchVerifier, SigItem, default_verifier
+from ..libs import protoio as pio
+from .block import BlockIDFlag, Commit
+from .block_id import BlockID
+from .validator import Validator, pubkey_from_type, pubkey_type_name
+
+PRIORITY_WINDOW_SIZE_FACTOR = 2
+MAX_TOTAL_VOTING_POWER = 2**63 // 8
+
+
+def _default_qc_engine():
+    """Scheduler-routed qc_verify dispatch (blocksync class: the bulk
+    consumers — catchup, light, replay — are the QC verify callers;
+    live consensus paths pass their own engine)."""
+    from .quorum_cert import qc_dispatch
+
+    return qc_dispatch("blocksync")
+
+
+class ValidatorSet:
+    def __init__(self, validators: list[Validator]):
+        self.validators: list[Validator] = sorted(
+            [v.copy() for v in validators], key=lambda v: v.address
+        )
+        self.proposer: Optional[Validator] = None
+        self._total_voting_power: Optional[int] = None
+        self._hash: Optional[bytes] = None
+        if self.validators:
+            self._validate_unique()
+            self.increment_proposer_priority(1)
+
+    @classmethod
+    def empty(cls) -> "ValidatorSet":
+        return cls([])
+
+    def _validate_unique(self) -> None:
+        seen = set()
+        for v in self.validators:
+            v.validate_basic()
+            if v.address in seen:
+                raise ValueError(f"duplicate validator {v.address.hex()}")
+            seen.add(v.address)
+
+    # --- basic queries ----------------------------------------------------
+
+    def size(self) -> int:
+        return len(self.validators)
+
+    def is_nil_or_empty(self) -> bool:
+        return not self.validators
+
+    def total_voting_power(self) -> int:
+        if self._total_voting_power is None:
+            t = sum(v.voting_power for v in self.validators)
+            if t > MAX_TOTAL_VOTING_POWER:
+                raise ValueError("total voting power exceeds maximum")
+            self._total_voting_power = t
+        return self._total_voting_power
+
+    def get_by_address(self, addr: bytes) -> tuple[int, Optional[Validator]]:
+        for i, v in enumerate(self.validators):
+            if v.address == addr:
+                return i, v
+        return -1, None
+
+    def get_by_index(self, idx: int) -> Optional[Validator]:
+        if 0 <= idx < len(self.validators):
+            return self.validators[idx]
+        return None
+
+    def has_address(self, addr: bytes) -> bool:
+        return self.get_by_address(addr)[0] >= 0
+
+    def hash(self) -> bytes:
+        """Merkle root of validator encodings
+        (reference types/validator_set.go:351). Memoized — the
+        encoding excludes proposer priority, so only membership/power
+        changes (update_with_change_set) invalidate; callers on the
+        serving hot path (lightserve verdict keys, per-vote header
+        checks) hash the same shared set per request."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices(
+                [v.encode() for v in self.validators]
+            )
+        return self._hash
+
+    def copy(self) -> "ValidatorSet":
+        vs = ValidatorSet.__new__(ValidatorSet)
+        vs.validators = [v.copy() for v in self.validators]
+        if self.proposer is not None:
+            i, _ = self.get_by_address(self.proposer.address)
+            vs.proposer = vs.validators[i] if i >= 0 else self.proposer.copy()
+        else:
+            vs.proposer = None
+        vs._total_voting_power = self._total_voting_power
+        vs._hash = self._hash
+        return vs
+
+    # --- proposer priority (validator_set.go:105-246) ---------------------
+
+    def increment_proposer_priority(self, times: int) -> None:
+        if not self.validators:
+            raise ValueError("empty validator set")
+        if times <= 0:
+            raise ValueError("times must be positive")
+        diff_max = PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        self._rescale_priorities(diff_max)
+        self._shift_by_avg_proposer_priority()
+        proposer = None
+        for _ in range(times):
+            proposer = self._increment_proposer_priority_once()
+        self.proposer = proposer
+
+    def _increment_proposer_priority_once(self) -> Validator:
+        for v in self.validators:
+            v.proposer_priority += v.voting_power
+        mostest = self.validators[0]
+        for v in self.validators[1:]:
+            mostest = mostest.compare_proposer_priority(v)
+        mostest.proposer_priority -= self.total_voting_power()
+        return mostest
+
+    def _rescale_priorities(self, diff_max: int) -> None:
+        if diff_max <= 0 or not self.validators:
+            return
+        prios = [v.proposer_priority for v in self.validators]
+        diff = max(prios) - min(prios)
+        if diff > diff_max:
+            ratio = (diff + diff_max - 1) // diff_max
+            for v in self.validators:
+                # Go integer division truncates toward zero
+                q = abs(v.proposer_priority) // ratio
+                v.proposer_priority = q if v.proposer_priority >= 0 else -q
+
+    def _shift_by_avg_proposer_priority(self) -> None:
+        n = len(self.validators)
+        total = sum(v.proposer_priority for v in self.validators)
+        avg = abs(total) // n
+        avg = avg if total >= 0 else -avg  # truncate toward zero
+        for v in self.validators:
+            v.proposer_priority -= avg
+
+    def get_proposer(self) -> Validator:
+        if not self.validators:
+            raise ValueError("empty validator set")
+        if self.proposer is None:
+            mostest = self.validators[0]
+            for v in self.validators[1:]:
+                mostest = mostest.compare_proposer_priority(v)
+            self.proposer = mostest
+        return self.proposer
+
+    def copy_increment_proposer_priority(self, times: int) -> "ValidatorSet":
+        c = self.copy()
+        c.increment_proposer_priority(times)
+        return c
+
+    # --- updates (validator_set.go UpdateWithChangeSet) -------------------
+
+    def update_with_change_set(self, changes: list[Validator]) -> None:
+        if not changes:
+            return
+        by_addr = {}
+        for c in changes:
+            if c.voting_power < 0:
+                raise ValueError("voting power cannot be negative")
+            if c.address in by_addr:
+                raise ValueError("duplicate address in changes")
+            by_addr[c.address] = c
+
+        removals = {a for a, c in by_addr.items() if c.voting_power == 0}
+        for a in removals:
+            if not self.has_address(a):
+                raise ValueError("removing unknown validator")
+
+        updated: dict[bytes, Validator] = {
+            v.address: v for v in self.validators
+        }
+        # compute the new total first: new members join with priority
+        # -1.125 * new_total (validator_set.go computeNewPriorities)
+        tentative = dict(updated)
+        for a, c in by_addr.items():
+            if a in removals:
+                tentative.pop(a, None)
+            else:
+                tentative[a] = c
+        new_total = sum(v.voting_power for v in tentative.values())
+        if new_total > MAX_TOTAL_VOTING_POWER:
+            raise ValueError("total voting power exceeds maximum")
+
+        for a, c in by_addr.items():
+            if a in removals:
+                updated.pop(a, None)
+                continue
+            prev = updated.get(a)
+            nv = c.copy()
+            if prev is None:
+                nv.proposer_priority = -(new_total + (new_total >> 3))
+            else:
+                nv.proposer_priority = prev.proposer_priority
+                # a power update with no BLS key keeps the key on
+                # record — otherwise every L2 rotation would silently
+                # strip QC capability from sitting members
+                if not nv.bls_pub_key:
+                    nv.bls_pub_key = prev.bls_pub_key
+            updated[a] = nv
+
+        self.validators = sorted(updated.values(), key=lambda v: v.address)
+        self._total_voting_power = None
+        self._hash = None  # membership/power changed
+        if self.validators:
+            self._rescale_priorities(
+                PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+            )
+            self._shift_by_avg_proposer_priority()
+            # recompute proposer pointer into the new list
+            if self.proposer is not None:
+                i, v = self.get_by_address(self.proposer.address)
+                self.proposer = v if i >= 0 else None
+
+    # --- commit verification (the TPU batch path) -------------------------
+
+    def _gather_items(
+        self,
+        chain_id: str,
+        commit: Commit,
+        only_for_block: bool,
+    ) -> tuple[list[SigItem], list[int]]:
+        """(items, indices): one SigItem per counted commit signature.
+
+        The per-commit (prefix, suffix) sign-bytes parts are built ONCE
+        ahead of the per-validator loop — within a commit only the
+        timestamp field differs, so each row is a cheap three-way concat
+        (the §10 commit-encode fix, hoisted; this gather is what every
+        commit-verify caller — consensus gossip, blocksync, light
+        client, evidence — runs per batch)."""
+        from .canonical import CanonicalVoteEncoder
+
+        items, idxs = [], []
+        parts_for = commit._sign_bytes_parts(chain_id, True)
+        parts_nil = None  # lazily: absent in the light (ForBlock) paths
+        for i, cs in enumerate(commit.signatures):
+            if cs.is_absent():
+                continue
+            if cs.for_block():
+                prefix, suffix = parts_for
+            elif only_for_block:
+                continue
+            else:
+                if parts_nil is None:
+                    parts_nil = commit._sign_bytes_parts(chain_id, False)
+                prefix, suffix = parts_nil
+            val = self.validators[i]
+            items.append(
+                SigItem(
+                    val.pub_key.data,
+                    CanonicalVoteEncoder.vote_from_parts(
+                        prefix, suffix, cs.timestamp_ns
+                    ),
+                    cs.signature,
+                    key_type=getattr(val.pub_key, "type_name", "ed25519"),
+                )
+            )
+            idxs.append(i)
+        return items, idxs
+
+    def verify_commits_light(
+        self,
+        chain_id: str,
+        entries: list,
+        verifier: Optional[BatchVerifier] = None,
+    ) -> list[bool]:
+        """Light-verify MANY commits as ONE device batch.
+
+        entries: [(block_id, height, commit)]. Returns a per-commit verdict
+        list (no exception per commit — callers fall back per entry). This
+        is the blocksync/light bulk shape (SURVEY.md §3.4: pipeline many
+        blocks' commits as one sharded batch instead of one device call per
+        block; reference loops serially at blocksync/reactor.go:553).
+        All commits must be against THIS validator set — callers batch
+        only across heights with an unchanged set.
+        """
+        verifier = verifier or default_verifier()
+        all_items: list[SigItem] = []
+        spans = []  # (start, idxs); idxs=None -> malformed entry
+        for block_id, height, commit in entries:
+            try:
+                if commit is None:
+                    raise ValueError("nil commit")
+                self._check_commit_shape(block_id, height, commit)
+            except ValueError:
+                spans.append((len(all_items), None))
+                continue
+            items, idxs = self._gather_items(chain_id, commit, True)
+            spans.append((len(all_items), idxs))
+            all_items.extend(items)
+        ok = verifier.verify(all_items) if all_items else []
+        out = []
+        for start, idxs in spans:
+            if idxs is None:
+                out.append(False)
+                continue
+            tallied = sum(
+                self.validators[i].voting_power
+                for valid, i in zip(ok[start : start + len(idxs)], idxs)
+                if valid
+            )
+            try:
+                self._check_maj23(tallied)
+                out.append(True)
+            except ValueError:
+                out.append(False)
+        return out
+
+    def verify_commit(
+        self,
+        chain_id: str,
+        block_id: BlockID,
+        height: int,
+        commit: Commit,
+        verifier: Optional[BatchVerifier] = None,
+    ) -> None:
+        """Full verification (reference :676): every non-absent signature
+        must be valid AND >2/3 of total power must have signed the block."""
+        self._check_commit_shape(block_id, height, commit)
+        verifier = verifier or default_verifier()
+        items, idxs = self._gather_items(chain_id, commit, False)
+        ok = verifier.verify(items)
+        tallied = 0
+        for valid, i in zip(ok, idxs):
+            if not valid:
+                raise ValueError(f"wrong signature at index {i}")
+            if commit.signatures[i].for_block():
+                tallied += self.validators[i].voting_power
+        self._check_maj23(tallied)
+
+    def verify_commit_light(
+        self,
+        chain_id: str,
+        block_id: BlockID,
+        height: int,
+        commit: Commit,
+        verifier: Optional[BatchVerifier] = None,
+    ) -> None:
+        """Light verification (reference :730, the blocksync/light-client
+        hot path): only ForBlock signatures counted; masked tally replaces
+        the serial 2/3 early exit."""
+        self._check_commit_shape(block_id, height, commit)
+        verifier = verifier or default_verifier()
+        items, idxs = self._gather_items(chain_id, commit, True)
+        ok = verifier.verify(items)
+        tallied = sum(
+            self.validators[i].voting_power
+            for valid, i in zip(ok, idxs)
+            if valid
+        )
+        self._check_maj23(tallied)
+
+    def verify_commit_light_trusting(
+        self,
+        chain_id: str,
+        commit: Commit,
+        trust_numerator: int = 1,
+        trust_denominator: int = 3,
+        verifier: Optional[BatchVerifier] = None,
+    ) -> None:
+        """Trusted-overlap verification (reference :782): this (old,
+        trusted) set need only overlap the commit by > trust-level of its
+        own power. Signers are matched by address, not index."""
+        if trust_denominator == 0:
+            raise ValueError("trust level has zero denominator")
+        from .canonical import CanonicalVoteEncoder
+
+        verifier = verifier or default_verifier()
+        items, powers = [], []
+        seen: set[bytes] = set()
+        # parts hoisted out of the per-validator loop (only ForBlock rows
+        # are gathered here, so one (prefix, suffix) covers every row)
+        prefix, suffix = commit._sign_bytes_parts(chain_id, True)
+        for i, cs in enumerate(commit.signatures):
+            if not cs.for_block():
+                continue
+            idx, val = self.get_by_address(cs.validator_address)
+            if idx < 0 or val is None:
+                continue
+            if val.address in seen:
+                raise ValueError("double vote from validator")
+            seen.add(val.address)
+            items.append(
+                SigItem(
+                    val.pub_key.data,
+                    CanonicalVoteEncoder.vote_from_parts(
+                        prefix, suffix, cs.timestamp_ns
+                    ),
+                    cs.signature,
+                    key_type=getattr(val.pub_key, "type_name", "ed25519"),
+                )
+            )
+            powers.append(val.voting_power)
+        ok = verifier.verify(items)
+        tallied = sum(p for valid, p in zip(ok, powers) if valid)
+        needed = (
+            self.total_voting_power() * trust_numerator
+        ) // trust_denominator
+        if tallied <= needed:
+            raise ValueError(
+                f"insufficient trusted voting power: {tallied} <= {needed}"
+            )
+
+    # --- quorum-certificate verification (the QC plane) -------------------
+
+    def qc_capable(self) -> bool:
+        """True when every member carries a BLS key — the precondition
+        for verifying (and assembling) quorum certificates against this
+        set."""
+        return bool(self.validators) and all(
+            v.bls_pub_key for v in self.validators
+        )
+
+    def _qc_item(self, chain_id: str, qc) -> tuple[bytes, bytes, bytes, int]:
+        """(msg, agg_sig, signer-keys-concat, tallied-power) for one QC
+        against this set, after the structural checks. Raises ValueError
+        on shape/quorum problems — the cryptographic verdict is the
+        engine's."""
+        if qc is None:
+            raise ValueError("nil quorum certificate")
+        qc.validate_basic()
+        if qc.signers.size != self.size():
+            raise ValueError(
+                f"qc signer bitset size {qc.signers.size} != "
+                f"valset size {self.size()}"
+            )
+        keys = []
+        tallied = 0
+        for i in qc.signers.ones():
+            val = self.validators[i]
+            if not val.bls_pub_key:
+                raise ValueError(
+                    f"validator {i} has no bls key; set is not qc-capable"
+                )
+            keys.append(val.bls_pub_key)
+            tallied += val.voting_power
+        self._check_maj23(tallied)
+        return (
+            qc.sign_bytes(chain_id),
+            qc.agg_signature,
+            b"".join(keys),
+            tallied,
+        )
+
+    def verify_commit_qc(
+        self,
+        chain_id: str,
+        block_id: BlockID,
+        height: int,
+        qc,
+        engine=None,
+    ) -> None:
+        """The QC replacement for verify_commit_light: >2/3 of this
+        set's power in the signer bitset, then ONE aggregate pairing
+        check over the signers' committed BLS keys — cost flat in
+        committee size. `engine` is an items->verdicts callable (the
+        qc_verify engine); defaults to the scheduler-routed dispatch."""
+        if height != qc.height:
+            raise ValueError("qc height mismatch")
+        if block_id != qc.block_id:
+            raise ValueError("qc block id mismatch")
+        msg, sig, keys, _ = self._qc_item(chain_id, qc)
+        engine = engine or _default_qc_engine()
+        ok = engine([(msg, sig, keys)])
+        if not (len(ok) == 1 and ok[0]):
+            raise ValueError("invalid quorum certificate aggregate")
+
+    def verify_commits_qc(
+        self, chain_id: str, entries: list, engine=None
+    ) -> list[bool]:
+        """Bulk form — entries: [(block_id, height, qc)], one verdict
+        per entry (no exception per entry; callers fall back per
+        height). All well-shaped entries verify as ONE engine
+        submission, i.e. one random-linear-combination multi-pairing
+        round for the whole blocksync window."""
+        items = []
+        spans: list[int] = []  # item index per entry; -1 = malformed
+        for block_id, height, qc in entries:
+            try:
+                if qc is None:
+                    raise ValueError("nil qc")
+                if height != qc.height:
+                    raise ValueError("qc height mismatch")
+                if block_id != qc.block_id:
+                    raise ValueError("qc block id mismatch")
+                msg, sig, keys, _ = self._qc_item(chain_id, qc)
+            except ValueError:
+                spans.append(-1)
+                continue
+            spans.append(len(items))
+            items.append((msg, sig, keys))
+        engine = engine or _default_qc_engine()
+        ok = engine(items) if items else []
+        return [bool(ok[s]) if s >= 0 else False for s in spans]
+
+    def verify_commit_qc_trusting(
+        self,
+        chain_id: str,
+        qc,
+        signer_set: "ValidatorSet",
+        trust_numerator: int = 1,
+        trust_denominator: int = 3,
+        engine=None,
+    ) -> None:
+        """QC form of verify_commit_light_trusting: the aggregate
+        verifies against `signer_set` (the NEW set, whose hash the
+        certified header pins), and this (old, trusted) set need only
+        overlap the signers by > trust-level of its own power — matched
+        by address, exactly like the commit path, but proven by the one
+        aggregate check instead of per-signer verifies."""
+        if trust_denominator == 0:
+            raise ValueError("trust level has zero denominator")
+        msg, sig, keys, _ = signer_set._qc_item(chain_id, qc)
+        engine = engine or _default_qc_engine()
+        ok = engine([(msg, sig, keys)])
+        if not (len(ok) == 1 and ok[0]):
+            raise ValueError("invalid quorum certificate aggregate")
+        tallied = 0
+        seen: set[bytes] = set()
+        for i in qc.signers.ones():
+            addr = signer_set.validators[i].address
+            if addr in seen:
+                continue
+            seen.add(addr)
+            idx, val = self.get_by_address(addr)
+            if idx >= 0 and val is not None:
+                tallied += val.voting_power
+        needed = (
+            self.total_voting_power() * trust_numerator
+        ) // trust_denominator
+        if tallied <= needed:
+            raise ValueError(
+                f"insufficient trusted voting power: {tallied} <= {needed}"
+            )
+
+    def _check_commit_shape(
+        self, block_id: BlockID, height: int, commit: Commit
+    ) -> None:
+        if self.size() != commit.size():
+            raise ValueError(
+                f"commit size {commit.size()} != valset size {self.size()}"
+            )
+        if height != commit.height:
+            raise ValueError("commit height mismatch")
+        if block_id != commit.block_id:
+            raise ValueError("commit block id mismatch")
+
+    def _check_maj23(self, tallied: int) -> None:
+        needed = self.total_voting_power() * 2 // 3
+        if tallied <= needed:
+            raise ValueError(
+                f"insufficient voting power: {tallied} <= {needed}"
+            )
+
+    # --- encoding ---------------------------------------------------------
+
+    def encode(self) -> bytes:
+        body = b"".join(
+            pio.field_message(
+                1,
+                v.encode() + pio.field_varint(4, v.proposer_priority + 2**62),
+            )
+            for v in self.validators
+        )
+        if self.proposer is not None:
+            body += pio.field_bytes(2, self.proposer.address)
+        return body
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ValidatorSet":
+        f = pio.decode_fields(data)
+        vals = []
+        for vd in f.get(1, []):
+            vf = pio.decode_fields(vd)
+            pk = pubkey_from_type(
+                vf.get(1, [b"ed25519"])[0].decode(), vf[2][0]
+            )
+            v = Validator(
+                pub_key=pk,
+                voting_power=vf.get(3, [0])[0],
+                proposer_priority=vf.get(4, [2**62])[0] - 2**62,
+                bls_pub_key=vf.get(5, [b""])[0],
+            )
+            vals.append(v)
+        vs = cls.__new__(cls)
+        vs.validators = sorted(vals, key=lambda v: v.address)
+        vs._total_voting_power = None
+        vs._hash = None
+        vs.proposer = None
+        if 2 in f:
+            i, v = vs.get_by_address(f[2][0])
+            vs.proposer = v
+        return vs
+
+    def __repr__(self) -> str:
+        return f"ValidatorSet{{n={self.size()} tvp={self.total_voting_power()}}}"
