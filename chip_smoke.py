@@ -5,17 +5,21 @@
 
 Phases (any failure raises and the exit code is non-zero):
 
-1. Build the four ed25519 kernels from ``tendermint_tpu_torch/ops/csrc``
-   into ``tendermint_tpu_torch/_kbuild/`` (a ``-Xptxas -v`` report of
-   registers and spills runs beside the build), print the build seconds
-   and the card's ``nvidia-smi`` name and power limit.
+1. Build the ed25519 and SHA-512 kernels from
+   ``tendermint_tpu_torch/ops/csrc`` into ``tendermint_tpu_torch/_kbuild/``
+   (a ``-Xptxas -v`` report of registers and spills per kernel runs beside
+   the build), print the build seconds and the card's ``nvidia-smi`` name
+   and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs, with exact equality (bytes and bitmaps are integers):
-   ``neg_pubkey_table`` on 256 keys (valid plus adversarial: small order,
-   non-canonical y, no square root, x = 0 with the sign bit),
-   ``verify_prehashed_table`` and ``verify_prehashed`` on 256 mixed
-   valid/invalid rows (also held against the host oracle), ``dbl_chain``
-   on 8192 points x 256 doublings (bytes and affine coordinates, row 0
+   ``neg_pubkey_table`` and ``neg_pubkey_bigtable`` on 256 keys (valid
+   plus adversarial: small order, non-canonical y, no square root, x = 0
+   with the sign bit), ``verify_prehashed_table`` and ``verify_prehashed``
+   on 256 mixed valid/invalid rows, ``verify_prehashed_bigcache`` and
+   ``_mxu`` on 2048 such rows (each also held against the host oracle),
+   ``challenge_batch`` on 2048 ragged rows (and against hashlib + % L),
+   the reduction kernel alone on adversarial digests, ``dbl_chain`` on
+   8192 points x 256 doublings (bytes and affine coordinates, row 0
    against 256 host ``point_double``).
 3. Drive the main paths through their entry points, each with the launch
    counts zeroed just before and read just after:
@@ -26,10 +30,22 @@ Phases (any failure raises and the exit code is non-zero):
      cache holds 64 keys verifies one 150-row round on the generic kernel,
      held against the host oracle;
    - the doubling chain: ``dbl_chain`` at the Pallas microbenchmark's
-     workload (8192 points, 256 doublings).
+     workload (8192 points, 256 doublings);
+   - bulk commit verification, as blocksync catches up: 64 commits of the
+     150-validator set (9600 signatures, bucket 16384: the big tier), one
+     with the signatures of validators holding more than 1/3 of the power
+     tampered, verified by ``ValidatorSet.verify_commits_light`` from an
+     executor thread through a started ``VerifyScheduler`` and
+     ``default_dispatch("blocksync")``: twice with challenges hashed on
+     the host (the first window builds the big tables), twice with
+     challenges hashed on the card (``device_challenge_min=2048``), once
+     under ``TM_TPU_MXU_GATHER=1``. Each run's verdicts, the per-row bitmap
+     of the window (also a seeded sample against the host oracle) and the
+     scheduler's ledger round are checked.
 4. Time each kernel (median of 20 launches, CUDA events) and its plain
-   version (median of 3) at the main path's shapes, and
-   ``verify_commit`` per height; work out each kernel's bound.
+   version (median of 3) at the main paths' shapes, ``verify_commit`` per
+   height, and the bulk window's wall time with its host and device
+   shares; work out each kernel's bound.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -41,6 +57,9 @@ ptxas report is kept beside the build, in
 from __future__ import annotations
 
 import argparse
+import asyncio
+import gc
+import hashlib
 import json
 import os
 import re
@@ -53,7 +72,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and 32-bit integer
 # multiply-adds/s, taken as a quarter of the 67 TFLOP/s float32 rate
-# (IMAD issues at half the FFMA rate, and an FFMA counts two FLOPs).
+# (IMAD issues at half the FFMA rate, and an FFMA counts two FLOPs). The
+# SHA-512 kernel's logic, shift and add instructions are counted against
+# the same rate.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
 # a 5 x 51-bit field multiply is 25 64x64->128-bit products, each four
@@ -70,9 +91,26 @@ FE_BASE_MULT = 32 * 8
 FE_FINISH = 1 + 8 + FE_INVERT + 2  # to_cached, add, compress
 FE_VERIFY_TABLE = FE_VAR_MULT + FE_BASE_MULT + FE_FINISH
 FE_DBL = 8
+# the big table of one key: decompress, to_cached(-A), 14 cached adds for
+# row 0, 63 x 4 doublings of the 16 columns, 64 x 16 to_cached (the work
+# of the function; the kernel's 16 threads per key each decompress and
+# repeat row 0's adds up to their column)
+FE_BIGTABLE = FE_DECOMPRESS + 1 + 14 * 8 + 63 * 4 * 16 * FE_DBL + 64 * 16
+FE_VERIFY_BIG = 64 * 8 + FE_BASE_MULT + FE_FINISH  # 64 cached adds, [s]B
+# SHA-512, per 128-byte block, from ops/csrc/sha512_kernels.cu: 80 rounds
+# of ~25 64-bit operations and 64 schedule steps of ~13, each 64-bit
+# operation two 32-bit instructions
+SHA512_OPS_PER_BLOCK = 2 * (80 * 25 + 64 * 13)
+# sc_reduce: 14 folds of 6 64-bit multiply-adds, 46 carries, the limb
+# loads and the packing; about a thousand 32-bit instructions
+SC_REDUCE_OPS = 1000
 
+# commits per blocksync window (VERIFY_WINDOW, tendermint_tpu/blocksync/
+# reactor.py:243): the bulk path verifies one window as one batch
+WINDOW = 64
 
 SOURCE = "tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu"
+SHA_SOURCE = "tendermint_tpu_torch/ops/csrc/sha512_kernels.cu"
 
 
 def max_abs_err(a, b) -> int:
@@ -126,6 +164,157 @@ def time_cuda(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def mixed_rows(host, keys, pubs, n_rows: int, n_pad: int, tag: bytes):
+    """n_rows (pubkey, msg, sig) rows over the keys: valid, wrong message,
+    flipped signature bit, s >= L, adversarial keys (rows 200.. of pubs),
+    and the last n_pad rows padding. Returns (items, idx, want) with
+    idx -1 on padding rows and want the host oracle's verdicts."""
+    n_keys = len(keys)
+    items, idx = [], []
+    for i in range(n_rows):
+        ki = i % n_keys
+        msg = b"%s-%d" % (tag, i)
+        sig = keys[ki].sign(msg)
+        kind = i % 8
+        pub = pubs[ki]
+        if kind == 1:
+            msg = msg + b"!"
+        elif kind == 2:
+            sig = sig[:7] + bytes([sig[7] ^ 4]) + sig[8:]
+        elif kind == 3:
+            s = int.from_bytes(sig[32:], "little") + host.L
+            sig = sig[:32] + s.to_bytes(32, "little")
+        elif kind == 4:
+            ki = n_keys + (i // 8) % (len(pubs) - n_keys)
+            pub = pubs[ki]
+        items.append((pub, msg, sig))
+        idx.append(-1 if i >= n_rows - n_pad else ki)
+    want = [
+        host.verify(p, m, s) and i < n_rows - n_pad
+        for i, (p, m, s) in enumerate(items)
+    ]
+    return items, idx, want
+
+
+def signed_window(host, types, vset, by_addr, chain_id, n_commits, bad_height, rng):
+    """n_commits commits of vset for heights 1.., all validators signing
+    for the block; at bad_height the signatures of the heaviest
+    validators holding more than 1/3 of the power are tampered. Returns
+    (entries [(block_id, height, commit)], tampered validator indices)."""
+    vals = vset.validators
+    total = sum(v.voting_power for v in vals)
+    order = sorted(range(len(vals)), key=lambda i: -vals[i].voting_power)
+    tampered, power = [], 0
+    for i in order:
+        if 3 * power > total:
+            break
+        tampered.append(i)
+        power += vals[i].voting_power
+    entries = []
+    for h in range(1, n_commits + 1):
+        bid = types.BlockID(
+            hash=rng.bytes(32),
+            part_set_header=types.PartSetHeader(total=1, hash=rng.bytes(32)),
+        )
+        sigs = [
+            types.CommitSig(types.BlockIDFlag.COMMIT, v.address,
+                            1_700_000_000_000_000_000 + h * 10**9 + i)
+            for i, v in enumerate(vals)
+        ]
+        commit = types.Commit(h, 0, bid, sigs)
+        for i, v in enumerate(vals):
+            sig = by_addr[v.address].sign(commit.vote_sign_bytes(chain_id, i))
+            if h == bad_height and i in tampered:
+                sig = sig[:5] + bytes([sig[5] ^ 1]) + sig[6:]
+            sigs[i].signature = sig
+        entries.append((bid, h, commit))
+    return entries, tampered
+
+
+def run_window(verifier, vset, chain_id, entries, reps: int, label: str):
+    """verify_commits_light over the window, `reps` times, from an executor
+    thread through a started VerifyScheduler installed as the process
+    default (default_dispatch("blocksync")), as blocksync's reactor does;
+    then the window's rows once more through the same adapter for the
+    per-row bitmap. Each timed window starts after a full garbage
+    collection, and the collector's pauses inside it are summed. Returns
+    (verdicts per rep, wall seconds per rep, gc pause seconds per rep,
+    bitmap, items, the scheduler's ledger entries)."""
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.parallel import (
+        VerifyScheduler, default_dispatch, set_default_scheduler,
+    )
+
+    items = [
+        it for _, _, c in entries for it in vset._gather_items(chain_id, c, True)[0]
+    ]
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(
+        verifier=verifier, ledger=ledger,
+        metrics=SchedulerMetrics(Registry("smoke_" + label)),
+    )
+
+    gc_pause = [0.0, 0.0]  # summed seconds, start of the current pause
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_pause[1] = time.perf_counter()
+        else:
+            gc_pause[0] += time.perf_counter() - gc_pause[1]
+
+    async def go():
+        await sched.start()
+        loop = asyncio.get_running_loop()
+        verdicts, walls, gcs = [], [], []
+        try:
+            for _ in range(reps):
+                gc.collect()
+                gc_pause[0] = 0.0
+                t0 = time.perf_counter()
+                verdicts.append(await loop.run_in_executor(
+                    None,
+                    lambda: vset.verify_commits_light(
+                        chain_id, entries, verifier=default_dispatch("blocksync")
+                    ),
+                ))
+                walls.append(time.perf_counter() - t0)
+                gcs.append(gc_pause[0])
+            bitmap = await loop.run_in_executor(
+                None, lambda: default_dispatch("blocksync").verify(items)
+            )
+        finally:
+            await sched.stop()
+        return verdicts, walls, gcs, bitmap
+
+    set_default_scheduler(sched)
+    gc.callbacks.append(on_gc)
+    try:
+        verdicts, walls, gcs, bitmap = asyncio.run(go())
+    finally:
+        gc.callbacks.remove(on_gc)
+        set_default_scheduler(None)
+    return (verdicts, walls, gcs, [bool(v) for v in bitmap], items,
+            ledger.entries())
+
+
+def check_window(host, verdicts, bitmap, items, entries_ledger, n_commits,
+                 bad_height, tampered, n_vals, rng, label):
+    """The contract of one bulk run: verdicts, the per-row bitmap False
+    exactly on the tampered rows, a seeded sample against the host oracle,
+    and every ledger round one blocksync round of the whole window."""
+    want = [h != bad_height for h in range(1, n_commits + 1)]
+    for v in verdicts:
+        assert v == want, f"{label}: verdicts {v}"
+    bad_rows = {(bad_height - 1) * n_vals + i for i in tampered}
+    assert [i for i, ok in enumerate(bitmap) if not ok] == sorted(bad_rows), label
+    for i in rng.choice(len(items), size=min(256, len(items)), replace=False):
+        it = items[int(i)]
+        assert bitmap[int(i)] == host.verify(it.pubkey, it.msg, it.sig), (label, i)
+    for e in entries_ledger:
+        assert e["engine"] == "sig" and e["rows"] == {"blocksync": len(items)}, e
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -140,17 +329,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from tendermint_tpu_torch import ops
+    from tendermint_tpu_torch import ops, types
     from tendermint_tpu_torch.crypto import batch_verifier as bv
     from tendermint_tpu_torch.crypto import ed25519 as host
+    from tendermint_tpu_torch.crypto.shape_registry import ShapeRegistry
     from tendermint_tpu_torch.ops import _build, curve25519 as curve
     from tendermint_tpu_torch.ops import dbl_chain as dc
     from tendermint_tpu_torch.ops import ed25519_batch as eb
     from tendermint_tpu_torch.ops import field25519 as fe
-    from tendermint_tpu_torch.types import (
-        BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader, Validator,
-        ValidatorSet,
-    )
+    from tendermint_tpu_torch.ops import sha512
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -195,41 +382,21 @@ def main() -> int:
     want_valid = [host.point_decompress(p) is not None for p in pubs]
     assert tvalid.cpu().tolist() == want_valid, "neg_pubkey_table validity"
 
-    # 256 verify rows over these keys: valid, wrong msg, flipped sig bit,
-    # s >= L, adversarial keys, padding rows (idx -1, s_ok False)
+    def row_tensors(items, idx, n_pad):
+        R = T([s[:32] for _, _, s in items]).to(dev)
+        S = T([s[32:] for _, _, s in items]).to(dev)
+        K = T([host.challenge(s[:32], p, m).to_bytes(32, "little")
+               for p, m, s in items]).to(dev)
+        ok = torch.tensor(
+            [int.from_bytes(s[32:], "little") < host.L for _, _, s in items]
+        )
+        ok[len(items) - n_pad:] = False
+        return R, S, K, ok.to(dev), torch.tensor(idx, dtype=torch.int32, device=dev)
+
+    # 256 verify rows over these keys, the last 8 padding
     n_rows = 256
-    items, idx = [], []
-    for i in range(n_rows):
-        ki = i % 200
-        msg = b"smoke-%d" % i
-        sig = keys[ki].sign(msg)
-        kind = i % 8
-        pub = pubs[ki]
-        if kind == 1:
-            msg = msg + b"!"
-        elif kind == 2:
-            sig = sig[:7] + bytes([sig[7] ^ 4]) + sig[8:]
-        elif kind == 3:
-            s = int.from_bytes(sig[32:], "little") + host.L
-            sig = sig[:32] + s.to_bytes(32, "little")
-        elif kind == 4:
-            ki = 200 + (i // 8) % 56
-            pub = pubs[ki]
-        items.append((pub, msg, sig))
-        idx.append(-1 if i >= 248 else ki)
-    R = T([s[:32] for _, _, s in items]).to(dev)
-    S = T([s[32:] for _, _, s in items]).to(dev)
-    K = T([host.challenge(s[:32], p, m).to_bytes(32, "little")
-           for p, m, s in items]).to(dev)
-    s_ok = torch.tensor(
-        [int.from_bytes(s[32:], "little") < host.L for _, _, s in items]
-    )
-    s_ok[248:] = False
-    s_ok = s_ok.to(dev)
-    idx_t = torch.tensor(idx, dtype=torch.int32, device=dev)
-    want = [
-        host.verify(p, m, s) and i < 248 for i, (p, m, s) in enumerate(items)
-    ]
+    items, idx, want = mixed_rows(host, keys, pubs, n_rows, 8, b"smoke")
+    R, S, K, s_ok, idx_t = row_tensors(items, idx, 8)
     vt = eb.verify_prehashed_table(tables, tvalid, idx_t, R, S, K, s_ok)
     vt_plain = eb.verify_prehashed_table_plain(tables, tvalid, idx_t, R, S, K, s_ok)
     torch.cuda.synchronize()
@@ -244,6 +411,64 @@ def main() -> int:
     errs["verify_prehashed"] = max_abs_err(vg, vg_plain)
     assert errs["verify_prehashed"] == 0, "verify_prehashed: kernel != plain"
     assert vg.cpu().tolist() == want, "verify_prehashed != host oracle"
+
+    # the big tier: 256 tables, 2048 rows (the last 64 padding)
+    btables, bvalid = eb.neg_pubkey_bigtable(pub_d)
+    p_btables, p_bvalid = eb.neg_pubkey_bigtable_plain(pub_d)
+    torch.cuda.synchronize()
+    errs["neg_pubkey_bigtable"] = max(max_abs_err(btables, p_btables),
+                                      max_abs_err(bvalid, p_bvalid))
+    assert errs["neg_pubkey_bigtable"] == 0, "neg_pubkey_bigtable: kernel != plain"
+    assert bvalid.cpu().tolist() == want_valid, "neg_pubkey_bigtable validity"
+    del p_btables
+    big_items, big_idx, big_want = mixed_rows(host, keys, pubs, 2048, 64, b"big")
+    bR, bS, bK, b_ok, bidx_t = row_tensors(big_items, big_idx, 64)
+    big_args = (btables, bvalid, bidx_t, bR, bS, bK, b_ok)
+    for name, kern, plain in (
+        ("verify_prehashed_bigcache", eb.verify_prehashed_bigcache,
+         eb.verify_prehashed_bigcache_plain),
+        ("verify_prehashed_bigcache_mxu", eb.verify_prehashed_bigcache_mxu,
+         eb.verify_prehashed_bigcache_mxu_plain),
+    ):
+        got = kern(*big_args)
+        got_plain = plain(*big_args)
+        torch.cuda.synchronize()
+        errs[name] = max_abs_err(got, got_plain)
+        assert errs[name] == 0, f"{name}: kernel != plain"
+        assert got.cpu().tolist() == big_want, f"{name} != host oracle"
+    assert any(big_want) and not all(big_want)
+
+    # challenges: 2048 ragged rows of R || A || M, 0..1000-byte messages
+    ch_rows = [(rng.bytes(32), rng.bytes(32), rng.bytes(int(n)))
+               for n in rng.integers(0, 1001, 2048)]
+    ch_buf, ch_cnt = sha512.pad_messages(
+        [m for _, _, m in ch_rows], prefix_pairs=[r + a for r, a, _ in ch_rows]
+    )
+    ch_buf_d = torch.from_numpy(ch_buf).to(dev)
+    ch_cnt_d = torch.from_numpy(ch_cnt).to(dev)
+    ch = sha512.challenge_batch(ch_buf_d, ch_cnt_d)
+    ch_plain = sha512.challenge_batch_plain(ch_buf_d, ch_cnt_d)
+    torch.cuda.synchronize()
+    errs["challenge_batch"] = max_abs_err(ch, ch_plain)
+    assert errs["challenge_batch"] == 0, "challenge_batch: kernel != plain"
+    assert [bytes(r) for r in ch.cpu().tolist()] == [
+        (int.from_bytes(hashlib.sha512(r + a + m).digest(), "little") % host.L)
+        .to_bytes(32, "little") for r, a, m in ch_rows
+    ], "challenge_batch != hashlib + % L"
+    # the reduction alone, on digests SHA-512 cannot be made to give
+    L = host.L
+    digests = [2**512 - 1, L - 1, L, L + 1, 2 * L, 2 * L - 1, 2**252, 0, 1,
+               2**256 - 1, (2**512 - 1) // L * L, (2**512 - 1) // L * L - 1]
+    digests += [int.from_bytes(rng.bytes(64), "little") for _ in range(1012)]
+    dig_d = T([v.to_bytes(64, "little") for v in digests]).to(dev)
+    red = sha512.reduce_mod_l(dig_d)
+    red_plain = sha512.reduce_mod_l_plain(dig_d)
+    torch.cuda.synchronize()
+    reduce_err = max_abs_err(red, red_plain)
+    assert reduce_err == 0, "reduce_mod_l: kernel != plain"
+    assert [int.from_bytes(bytes(r), "little") for r in red.cpu().tolist()] == [
+        v % L for v in digests
+    ], "reduce_mod_l != int % L"
 
     # 8192 points [c_i]B, doubled 256 times
     n_pts, n_dbl = 8192, dc.N_DBL
@@ -270,35 +495,37 @@ def main() -> int:
     want0 = [hq[0] * zi % host.P, hq[1] * zi % host.P]
     got0 = [int.from_bytes(bytes(r), "little") for r in affine(d_out)[0].cpu().tolist()]
     assert got0 == want0, "dbl_chain row 0 != host oracle"
-    print("kernel-vs-plain: all four kernels equal their plain versions "
-          "(tolerance: exact)")
+    print(f"kernel-vs-plain: all eight wrappers and the reduction kernel "
+          f"equal their plain versions (tolerance: exact; reduce_mod_l on "
+          f"{len(digests)} digests, max_abs_err {reduce_err})")
 
     # --- 3. main paths ------------------------------------------------------
     chain_id = "chip-smoke"
     vkeys = [host.PrivKey(rng.bytes(32)) for _ in range(args.validators)]
     powers = rng.integers(1, 100, args.validators).tolist()
-    vset = ValidatorSet(
-        [Validator(k.public_key(), int(p)) for k, p in zip(vkeys, powers)]
+    vset = types.ValidatorSet(
+        [types.Validator(k.public_key(), int(p)) for k, p in zip(vkeys, powers)]
     )
     by_addr = {k.public_key().address(): k for k in vkeys}
 
     def signed_commit(height: int):
-        bid = BlockID(
+        bid = types.BlockID(
             hash=rng.bytes(32),
-            part_set_header=PartSetHeader(total=1, hash=rng.bytes(32)),
+            part_set_header=types.PartSetHeader(total=1, hash=rng.bytes(32)),
         )
         sigs = [
-            CommitSig(BlockIDFlag.COMMIT, v.address,
-                      1_700_000_000_000_000_000 + height * 10**9 + i)
+            types.CommitSig(types.BlockIDFlag.COMMIT, v.address,
+                            1_700_000_000_000_000_000 + height * 10**9 + i)
             for i, v in enumerate(vset.validators)
         ]
-        commit = Commit(height, 0, bid, sigs)
+        commit = types.Commit(height, 0, bid, sigs)
         for i, v in enumerate(vset.validators):
             sigs[i].signature = by_addr[v.address].sign(
                 commit.vote_sign_bytes(chain_id, i)
             )
         return bid, commit
 
+    # commit verification
     commits = [signed_commit(h) for h in range(1, args.heights + 2)]
     ops.reset_launches()
     verifier = bv.default_verifier()
@@ -329,17 +556,76 @@ def main() -> int:
     got = small.verify(g_items).tolist()
     assert got == [host.verify(it.pubkey, it.msg, it.sig) for it in g_items]
     assert got.count(False) == 1 and not got[bad_i]
-    launches = ops.kernel_launches()
-    del launches["dbl_chain"]
+    launches = {}
+    commit_launches = ops.kernel_launches()
+    for name in ("neg_pubkey_table", "verify_prehashed_table", "verify_prehashed"):
+        assert commit_launches[name] > 0, f"{name} was not launched on its main path"
+        launches[name] = commit_launches[name]
+    print(f"main path: verify_commit x{args.heights} at {args.validators} "
+          f"validators ok; tampered index {bad_i} rejected; generic round ok; "
+          f"launches {json.dumps({k: v for k, v in commit_launches.items() if v})}")
+
+    # the doubling chain
     ops.reset_launches()
     dc.dbl_chain(pts, n_dbl)
     torch.cuda.synchronize()
     launches["dbl_chain"] = ops.kernel_launches()["dbl_chain"]
-    for name, n in launches.items():
-        assert n > 0, f"{name} was not launched on its main path"
-    print(f"main path: verify_commit x{args.heights} at {args.validators} "
-          f"validators ok; tampered index {bad_i} rejected; generic round ok; "
-          f"launches {json.dumps(launches)}")
+    assert launches["dbl_chain"] > 0, "dbl_chain was not launched on its main path"
+
+    # bulk commit verification: one blocksync window through the scheduler
+    n_win = WINDOW
+    bad_height = min(40, n_win)
+    t0 = time.perf_counter()
+    entries, tampered = signed_window(
+        host, types, vset, by_addr, chain_id, n_win, bad_height, rng
+    )
+    sign_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _, _, c in entries:
+        vset._gather_items(chain_id, c, True)
+    assembly_s = time.perf_counter() - t0
+    n_sigs = n_win * args.validators
+    os.environ.pop("TM_TPU_MXU_GATHER", None)
+    v_host = bv.BatchVerifier(shape_registry=ShapeRegistry())
+    v_dev = bv.BatchVerifier(device_challenge_min=2048, shape_registry=ShapeRegistry())
+    os.environ["TM_TPU_MXU_GATHER"] = "1"
+    v_mxu = bv.BatchVerifier(shape_registry=ShapeRegistry())
+    del os.environ["TM_TPU_MXU_GATHER"]
+    assert v_mxu._big_verify is eb.verify_prehashed_bigcache_mxu
+    bulk = {}
+    for label, bverifier, reps, tier, path_kernels in (
+        ("host_hash", v_host, 2, "big",
+         ("neg_pubkey_bigtable", "verify_prehashed_bigcache")),
+        ("device_hash", v_dev, 2, "big_msgs",
+         ("challenge_batch", "verify_prehashed_bigcache")),
+        ("mxu_gather", v_mxu, 1, "big", ("verify_prehashed_bigcache_mxu",)),
+    ):
+        if bverifier is not v_host:
+            bverifier._big = v_host._big  # the window's tables, built once
+        ops.reset_launches()
+        verdicts, walls, gcs, bitmap, items, ledger = run_window(
+            bverifier, vset, chain_id, entries, reps, label
+        )
+        torch.cuda.synchronize()
+        counts = ops.kernel_launches()
+        for name in path_kernels:
+            assert counts[name] > 0, f"{name} was not launched on the {label} path"
+            launches[name] = launches.get(name, 0) + counts[name]
+        check_window(host, verdicts, bitmap, items, ledger, n_win, bad_height,
+                     tampered, args.validators, rng, label)
+        b = bverifier._registry.bucket_for(n_sigs)
+        assert all(e["dispatched"] == b for e in ledger), ledger
+        tiers = bverifier._registry.buckets_by_tier()
+        assert tiers[tier] == (b,), tiers
+        bulk[label] = {"walls": walls, "gcs": gcs, "ledger": ledger, "tiers": tiers,
+                       "launches": {k: v for k, v in counts.items() if v}}
+        print(f"main path: bulk {label}: {n_win} commits x {args.validators} "
+              f"validators = {n_sigs} rows, bucket {b}, tiers "
+              f"{json.dumps({k: list(v) for k, v in tiers.items()})}; verdicts "
+              f"[True]*{bad_height - 1} + [False] + [True]*{n_win - bad_height} "
+              f"x{reps}; bitmap False on exactly the {len(tampered)} tampered "
+              f"rows; 256-row sample = host oracle; launches "
+              f"{json.dumps(bulk[label]['launches'])}")
 
     # --- 4. timings ---------------------------------------------------------
     rows_store = verifier._small.tables.shape[0]
@@ -349,45 +635,117 @@ def main() -> int:
     # the generic rows carry the same keys and s as the table rows
     active_generic = active_table
     n_keys = pub_d.shape[0]
+
+    # the bulk window's operands at the main path's shapes
+    win_items = [
+        it for _, _, c in entries for it in vset._gather_items(chain_id, c, True)[0]
+    ]
+    big_store = v_host._big
+    b_win = v_host._registry.bucket_for(n_sigs)
+    w_idx = np.full(b_win, -1, dtype=np.int32)
+    w_r = np.zeros((b_win, 32), dtype=np.uint8)
+    w_s = np.zeros((b_win, 32), dtype=np.uint8)
+    w_k = np.zeros((b_win, 32), dtype=np.uint8)
+    w_ok = np.zeros(b_win, dtype=bool)
+    t0 = time.perf_counter()
+    for it in win_items:
+        int.from_bytes(hashlib.sha512(it.sig[:32] + it.pubkey + it.msg).digest(),
+                       "little") % host.L
+    host_hash_ms = (time.perf_counter() - t0) * 1e3
+    for i, it in enumerate(win_items):
+        w_idx[i] = big_store._idx[it.pubkey]
+        w_r[i] = np.frombuffer(it.sig[:32], np.uint8)
+        w_s[i] = np.frombuffer(it.sig[32:], np.uint8)
+        w_k[i] = np.frombuffer(
+            host.challenge(it.sig[:32], it.pubkey, it.msg).to_bytes(32, "little"),
+            np.uint8)
+        w_ok[i] = int.from_bytes(it.sig[32:], "little") < host.L
+    msgs = [it.msg for it in win_items] + [b""] * (b_win - n_sigs)
+    prefixes = [it.sig[:32] + it.pubkey for it in win_items] + [b""] * (b_win - n_sigs)
+    w_buf, w_cnt = sha512.pad_messages(msgs, prefix_pairs=prefixes)
+    D = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    w_args = (big_store.tables, big_store.valid, D(w_idx), D(w_r), D(w_s),
+              D(w_k), D(w_ok))
+    w_buf_d, w_cnt_d = D(w_buf), D(w_cnt)
+    live_big = int((w_ok & (w_idx >= 0)).sum())  # every window key is valid
+    used_keys = len(big_store._idx)
+    # the table build at the path's shape: 150 keys padded to the bucket
+    n_build = v_host._registry.bucket_for(len(vset.validators))
+    build_pubs = np.zeros((n_build, 32), dtype=np.uint8)
+    for i, v in enumerate(vset.validators):
+        build_pubs[i] = np.frombuffer(v.pub_key.data, np.uint8)
+    build_d = D(build_pubs)
+    blocks = int(w_cnt.sum())
+    base_bytes = curve.base_table_bytes().size
+    verify_big_bytes = (used_keys * 64 * 16 * 128 + used_keys + base_bytes + 96
+                        + b_win * (4 + 3 * 32 + 1 + 1))
     work = {
         "neg_pubkey_table": (
             lambda: eb.neg_pubkey_table(pub_d),
             lambda: eb.neg_pubkey_table_plain(pub_d),
             n_keys * (32 + 16 * 128 + 1),
-            n_keys * (FE_DECOMPRESS + FE_TABLE_BUILD),
-            "tendermint_tpu/ops/ed25519_batch.py:51",
+            n_keys * (FE_DECOMPRESS + FE_TABLE_BUILD) * IMAD_PER_FE_MUL,
+            "tendermint_tpu/ops/ed25519_batch.py:51", SOURCE,
         ),
         "verify_prehashed_table": (
             lambda: eb.verify_prehashed_table(tables, tvalid, idx_t, R, S, K, s_ok),
             lambda: eb.verify_prehashed_table_plain(tables, tvalid, idx_t, R, S, K, s_ok),
             tables.numel() + tvalid.numel() + 4 * n_rows + 3 * 32 * n_rows
-            + 2 * n_rows + curve.base_table_bytes().size + 96,
-            active_table * FE_VERIFY_TABLE,
-            "tendermint_tpu/ops/ed25519_batch.py:65",
+            + 2 * n_rows + base_bytes + 96,
+            active_table * FE_VERIFY_TABLE * IMAD_PER_FE_MUL,
+            "tendermint_tpu/ops/ed25519_batch.py:65", SOURCE,
         ),
         "verify_prehashed": (
             lambda: eb.verify_prehashed(G_pub, R, S, K, s_ok),
             lambda: eb.verify_prehashed_plain(G_pub, R, S, K, s_ok),
-            4 * 32 * n_rows + 2 * n_rows + curve.base_table_bytes().size + 96,
-            n_rows * FE_DECOMPRESS
-            + active_generic * (FE_TABLE_BUILD + FE_VERIFY_TABLE),
-            "tendermint_tpu/ops/ed25519_batch.py:36",
+            4 * 32 * n_rows + 2 * n_rows + base_bytes + 96,
+            (n_rows * FE_DECOMPRESS
+             + active_generic * (FE_TABLE_BUILD + FE_VERIFY_TABLE)) * IMAD_PER_FE_MUL,
+            "tendermint_tpu/ops/ed25519_batch.py:36", SOURCE,
         ),
         "dbl_chain": (
             lambda: dc.dbl_chain(pts, n_dbl),
             lambda: dc.dbl_chain_plain(pts, n_dbl),
             2 * pts.numel(),
-            n_pts * n_dbl * FE_DBL,
-            "tools/microbench_pallas.py:106",
+            n_pts * n_dbl * FE_DBL * IMAD_PER_FE_MUL,
+            "tools/microbench_pallas.py:106", SOURCE,
+        ),
+        "neg_pubkey_bigtable": (
+            lambda: eb.neg_pubkey_bigtable(build_d),
+            lambda: eb.neg_pubkey_bigtable_plain(build_d),
+            n_build * (32 + 64 * 16 * 128 + 1),
+            n_build * FE_BIGTABLE * IMAD_PER_FE_MUL,
+            "tendermint_tpu/ops/ed25519_batch.py:80", SOURCE,
+        ),
+        "verify_prehashed_bigcache": (
+            lambda: eb.verify_prehashed_bigcache(*w_args),
+            lambda: eb.verify_prehashed_bigcache_plain(*w_args),
+            verify_big_bytes,
+            live_big * FE_VERIFY_BIG * IMAD_PER_FE_MUL,
+            "tendermint_tpu/ops/ed25519_batch.py:96", SOURCE,
+        ),
+        "verify_prehashed_bigcache_mxu": (
+            lambda: eb.verify_prehashed_bigcache_mxu(*w_args),
+            lambda: eb.verify_prehashed_bigcache_mxu_plain(*w_args),
+            verify_big_bytes,
+            live_big * FE_VERIFY_BIG * IMAD_PER_FE_MUL,
+            "tendermint_tpu/ops/ed25519_batch.py:115", SOURCE,
+        ),
+        "challenge_batch": (
+            lambda: sha512.challenge_batch(w_buf_d, w_cnt_d),
+            lambda: sha512.challenge_batch_plain(w_buf_d, w_cnt_d),
+            w_buf.size + 4 * b_win + 32 * b_win,
+            blocks * SHA512_OPS_PER_BLOCK + b_win * SC_REDUCE_OPS,
+            "tendermint_tpu/ops/sha512.py:394", SHA_SOURCE,
         ),
     }
     rows = []
-    for name, (kern, plain, nbytes, fe_muls, replaces) in work.items():
+    for name, (kern, plain, nbytes, n_ops, replaces, source) in work.items():
         ms = time_cuda(torch, kern, 20)
         plain_ms = time_cuda(torch, plain, 3)
-        b_ms, b_by = bound_ms(nbytes, fe_muls * IMAD_PER_FE_MUL)
+        b_ms, b_by = bound_ms(nbytes, n_ops)
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -397,6 +755,29 @@ def main() -> int:
     print(f"time: verify_commit {args.validators} validators ms per height "
           f"{[round(x, 3) for x in commit_ms]} (first includes the table "
           f"build, store rows {rows_store}) | {smi}")
+    print(f"time: host hashlib + % L over the window's {n_sigs} rows "
+          f"{host_hash_ms:.2f} ms (one CPU thread; tm_challenge at the same "
+          f"rows is the challenge_batch line) | {smi}")
+    print(f"time: bulk window signing {sign_s:.1f} s (host, set-up); sign-bytes "
+          f"assembly of the window alone, first call {assembly_s * 1e3:.2f} ms")
+    for label, rec in bulk.items():
+        for rep, (wall, gc_s, e) in enumerate(
+            zip(rec["walls"], rec["gcs"], rec["ledger"])
+        ):
+            # the ledger's queue wait runs from the submission to the
+            # dispatch, so it holds the prepare; what lies outside the
+            # round is verify_commits_light's own work: sign-bytes assembly,
+            # the tally, and the thread hand-offs into the scheduler
+            outside_s = wall - e["queue_wait_s"] - e["device_s"]
+            host_s = outside_s + e["host_prep_s"]
+            print(f"time: bulk {label} window {rep + 1}: wall {wall * 1e3:.2f} ms, "
+                  f"{n_win / wall:.1f} commits/s; outside the round (sign-bytes "
+                  f"assembly, tally) {outside_s * 1e3:.2f} ms + prepare "
+                  f"{e['host_prep_s'] * 1e3:.2f} ms = host share "
+                  f"{host_s / wall:.3f}; device round {e['device_s'] * 1e3:.2f} ms "
+                  f"= device share {e['device_s'] / wall:.3f}; scheduler hand-off "
+                  f"{(e['queue_wait_s'] - e['host_prep_s']) * 1e3:.2f} ms; gc pauses "
+                  f"{gc_s * 1e3:.2f} ms | {smi}")
 
     # --- 5. result lines ----------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})

@@ -5,23 +5,30 @@ Counterpart of ``tendermint_tpu/crypto/batch_verifier.py``: call sites push
 over unchanged:
 
 - per-item host work: the challenge k = SHA-512(R || A || M) mod L and the
-  s < L range check;
+  s < L range check; bulk batches (``device_challenge_min``) instead hash
+  on the card (``ops/sha512.challenge_batch``, fused before the verify);
 - shape discipline: batches pad to the bucket ladder of
   ``crypto/shape_registry`` (padding rows have ``s_ok`` False and
   ``idx = -1``, so they are rejected without a table read);
-- the small-tier validator-table cache: each pubkey's negated radix-16
-  window table (2 KiB of canonical bytes) is built once by the
-  ``neg_pubkey_table`` kernel and kept on the card, in a store grown in
-  powers of two that resets when full; a batch that the store cannot hold
-  takes the generic kernel, and a row evicted between ``ensure`` and
-  ``snapshot`` by a concurrent verify gets one retry first;
+- the validator-table cache, in two tiers with separate locks. Small
+  (vote-sized) batches use radix-16 window tables (2 KiB of canonical
+  bytes per key) built by ``neg_pubkey_table``; batches whose bucket
+  reaches ``bigtable_min`` use doubling-free 64 x 16 fixed-window tables
+  (128 KiB per key) built by ``neg_pubkey_bigtable`` in chunks of 512
+  keys. Each store is kept on the card, grown in powers of two, reset when
+  full; a batch a store cannot hold takes the generic kernel (with host
+  challenges), and a row evicted between ``ensure`` and ``snapshot`` by a
+  concurrent verify gets one retry first;
+- ``TM_TPU_MXU_GATHER=1`` selects ``verify_prehashed_bigcache_mxu`` for
+  the big tier, read once at construction;
+- the ``prepare()``/``run()`` split: ``prepare`` is host-only (no tensor
+  reaches the card before ``run``), so the dispatch scheduler's prep
+  thread overlaps its dispatch thread;
 - the host crossover ``min_device_batch`` and the mixed-key partition.
 
 Not in this slice, and raising ``NotImplementedError`` (a missing feature,
-never a quiet fallback to the small tier or the host): a mesh or more than
-one device, the big tier (buckets >= ``bigtable_min``), the on-device
-SHA-512 challenges (``device_challenge_min``), and host verification of
-secp256k1 / sr25519 rows.
+never a quiet fallback): a mesh or more than one device, and host
+verification of secp256k1 / sr25519 rows.
 """
 
 from __future__ import annotations
@@ -40,18 +47,20 @@ from ..ops import ed25519_batch
 from .ed25519 import L, challenge
 from .shape_registry import ShapeRegistry, default_shape_registry
 
-# max rows of the device-resident small-tier table store (2 KiB/key)
+# max rows of each device-resident table store (small tier 2 KiB/key, big
+# tier 128 KiB/key; both grow lazily, so the cap bounds only the worst case)
 TABLE_CACHE_CAPACITY = 4096
 
-# batches whose bucket reaches this size belong to the big (doubling-free)
-# tier of the JAX package, which is not ported yet
+# batches whose bucket reaches this size use the big (doubling-free) tier
 BIGTABLE_MIN = 512
 
-# initial allocated rows of the lazy table store
+# initial allocated rows of the lazy table stores
 _TABLE_ROWS_MIN = 128
 
-_ROADMAP_BIG = "ROADMAP slice 2: big tier (kernels 5-7)"
-_ROADMAP_SHA = "ROADMAP slice 2: fused SHA-512 challenges (kernel 8)"
+# one message longer than this (with R || A) keeps the batch on host
+# hashing: the device buffer pads every row to the longest one's blocks
+_DEVICE_HASH_MAX_BYTES = 2048
+
 _ROADMAP_MESH = "ROADMAP multi-GPU slice (kernel 13)"
 _ROADMAP_KEYS = "ROADMAP gated kernels: secp256k1 / sr25519 host verify"
 
@@ -66,31 +75,40 @@ class SigItem:
 
 class _PreparedBatch:
     """Host-assembled batch whose device dispatch is deferred; ``run()``
-    blocks for the verdict bitmap (len == n)."""
+    blocks for the verdict bitmap (len == n). ``devices`` is the shard
+    count of the dispatch (always 1: one card)."""
 
-    __slots__ = ("n", "run")
+    __slots__ = ("n", "run", "devices")
 
-    def __init__(self, n: int, run):
+    def __init__(self, n: int, run, devices: int = 1):
         self.n = n
         self.run = run
+        self.devices = devices
+
+
+def _use_mxu_gather() -> bool:
+    """TM_TPU_MXU_GATHER=1 selects the big tier's one-hot-gather variant.
+    Read once, at BatchVerifier construction."""
+    return os.environ.get("TM_TPU_MXU_GATHER") == "1"
 
 
 class _TableCache:
-    """The device-resident table store (pubkey -> row), lazily grown.
+    """One device-resident table store (pubkey -> row), lazily grown.
 
-    All methods take the verifier's lock: a vote micro-batcher may call
+    All methods take the store's lock: a vote micro-batcher may call
     verify() from an executor thread while the event loop verifies."""
 
-    def __init__(self, lock, build_fn, capacity, device, registry=None,
-                 tier="build_small"):
+    def __init__(self, lock, build_fn, entry_shape, capacity, device,
+                 registry=None, tier="build"):
         self._lock = lock
         self._build_fn = build_fn
+        self._entry_shape = tuple(entry_shape)  # per-key dims after the row
         self._capacity = capacity
         self._device = device
         self._registry = registry or default_shape_registry()
         self._tier = tier
         self._idx: dict[bytes, int] = {}
-        self.tables: torch.Tensor | None = None  # [rows, 16, 4, 32] u8
+        self.tables: torch.Tensor | None = None  # [rows, *entry_shape] u8
         self.valid: torch.Tensor | None = None  # [rows] bool
 
     def _grow(self, needed_rows: int) -> None:
@@ -102,7 +120,7 @@ class _TableCache:
         if rows <= cur:
             return
         tables = torch.zeros(
-            (rows, 16, 4, 32), dtype=torch.uint8, device=self._device
+            (rows, *self._entry_shape), dtype=torch.uint8, device=self._device
         )
         valid = torch.zeros(rows, dtype=torch.bool, device=self._device)
         if cur:
@@ -112,7 +130,8 @@ class _TableCache:
 
     def ensure(self, pubkeys: list[bytes], abort=None) -> bool:
         """Build + install tables for unseen pubkeys. Returns False when
-        the batch alone exceeds capacity; resets the store when full."""
+        the batch alone exceeds capacity; resets the store when full.
+        `abort` (threading.Event) stops between 512-key chunks."""
         with self._lock:
             new = list(dict.fromkeys(pk for pk in pubkeys if pk not in self._idx))
             if not new:
@@ -127,6 +146,7 @@ class _TableCache:
                 self.tables = self.valid = None
                 new = uniq
             self._grow(len(self._idx) + len(new))
+            # chunked builds: a big-tier chunk of 512 keys is 64 MiB of table
             for lo in range(0, len(new), 512):
                 if abort is not None and abort.is_set():
                     return True  # partial warm is fine; ensure is idempotent
@@ -177,26 +197,44 @@ class BatchVerifier:
         device: str | torch.device | None = None,
     ):
         """min_device_batch: below this size the host verifies serially.
-        bigtable_min: buckets at or above it belong to the big tier, which
-        raises here. mesh / devices > 1 / device_challenge_min raise too.
+        device_challenge_min: big-tier batches of at least this many rows
+        hash their challenges on the card (None: always on the host).
+        bigtable_min: buckets at or above it use the big tier.
+        mesh / devices > 1 raise: one card only.
         device: "cuda" (default) or "cpu"; CUDA absent raises."""
         if mesh is not None or devices != 1:
             raise NotImplementedError(f"sharded verification: {_ROADMAP_MESH}")
-        if device_challenge_min is not None:
-            raise NotImplementedError(
-                f"device_challenge_min: {_ROADMAP_SHA}"
-            )
         self.device = resolve(device)
         self._min_device_batch = min_device_batch
         self._registry = shape_registry or default_shape_registry()
+        self._device_challenge_min = device_challenge_min
         self._bigtable_min = bigtable_min
+        self._big_verify = (
+            ed25519_batch.verify_prehashed_bigcache_mxu
+            if _use_mxu_gather()
+            else ed25519_batch.verify_prehashed_bigcache
+        )
+        # set by the node on stop: the default abort of every warm
         self.shutdown_event = threading.Event()
+        # independent locks: a big-tier build must not stall small-tier
+        # vote-path verifies
         self._small = _TableCache(
             threading.Lock(),
             ed25519_batch.neg_pubkey_table,
+            (16, 4, 32),
             table_cache_capacity,
             self.device,
             registry=self._registry,
+            tier="build_small",
+        )
+        self._big = _TableCache(
+            threading.Lock(),
+            ed25519_batch.neg_pubkey_bigtable,
+            (64, 16, 4, 32),
+            table_cache_capacity,
+            self.device,
+            registry=self._registry,
+            tier="build_big",
         )
 
     # --- table cache -------------------------------------------------------
@@ -208,10 +246,9 @@ class BatchVerifier:
         key_types: list[str] | None = None,
         abort=None,
     ) -> None:
-        """Pre-build small-tier tables for a validator set. bulk=True
-        (the big-tier warm) raises: the big tier is not ported yet."""
-        if bulk:
-            raise NotImplementedError(f"bulk warm: {_ROADMAP_BIG}")
+        """Pre-build tables for a validator set; bulk=True also builds the
+        big tier ahead of a known replay. key_types (aligned with pubkeys)
+        filters to ed25519 rows; `abort` stops between chunks."""
         if key_types is not None:
             eds = [
                 pk
@@ -220,7 +257,11 @@ class BatchVerifier:
             ]
         else:
             eds = [pk for pk in pubkeys if len(pk) == 32]
-        self._small.ensure(eds, abort=abort or self.shutdown_event)
+        if abort is None:
+            abort = self.shutdown_event
+        self._small.ensure(eds, abort=abort)
+        if bulk and not abort.is_set():
+            self._big.ensure(eds, abort=abort)
 
     # --- verification ------------------------------------------------------
 
@@ -230,7 +271,7 @@ class BatchVerifier:
     def _dispatch(self, fn, tier: str, b: int, n: int, *args) -> np.ndarray:
         """Run one kernel wrapper and block for the verdicts, traced as
         ``crypto.device_execute``."""
-        rows = int(args[0].shape[0]) if tier == "small" else 0
+        rows = int(args[0].shape[0]) if tier in ("small", "big", "big_msgs") else 0
         self._registry.record_dispatch(tier, b, rows)
         tracer = default_tracer()
         t0 = time.perf_counter()
@@ -262,8 +303,10 @@ class BatchVerifier:
         return out
 
     def prepare(self, items: list[SigItem]) -> _PreparedBatch:
-        """Host-side assembly of one batch; ``run()`` on the handle does
-        the cache ensure/snapshot and the kernel launch."""
+        """Host-side assembly of one batch (partition, padding, array
+        fills, challenge hashing or message padding); ``run()`` on the
+        handle does the cache ensure/snapshot, the copies to the card and
+        the kernel launches."""
         n = len(items)
         if n == 0:
             return _PreparedBatch(0, lambda: np.zeros(0, dtype=bool))
@@ -286,22 +329,34 @@ class BatchVerifier:
 
             return _PreparedBatch(n, _run_host)
         b = self._registry.bucket_for(n)
-        if b >= self._bigtable_min:
-            raise NotImplementedError(
-                f"batch of {n} (bucket {b} >= bigtable_min "
-                f"{self._bigtable_min}): {_ROADMAP_BIG}"
+        big = b >= self._bigtable_min
+        device_hash = (
+            big
+            and self._device_challenge_min is not None
+            and n >= self._device_challenge_min
+            and all(
+                len(it.msg) + 64 <= _DEVICE_HASH_MAX_BYTES
+                for it in items
+                if len(it.pubkey) == 32 and len(it.sig) == 64
             )
+        )
         rb = np.zeros((b, 32), dtype=np.uint8)
         sb = np.zeros((b, 32), dtype=np.uint8)
-        kb = np.zeros((b, 32), dtype=np.uint8)
+        kb = None if device_hash else np.zeros((b, 32), dtype=np.uint8)
+        msgs = [b""] * b if device_hash else None
+        prefixes = [b""] * b if device_hash else None
         s_ok = np.zeros(b, dtype=bool)
         well_formed = []
         for i, it in enumerate(items):
             if len(it.pubkey) != 32 or len(it.sig) != 64:
                 continue  # row stays zeroed; s_ok False -> reject
             r, s = it.sig[:32], it.sig[32:]
-            k = challenge(r, it.pubkey, it.msg)
-            kb[i] = np.frombuffer(k.to_bytes(32, "little"), dtype=np.uint8)
+            if device_hash:
+                msgs[i] = it.msg
+                prefixes[i] = r + it.pubkey
+            else:
+                k = challenge(r, it.pubkey, it.msg)
+                kb[i] = np.frombuffer(k.to_bytes(32, "little"), dtype=np.uint8)
             rb[i] = np.frombuffer(r, dtype=np.uint8)
             sb[i] = np.frombuffer(s, dtype=np.uint8)
             s_ok[i] = int.from_bytes(s, "little") < L
@@ -310,31 +365,65 @@ class BatchVerifier:
         if not well_formed:
             return _PreparedBatch(n, lambda: np.zeros(n, dtype=bool))
 
+        if device_hash:
+            from ..ops import sha512
+
+            msg_buf, n_blocks = sha512.pad_messages(msgs, prefix_pairs=prefixes)
+        else:
+            msg_buf = n_blocks = None
+
         def _run_device() -> np.ndarray:
-            r_t, s_t, k_t = (self._to_device(a) for a in (rb, sb, kb))
+            cache = self._big if big else self._small
+            r_t, s_t = self._to_device(rb), self._to_device(sb)
             ok_t = self._to_device(s_ok)
             row_pubkeys = [(i, items[i].pubkey) for i in well_formed]
             # Two attempts: a concurrent verify() can reset the store
             # between ensure() and snapshot(), evicting our rows; a second
             # miss takes the generic kernel rather than mis-rejecting.
             for _ in range(2):
-                if not self._small.ensure([pk for _, pk in row_pubkeys]):
+                if not cache.ensure([pk for _, pk in row_pubkeys]):
                     break  # the store cannot hold this batch
-                snap = self._small.snapshot(row_pubkeys, b)
+                snap = cache.snapshot(row_pubkeys, b)
                 if snap is None:
                     continue
                 tables, tvalid, idx = snap
-                out = self._dispatch(
-                    ed25519_batch.verify_prehashed_table, "small", b, n,
-                    tables, tvalid, self._to_device(idx), r_t, s_t, k_t, ok_t,
-                )
+                idx_t = self._to_device(idx)
+                if device_hash:
+                    out = self._dispatch(
+                        ed25519_batch.verify_msgs_bigcache, "big_msgs", b, n,
+                        tables, tvalid, idx_t, r_t, s_t,
+                        self._to_device(msg_buf), self._to_device(n_blocks),
+                        ok_t,
+                    )
+                elif big:
+                    out = self._dispatch(
+                        self._big_verify, "big", b, n,
+                        tables, tvalid, idx_t, r_t, s_t, self._to_device(kb),
+                        ok_t,
+                    )
+                else:
+                    out = self._dispatch(
+                        ed25519_batch.verify_prehashed_table, "small", b, n,
+                        tables, tvalid, idx_t, r_t, s_t, self._to_device(kb),
+                        ok_t,
+                    )
                 return out[:n]
+            # the store cannot hold the batch: the generic kernel, with
+            # host challenges for a device-hash batch (the validator-churn
+            # edge, not the bulk path)
+            gkb = kb
+            if gkb is None:
+                gkb = np.zeros((b, 32), dtype=np.uint8)
+                for i in well_formed:
+                    it = items[i]
+                    k = challenge(it.sig[:32], it.pubkey, it.msg)
+                    gkb[i] = np.frombuffer(k.to_bytes(32, "little"), dtype=np.uint8)
             pub = np.zeros((b, 32), dtype=np.uint8)
             for i in well_formed:
                 pub[i] = np.frombuffer(items[i].pubkey, dtype=np.uint8)
             out = self._dispatch(
                 ed25519_batch.verify_prehashed, "generic", b, n,
-                self._to_device(pub), r_t, s_t, k_t, ok_t,
+                self._to_device(pub), r_t, s_t, self._to_device(gkb), ok_t,
             )
             return out[:n]
 
@@ -358,20 +447,66 @@ def default_verifier(device: str | torch.device | None = None) -> BatchVerifier:
     """Process-wide single-device verifier, built on first call.
 
     Reads the JAX package's environment knobs: TM_TPU_MIN_DEVICE_BATCH
-    (host crossover), and TM_TPU_DEVICE_CHALLENGE_MIN and
-    TM_TPU_{ICI,DCN}_PARALLELISM, which ask for features this slice does
-    not have and so raise. `device` applies to the first call only."""
+    (host crossover), TM_TPU_DEVICE_CHALLENGE_MIN (big-tier batches of at
+    least that many rows hash on the card; unset or 0 keeps host hashing),
+    and TM_TPU_{ICI,DCN}_PARALLELISM, which raise when they ask for more
+    than one device. `device` applies to the first call only."""
     global _default
     if _default is None:
+        from ..parallel import mesh_from_env
+
         dcm = int(os.environ.get("TM_TPU_DEVICE_CHALLENGE_MIN", "0") or 0)
         mdb = int(os.environ.get("TM_TPU_MIN_DEVICE_BATCH", "8") or 8)
-        devices = int(os.environ.get("TM_TPU_ICI_PARALLELISM", "1") or 1) * int(
-            os.environ.get("TM_TPU_DCN_PARALLELISM", "1") or 1
-        )
         _default = BatchVerifier(
+            mesh=mesh_from_env(),
             min_device_batch=mdb,
             device_challenge_min=dcm if dcm > 0 else None,
-            devices=devices,
             device=device,
         )
     return _default
+
+
+def is_default_verifier(verifier) -> bool:
+    """True iff `verifier` is the process-wide default instance (or None).
+    The dispatch scheduler only takes over callers bound to the shared
+    verifier; an explicitly injected one keeps its private path."""
+    return verifier is None or verifier is _default
+
+
+def warm_validator_sets_in_executor(
+    validator_sets, logger=None, verifier: BatchVerifier | None = None
+):
+    """Bulk-warm the big-tier tables for validator sets off the event loop
+    (blocksync start and rotation, light-client bisection). Returns the
+    executor future, or None when there was nothing to warm or
+    TM_TPU_SKIP_WARM is set. Failures are logged and re-raised into the
+    future; ensure() is idempotent, so a later retry re-warms."""
+    import asyncio
+
+    if os.environ.get("TM_TPU_SKIP_WARM"):
+        return None
+    verifier = verifier or default_verifier()
+    pubkeys: list[bytes] = []
+    key_types: list[str] = []
+    for vals in validator_sets:
+        if vals is None:
+            continue
+        for v in vals.validators:
+            pubkeys.append(v.pub_key.data)
+            key_types.append(getattr(v.pub_key, "type_name", "ed25519"))
+    if not pubkeys:
+        return None
+
+    def _warm():
+        try:
+            verifier.warm(pubkeys, bulk=True, key_types=key_types)
+        except Exception as e:  # warming is best-effort
+            if logger is not None:
+                logger.error("table warm failed", err=repr(e))
+            raise
+
+    fut = asyncio.get_running_loop().run_in_executor(None, _warm)
+    # the re-raise above is for callers awaiting the future; a
+    # fire-and-forget caller must not leave it unretrieved
+    fut.add_done_callback(lambda f: f.exception())
+    return fut

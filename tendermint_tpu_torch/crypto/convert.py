@@ -1,10 +1,11 @@
 """Carries state from the JAX package's layouts into the port's.
 
-- Table cache: the JAX verifier's small-tier store is a pubkey -> row dict
-  plus ``tables [rows, 16, 4, 32]`` canonical uint8 bytes and ``valid
-  [rows]`` bool. The port keeps the same bytes, so conversion is a copy
-  onto the port's device (``install_table_cache``), after which a
-  ``BatchVerifier`` verifies on tables that JAX built.
+- Table caches: each of the JAX verifier's stores is a pubkey -> row dict
+  plus canonical uint8 ``tables`` (``[rows, 16, 4, 32]`` small tier,
+  ``[rows, 64, 16, 4, 32]`` big tier) and ``valid [rows]`` bool. The port
+  keeps the same bytes, so conversion is a copy onto the port's device
+  (``install_table_cache``), after which a ``BatchVerifier`` verifies on
+  tables that JAX built.
 - ``dbl_chain`` points: the Pallas kernel holds a batch as ``[4, 32, B]``
   float32 radix-2^8 limbs (loose: a limb may exceed 255); the port as
   ``[B, 4, 32]`` canonical uint8 bytes.
@@ -24,27 +25,33 @@ from .batch_verifier import BatchVerifier, _TableCache
 def install_table_cache(
     verifier: BatchVerifier, idx: dict[bytes, int], tables, valid
 ) -> None:
-    """Replace `verifier`'s small-tier store with a JAX store's state
-    (pubkey -> row, ``tables`` [rows, 16, 4, 32] uint8, ``valid`` [rows]);
-    the store goes on building new keys with the port's kernel."""
+    """Replace one of `verifier`'s table stores with a JAX store's state
+    (pubkey -> row, canonical uint8 ``tables``, ``valid`` [rows]): the
+    small tier for ``[rows, 16, 4, 32]`` tables, the big tier for
+    ``[rows, 64, 16, 4, 32]``. The store goes on building new keys with
+    the port's kernel."""
     tables = np.asarray(tables)
     valid = np.asarray(valid)
-    if tables.dtype != np.uint8 or tables.shape[1:] != (16, 4, 32):
-        raise ValueError(f"tables must be [rows, 16, 4, 32] uint8, got "
-                         f"{tables.shape} {tables.dtype}")
+    tiers = {(16, 4, 32): "_small", (64, 16, 4, 32): "_big"}
+    if tables.dtype != np.uint8 or tables.shape[1:] not in tiers:
+        raise ValueError(
+            f"tables must be [rows, 16, 4, 32] or [rows, 64, 16, 4, 32] "
+            f"uint8, got {tables.shape} {tables.dtype}"
+        )
     if valid.shape != tables.shape[:1]:
         raise ValueError("valid must have one entry per table row")
     if idx and max(idx.values()) >= tables.shape[0]:
         raise ValueError("a pubkey's row lies past the table store")
-    old = verifier._small
+    attr = tiers[tables.shape[1:]]
+    old = getattr(verifier, attr)
     cache = _TableCache(
-        old._lock, old._build_fn, old._capacity, verifier.device,
-        registry=old._registry,
+        old._lock, old._build_fn, old._entry_shape, old._capacity,
+        verifier.device, registry=old._registry, tier=old._tier,
     )
     cache._idx = dict(idx)
     cache.tables = torch.from_numpy(tables.copy()).to(verifier.device)
     cache.valid = torch.from_numpy(valid.astype(bool)).to(verifier.device)
-    verifier._small = cache
+    setattr(verifier, attr, cache)
 
 
 def points_from_pallas(pts: np.ndarray) -> torch.Tensor:

@@ -3,16 +3,20 @@ sources, into ``tendermint_tpu_torch/_kbuild/`` (git-ignored).
 
 Two routes, both for sm_90a:
 - ``torch.utils.cpp_extension.load`` with every source in one call, when
-  ``ninja`` is present. Only ``binding.cpp`` includes ``torch/extension.h``
-  and it goes to the host compiler; nvcc sees only the plain-C ``.cu``.
-- otherwise ``nvcc -shared`` into a plain shared library bound with
-  ``ctypes``.
+  ``ninja`` is present (ninja compiles the sources in parallel). Only
+  ``binding.cpp`` includes ``torch/extension.h`` and it goes to the host
+  compiler; nvcc sees only the plain-C ``.cu`` files.
+- otherwise ``nvcc -shared`` over both ``.cu`` files into a plain shared
+  library bound with ``ctypes``.
 
-Both expose the same four launchers (``neg_pubkey_table``,
-``verify_table``, ``verify_generic``, ``dbl_chain``), which take tensors
+Both expose the same launchers (``neg_pubkey_table``, ``verify_table``,
+``verify_generic``, ``dbl_chain``, ``neg_pubkey_bigtable``,
+``verify_bigcache``, ``challenge``, ``reduce_mod_l``), which take tensors
 and the raw CUDA stream and raise when the launch is refused. Nothing here
 runs at import: the CPU tests import every module, and ``nvcc`` is needed
-only when a kernel is first called on the card.
+only when a kernel is first called on the card. The first build holds a
+lock, so threads that race into it (the verify scheduler's prep and
+dispatch pools) build once and share the result.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 import time
 
 import torch
@@ -29,13 +34,17 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_kbuild"
 )
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-KERNEL_SOURCE = os.path.join(CSRC, "ed25519_kernels.cu")
+KERNEL_SOURCES = [
+    os.path.join(CSRC, "ed25519_kernels.cu"),
+    os.path.join(CSRC, "sha512_kernels.cu"),
+]
 BINDING_SOURCE = os.path.join(CSRC, "binding.cpp")
 
 # route and wall seconds of the build, filled by kernels()
 BUILD_INFO: dict = {}
 
 _lib = None
+_lib_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -52,11 +61,16 @@ class _CtypesKernels:
     def __init__(self, path: str):
         lib = ctypes.CDLL(path)
         vp, i = ctypes.c_void_p, ctypes.c_int
+        verify_sig = [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp]
         sig = {
             "tm_neg_pubkey_table": [vp, vp, vp, vp, i, vp],
-            "tm_verify_table": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+            "tm_verify_table": verify_sig,
             "tm_verify_generic": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
             "tm_dbl_chain": [vp, vp, i, i, vp],
+            "tm_neg_pubkey_bigtable": [vp, vp, vp, vp, i, vp],
+            "tm_verify_bigcache": verify_sig,
+            "tm_challenge": [vp, i, vp, vp, i, vp],
+            "tm_reduce_mod_l": [vp, vp, i, vp],
         }
         for name, args in sig.items():
             getattr(lib, name).argtypes = args
@@ -68,7 +82,7 @@ class _CtypesKernels:
     def _launched(self, err: int) -> None:
         if err != 0:
             msg = self._lib.tm_error_string(err).decode()
-            raise RuntimeError(f"ed25519 kernel launch failed: {msg}")
+            raise RuntimeError(f"kernel launch failed: {msg}")
 
     def neg_pubkey_table(self, pub, tables, valid, kbytes, stream):
         self._launched(self._lib.tm_neg_pubkey_table(
@@ -76,14 +90,17 @@ class _CtypesKernels:
             kbytes.data_ptr(), pub.shape[0], stream,
         ))
 
-    def verify_table(self, tables, tvalid, idx, r, s, k, s_ok, base, kbytes,
-                     out, stream):
-        self._launched(self._lib.tm_verify_table(
+    def _verify_cached(self, fn, tables, tvalid, idx, r, s, k, s_ok, base,
+                       kbytes, out, stream):
+        self._launched(fn(
             tables.data_ptr(), tvalid.data_ptr(), tables.shape[0],
             idx.data_ptr(), r.data_ptr(), s.data_ptr(), k.data_ptr(),
             s_ok.data_ptr(), base.data_ptr(), kbytes.data_ptr(),
             out.data_ptr(), out.shape[0], stream,
         ))
+
+    def verify_table(self, *args):
+        self._verify_cached(self._lib.tm_verify_table, *args)
 
     def verify_generic(self, pub, r, s, k, s_ok, base, kbytes, out, stream):
         self._launched(self._lib.tm_verify_generic(
@@ -97,12 +114,32 @@ class _CtypesKernels:
             inp.data_ptr(), out.data_ptr(), inp.shape[0], n_dbl, stream,
         ))
 
+    def neg_pubkey_bigtable(self, pub, tables, valid, kbytes, stream):
+        self._launched(self._lib.tm_neg_pubkey_bigtable(
+            pub.data_ptr(), tables.data_ptr(), valid.data_ptr(),
+            kbytes.data_ptr(), pub.shape[0], stream,
+        ))
+
+    def verify_bigcache(self, *args):
+        self._verify_cached(self._lib.tm_verify_bigcache, *args)
+
+    def challenge(self, msg, n_blocks, out, stream):
+        self._launched(self._lib.tm_challenge(
+            msg.data_ptr(), msg.shape[1] // 128, n_blocks.data_ptr(),
+            out.data_ptr(), out.shape[0], stream,
+        ))
+
+    def reduce_mod_l(self, digest, out, stream):
+        self._launched(self._lib.tm_reduce_mod_l(
+            digest.data_ptr(), out.data_ptr(), out.shape[0], stream,
+        ))
+
 
 def _build_ctypes() -> _CtypesKernels:
-    path = os.path.join(BUILD_DIR, "libtm_ed25519.so")
+    path = os.path.join(BUILD_DIR, "libtm_kernels.so")
     subprocess.run(
         [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-         "-fPIC", "-o", path, KERNEL_SOURCE],
+         "-fPIC", "-o", path, *KERNEL_SOURCES],
         check=True,
     )
     return _CtypesKernels(path)
@@ -112,8 +149,8 @@ def _build_extension():
     from torch.utils.cpp_extension import load
 
     return load(
-        name="tm_ed25519_kernels",
-        sources=[BINDING_SOURCE, KERNEL_SOURCE],
+        name="tm_kernels",
+        sources=[BINDING_SOURCE, *KERNEL_SOURCES],
         build_directory=BUILD_DIR,
         extra_cflags=["-O2"],
         extra_cuda_cflags=["-O3", ARCH, "-std=c++17"],
@@ -121,42 +158,101 @@ def _build_extension():
     )
 
 
+def _build():
+    """(launchers, route): one build from the sources."""
+    from torch.utils.cpp_extension import is_ninja_available
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    if is_ninja_available():
+        return _build_extension(), "torch_extension"
+    return _build_ctypes(), "nvcc_ctypes"
+
+
 def kernels():
     """The built kernel launchers; builds once per process."""
     global _lib
     if _lib is None:
-        from torch.utils.cpp_extension import is_ninja_available
-
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        t0 = time.perf_counter()
-        if is_ninja_available():
-            _lib, route = _build_extension(), "torch_extension"
-        else:
-            _lib, route = _build_ctypes(), "nvcc_ctypes"
-        BUILD_INFO.update(route=route, seconds=time.perf_counter() - t0)
+        with _lib_lock:
+            if _lib is None:
+                t0 = time.perf_counter()
+                lib, route = _build()
+                BUILD_INFO.update(route=route, seconds=time.perf_counter() - t0)
+                _lib = lib
     return _lib
 
 
-def start_ptxas_report() -> subprocess.Popen:
-    """Start ``nvcc -Xptxas -v`` on the kernel source (registers, spills
-    per kernel) in the background; read it with ``finish_ptxas_report``."""
+def start_ptxas_report() -> list[subprocess.Popen]:
+    """Start ``nvcc -Xptxas -v`` on each kernel source (registers, spills
+    per kernel) in the background; read them with ``finish_ptxas_report``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    return subprocess.Popen(
-        [_nvcc(), ARCH, "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
-         "-o", os.path.join(BUILD_DIR, "ptxas_report.cubin"), KERNEL_SOURCE],
-        stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT,
-        text=True,
-    )
+    procs = []
+    for src in KERNEL_SOURCES:
+        cubin = os.path.splitext(os.path.basename(src))[0] + ".cubin"
+        procs.append(subprocess.Popen(
+            [_nvcc(), ARCH, "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
+             "-o", os.path.join(BUILD_DIR, cubin), src],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+            text=True,
+        ))
+    return procs
 
 
-def finish_ptxas_report(proc: subprocess.Popen) -> str:
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}")
-    return out
+def finish_ptxas_report(procs: list[subprocess.Popen]) -> str:
+    outs = []
+    for proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}")
+        outs.append(out)
+    return "".join(outs)
 
 
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on t's device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+                  device) -> None:
+    """Raise unless t is a contiguous `dtype` tensor of `shape` on `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+class DeviceCache:
+    """Per-device tensors made once (constants, the basepoint table), safe
+    to fill from several threads: the first caller on a device makes the
+    tensor under a lock, every later one reads it."""
+
+    def __init__(self, make):
+        self._make = make
+        self._by_device: dict[tuple[str, int | None], torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    def get(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        key = (device.type, device.index)
+        t = self._by_device.get(key)
+        if t is None:
+            with self._lock:
+                t = self._by_device.get(key)
+                if t is None:
+                    t = self._make(device)
+                    self._by_device[key] = t
+        return t

@@ -1,8 +1,9 @@
-// PyTorch binding of the ed25519 kernels (the torch.utils.cpp_extension
-// route). The only source that includes torch/extension.h; it is compiled
-// by the host compiler, and the kernels (ed25519_kernels.cu) keep a plain
-// C interface so that nvcc never sees PyTorch's headers. The Python
-// wrappers in ops/ed25519_batch.py and ops/dbl_chain.py check shapes and
+// PyTorch binding of the ed25519 and SHA-512 kernels (the
+// torch.utils.cpp_extension route). The only source that includes
+// torch/extension.h; it is compiled by the host compiler, and the kernels
+// (ed25519_kernels.cu, sha512_kernels.cu) keep a plain C interface so that
+// nvcc never sees PyTorch's headers. The Python wrappers in
+// ops/ed25519_batch.py, ops/sha512.py and ops/dbl_chain.py check shapes and
 // types before calling in; the checks here guard the raw pointers.
 #include <torch/extension.h>
 
@@ -17,6 +18,15 @@ int tm_verify_generic(const void* pub, const void* r, const void* s,
                       const void* k, const void* s_ok, const void* base,
                       const void* kbytes, void* out, int b, void* stream);
 int tm_dbl_chain(const void* in, void* out, int b, int n_dbl, void* stream);
+int tm_neg_pubkey_bigtable(const void* pub, void* tables, void* valid,
+                           const void* kbytes, int n, void* stream);
+int tm_verify_bigcache(const void* tables, const void* tvalid, int rows,
+                       const void* idx, const void* r, const void* s,
+                       const void* k, const void* s_ok, const void* base,
+                       const void* kbytes, void* out, int b, void* stream);
+int tm_challenge(const void* msg, int nblk, const void* n_blocks, void* out,
+                 int b, void* stream);
+int tm_reduce_mod_l(const void* digest, void* out, int b, void* stream);
 const char* tm_error_string(int err);
 }
 
@@ -28,7 +38,7 @@ void check(const torch::Tensor& t, const char* name) {
 }
 
 void launched(int err) {
-  TORCH_CHECK(err == 0, "ed25519 kernel launch failed: ",
+  TORCH_CHECK(err == 0, "kernel launch failed: ",
               tm_error_string(err));
 }
 
@@ -79,6 +89,50 @@ void dbl_chain(torch::Tensor in, torch::Tensor out, int64_t n_dbl,
                         (int)n_dbl, stream_ptr(stream)));
 }
 
+void neg_pubkey_bigtable(torch::Tensor pub, torch::Tensor tables,
+                         torch::Tensor valid, torch::Tensor kbytes,
+                         int64_t stream) {
+  check(pub, "pubkeys");
+  check(tables, "tables");
+  check(valid, "valid");
+  check(kbytes, "consts");
+  launched(tm_neg_pubkey_bigtable(pub.data_ptr(), tables.data_ptr(),
+                                  valid.data_ptr(), kbytes.data_ptr(),
+                                  (int)pub.size(0), stream_ptr(stream)));
+}
+
+void verify_bigcache(torch::Tensor tables, torch::Tensor tvalid,
+                     torch::Tensor idx, torch::Tensor r, torch::Tensor s,
+                     torch::Tensor k, torch::Tensor s_ok, torch::Tensor base,
+                     torch::Tensor kbytes, torch::Tensor out, int64_t stream) {
+  for (auto* t : {&tables, &tvalid, &idx, &r, &s, &k, &s_ok, &base, &kbytes,
+                  &out})
+    check(*t, "verify_bigcache operand");
+  launched(tm_verify_bigcache(tables.data_ptr(), tvalid.data_ptr(),
+                              (int)tables.size(0), idx.data_ptr(),
+                              r.data_ptr(), s.data_ptr(), k.data_ptr(),
+                              s_ok.data_ptr(), base.data_ptr(),
+                              kbytes.data_ptr(), out.data_ptr(),
+                              (int)out.size(0), stream_ptr(stream)));
+}
+
+void challenge(torch::Tensor msg, torch::Tensor n_blocks, torch::Tensor out,
+               int64_t stream) {
+  check(msg, "msg_buf");
+  check(n_blocks, "n_blocks");
+  check(out, "out");
+  launched(tm_challenge(msg.data_ptr(), (int)(msg.size(1) / 128),
+                        n_blocks.data_ptr(), out.data_ptr(), (int)out.size(0),
+                        stream_ptr(stream)));
+}
+
+void reduce_mod_l(torch::Tensor digest, torch::Tensor out, int64_t stream) {
+  check(digest, "digest");
+  check(out, "out");
+  launched(tm_reduce_mod_l(digest.data_ptr(), out.data_ptr(),
+                           (int)out.size(0), stream_ptr(stream)));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -86,4 +140,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("verify_table", &verify_table);
   m.def("verify_generic", &verify_generic);
   m.def("dbl_chain", &dbl_chain);
+  m.def("neg_pubkey_bigtable", &neg_pubkey_bigtable);
+  m.def("verify_bigcache", &verify_bigcache);
+  m.def("challenge", &challenge);
+  m.def("reduce_mod_l", &reduce_mod_l);
 }

@@ -9,16 +9,23 @@ the JAX package, so projective coordinates (and hence the canonical table
 bytes of ``window_table``) agree with it value for value mod p.
 
 Constants (d, 2d, sqrt(-1)) and the 32 x 256 basepoint table are built
-from the host oracle ``crypto/ed25519.py``.
+from the host oracle ``crypto/ed25519.py``. The big tier's per-key
+64 x 16 fixed-window tables (``big_window_table``) make a variable-base
+multiplication 64 cached adds with no doublings; the gather from a shared
+store has two forms, an index (``scalar_mult_var_bigcache``) and the JAX
+package's one-hot float32 product (``scalar_mult_var_bigcache_mxu``).
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 from ..crypto import ed25519 as host
 from . import field25519 as fe
+from ._build import DeviceCache
 
 NLIMBS = fe.NLIMBS
 D = host.D
@@ -179,6 +186,7 @@ def from_host_point_cached(p: host.Point) -> np.ndarray:
 
 
 _BASE_TABLE_NP: np.ndarray | None = None
+_BASE_TABLE_LOCK = threading.Lock()
 
 
 def base_table_bytes() -> np.ndarray:
@@ -187,32 +195,27 @@ def base_table_bytes() -> np.ndarray:
     The same host point chain as the JAX package, so entries agree with it
     byte for byte; the CUDA kernels read it from device memory."""
     global _BASE_TABLE_NP
-    if _BASE_TABLE_NP is None:
-        rows = []
-        base = host.BASEPOINT
-        for _ in range(32):
-            row = [host.IDENTITY]
-            for _ in range(255):
-                row.append(host.point_add(row[-1], base))
-            rows.append([from_host_point_cached(p) for p in row])
-            for _ in range(8):
-                base = host.point_double(base)
-        _BASE_TABLE_NP = np.asarray(rows, dtype=np.uint8)
+    with _BASE_TABLE_LOCK:
+        if _BASE_TABLE_NP is None:
+            rows = []
+            base = host.BASEPOINT
+            for _ in range(32):
+                row = [host.IDENTITY]
+                for _ in range(255):
+                    row.append(host.point_add(row[-1], base))
+                rows.append([from_host_point_cached(p) for p in row])
+                for _ in range(8):
+                    base = host.point_double(base)
+            _BASE_TABLE_NP = np.asarray(rows, dtype=np.uint8)
     return _BASE_TABLE_NP
 
 
-_BASE_TABLES: dict[tuple[str, int | None], torch.Tensor] = {}
+_BASE_TABLES = DeviceCache(lambda dev: torch.from_numpy(base_table_bytes()).to(dev))
 
 
 def base_table(device) -> torch.Tensor:
     """The basepoint table as a [32, 256, 4, 32] uint8 tensor on `device`."""
-    device = torch.device(device)
-    key = (device.type, device.index)
-    t = _BASE_TABLES.get(key)
-    if t is None:
-        t = torch.from_numpy(base_table_bytes()).to(device)
-        _BASE_TABLES[key] = t
-    return t
+    return _BASE_TABLES.get(device)
 
 
 def scalar_mult_base(scalar_bytes: torch.Tensor) -> torch.Tensor:
@@ -251,3 +254,70 @@ def double_scalar_mult_base_table(
 ) -> torch.Tensor:
     """[s]B + [k]A with A's window table prebuilt."""
     return add(scalar_mult_base(s_bytes), scalar_mult_var_table(k_bytes, a_table))
+
+
+def big_window_table(p: torch.Tensor) -> torch.Tensor:
+    """T[i, j] = cached([j * 16^i]P) as [..., 64, 16, 4, 16].
+
+    The JAX package's operation order, so the projective values (and the
+    canonical bytes the big-tier store keeps) agree with it: row 0 is
+    0, P, then 14 adds of P; each step emits to_cached(row) before four
+    doublings of the whole row; the last row is emitted after step 63."""
+    entries = [identity(p.shape[:-2], device=p.device), p]
+    for _ in range(14):
+        entries.append(add(entries[-1], p))
+    row = torch.stack(entries, dim=-3)
+    rows = []
+    for _ in range(63):
+        rows.append(to_cached(row))
+        row = double(double(double(double(row))))
+    rows.append(to_cached(row))
+    return torch.stack(rows, dim=-4)
+
+
+def scalar_mult_var_bigtable(
+    scalar_bytes: torch.Tensor, table: torch.Tensor
+) -> torch.Tensor:
+    """[s]P from a fixed-window table [..., 64, 16, 4, 16]: 64 cached adds,
+    radix-16 digits LSB first, no doublings."""
+    digs = nibbles(scalar_bytes)
+    acc = identity(digs.shape[:-1], device=digs.device)
+    for i in range(64):
+        acc = add_cached(acc, _select_entry(table[..., i, :, :, :], digs[..., i]))
+    return acc
+
+
+def scalar_mult_var_bigcache(
+    scalar_bytes: torch.Tensor, tables_cache: torch.Tensor, idx: torch.Tensor
+) -> torch.Tensor:
+    """[s] T[idx] against a shared store of canonical bytes
+    ([cap, 64, 16, 4, 32] u8, idx [B] in range): one entry gathered per
+    window, never the whole 128 KiB table of a row."""
+    digs = nibbles(scalar_bytes)
+    idx = idx.to(torch.int64)
+    acc = identity(digs.shape[:-1], device=digs.device)
+    for i in range(64):
+        acc = add_cached(acc, fe.from_bytes(tables_cache[idx, i, digs[:, i]]))
+    return acc
+
+
+def scalar_mult_var_bigcache_mxu(
+    scalar_bytes: torch.Tensor, tables_cache: torch.Tensor, idx: torch.Tensor
+) -> torch.Tensor:
+    """scalar_mult_var_bigcache with each window's gather written as the
+    JAX package writes it for the TPU's matrix unit: a [B, cap*16] one-hot
+    float32 matrix times the window's [cap*16, 128] table bytes. Exact in
+    float32: one product of 1.0 and a byte (< 2^8) per output."""
+    digs = nibbles(scalar_bytes)
+    idx = idx.to(torch.int64)
+    cap = tables_cache.shape[0]
+    flat = tables_cache.to(torch.float32).reshape(cap, 64, 16, 128)
+    cols = torch.arange(cap * 16, device=digs.device)
+    acc = identity(digs.shape[:-1], device=digs.device)
+    for i in range(64):
+        tab_w = flat[:, i].reshape(cap * 16, 128)
+        sel = idx * 16 + digs[:, i]
+        onehot = (sel[:, None] == cols[None, :]).to(torch.float32)
+        ent = (onehot @ tab_w).to(torch.int64).reshape(-1, 4, 32)
+        acc = add_cached(acc, fe.from_bytes(ent))
+    return acc

@@ -4,9 +4,12 @@ the JAX package's BatchVerifier on the CPU backend.
 Covered: the host path (n < min_device_batch), the generic path at
 buckets 8 and 32 (a table cache too small for the batch), the small tier
 on tables that JAX built and crypto/convert carried over, the snapshot
-retry, cache reset, the mixed-key partition, and the features this slice
-does not have, which must raise NotImplementedError. Tolerance: exact
-bitmap equality.
+retry, cache reset, the mixed-key partition, the big tier's switches
+(``TM_TPU_MXU_GATHER``, the bulk warm, the 2 KiB device-hash cap, the
+generic fallback with host challenges; its parity with the reference is in
+``test_torch_batch_verifier_big.py``), and the features the port does not
+have yet, which must raise NotImplementedError. Tolerance: exact bitmap
+equality.
 """
 
 import numpy as np
@@ -150,22 +153,73 @@ def test_mixed_key_partition_and_malformed_rows():
 
 
 def test_unported_features_raise():
+    """A mesh, more than one device, and secp256k1 / sr25519 rows stay
+    unported: each raises NotImplementedError naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         bv.BatchVerifier(mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         bv.BatchVerifier(devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="SHA-512"):
-        bv.BatchVerifier(device_challenge_min=2048, device="cpu")
     port = _port(min_device_batch=0)
-    with pytest.raises(NotImplementedError, match="big tier"):
-        port.prepare(_items(1, seed=9) * 600)
-    with pytest.raises(NotImplementedError, match="big tier"):
-        _port(min_device_batch=0, bigtable_min=32).verify(_items(20, seed=10))
-    with pytest.raises(NotImplementedError, match="big tier"):
-        port.warm([b"\x01" * 32], bulk=True)
-    secp = bv.SigItem(b"\x02" * 33, b"m", b"s" * 64, "secp256k1")
-    with pytest.raises(NotImplementedError, match="secp256k1"):
-        port.verify([secp])
+    for key_type, pub in (("secp256k1", b"\x02" * 33), ("sr25519", b"\x05" * 32)):
+        row = bv.SigItem(pub, b"m", b"s" * 64, key_type)
+        with pytest.raises(NotImplementedError, match=key_type):
+            port.verify([row])
+        with pytest.raises(NotImplementedError, match=key_type):
+            port.verify(_items(8, seed=9) + [row])
+
+
+def test_mxu_gather_selected_once(monkeypatch):
+    from tendermint_tpu_torch.ops import ed25519_batch as eb
+
+    items = _items(9, seed=22)
+    monkeypatch.setenv("TM_TPU_MXU_GATHER", "1")
+    port = _port(min_device_batch=0, bigtable_min=8)
+    monkeypatch.delenv("TM_TPU_MXU_GATHER")
+    assert port._big_verify is eb.verify_prehashed_bigcache_mxu
+    assert port.verify(items).tolist() == _oracle(items)
+    assert _port(bigtable_min=8)._big_verify is eb.verify_prehashed_bigcache
+
+
+def test_warm_bulk_builds_both_tiers():
+    items = _items(9, seed=23)
+    keys = list(dict.fromkeys(it.pubkey for it in items))
+    port = _port(min_device_batch=0, bigtable_min=8)
+    port.warm(keys + [b"\x00" * 31], bulk=True)
+    assert set(port._small._idx) == set(port._big._idx) == set(keys)
+    port._big._build_fn = None  # warmed: the verify builds nothing
+    assert port.verify(items).tolist() == _oracle(items)
+    tiers = port._registry.buckets_by_tier()
+    assert tiers["build_big"] == (8,) and tiers["big"] == (32,)
+    aborted = _port(bigtable_min=8)
+    aborted.shutdown_event.set()
+    aborted.warm(keys, bulk=True)
+    assert not aborted._small._idx and not aborted._big._idx
+
+
+def test_device_hash_cap_and_generic_fallback():
+    """One message past the 2 KiB cap keeps the batch on host hashing; a
+    store too small for the batch takes the generic kernel with host
+    challenges."""
+    items = _items(9, seed=24)
+    k = host.PrivKey(b"\x07" * 32)
+    long_msg = b"L" * (2048 - 64 + 1)
+    items.append(bv.SigItem(k.public_key().data, long_msg, k.sign(long_msg)))
+    port = _port(min_device_batch=0, bigtable_min=8, device_challenge_min=0)
+    assert port.verify(items).tolist() == _oracle(items)
+    assert "big_msgs" not in port._registry.buckets_by_tier()
+    assert port.verify(items[:9]).tolist() == _oracle(items[:9])
+    assert port._registry.buckets_by_tier()["big_msgs"] == (32,)
+    small = _port(min_device_batch=0, bigtable_min=8, device_challenge_min=0,
+                  table_cache_capacity=2)
+    assert small.verify(items[:9]).tolist() == _oracle(items[:9])
+    assert small._registry.buckets_by_tier() == {"generic": (32,)}
+
+
+def test_is_default_verifier(monkeypatch):
+    monkeypatch.setattr(bv, "_default", None)
+    port = bv.default_verifier(device="cpu")
+    assert bv.is_default_verifier(port) and bv.is_default_verifier(None)
+    assert not bv.is_default_verifier(_port())
 
 
 def test_default_verifier_device_and_env(monkeypatch):
@@ -177,11 +231,35 @@ def test_default_verifier_device_and_env(monkeypatch):
             bv.default_verifier()
     monkeypatch.setattr(bv, "_default", None)
     assert bv.default_verifier(device="cpu").device.type == "cpu"
+    assert bv.default_verifier()._device_challenge_min is None
     monkeypatch.setattr(bv, "_default", None)
     monkeypatch.setenv("TM_TPU_DEVICE_CHALLENGE_MIN", "2048")
-    with pytest.raises(NotImplementedError):
-        bv.default_verifier(device="cpu")
+    assert bv.default_verifier(device="cpu")._device_challenge_min == 2048
+    monkeypatch.setattr(bv, "_default", None)
     monkeypatch.delenv("TM_TPU_DEVICE_CHALLENGE_MIN")
     monkeypatch.setenv("TM_TPU_ICI_PARALLELISM", "4")
     with pytest.raises(NotImplementedError):
         bv.default_verifier(device="cpu")
+
+
+def test_warm_validator_sets_in_executor(monkeypatch):
+    """The bulk warm of validator sets runs on an executor thread and
+    fills the big tier; TM_TPU_SKIP_WARM and empty sets warm nothing."""
+    import asyncio
+
+    from tendermint_tpu_torch import types
+
+    monkeypatch.delenv("TM_TPU_SKIP_WARM", raising=False)
+    keys = [host.PrivKey(bytes([i + 1]) * 32) for i in range(3)]
+    vset = types.ValidatorSet([types.Validator(k.public_key(), 10) for k in keys])
+    port = _port()
+
+    async def run():
+        fut = bv.warm_validator_sets_in_executor([vset, None], verifier=port)
+        await fut
+        return bv.warm_validator_sets_in_executor([None], verifier=port)
+
+    assert asyncio.run(run()) is None
+    assert set(port._big._idx) == {k.public_key().data for k in keys}
+    monkeypatch.setenv("TM_TPU_SKIP_WARM", "1")
+    assert bv.warm_validator_sets_in_executor([vset], verifier=_port()) is None

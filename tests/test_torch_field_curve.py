@@ -157,3 +157,25 @@ def test_nibbles_match_jax():
     np.testing.assert_array_equal(
         curve.nibbles(torch.from_numpy(s)).numpy(), np.asarray(jcurve.nibbles(jnp.asarray(s)))
     )
+
+
+def test_big_window_table_scalar_mults_match_host():
+    """[k]P from the fixed-window table, three forms: the per-element table,
+    the shared store gathered by index, and the one-hot float32 product."""
+    rng = np.random.default_rng(31)
+    pts = [host.scalar_mult(int(rng.integers(1, 2**62)), host.BASEPOINT) for _ in range(3)]
+    enc = torch.tensor([list(host.point_compress(p)) for p in pts], dtype=torch.uint8)
+    a, valid = curve.decompress(enc)
+    assert valid.all()
+    table = curve.big_window_table(a)  # [3, 64, 16, 4, 16]
+    scalars = [0, host.L - 1, 2**256 - 19]
+    sb = torch.tensor([list(s.to_bytes(32, "little")) for s in scalars], dtype=torch.uint8)
+    want = [host.point_compress(host.scalar_mult(s, p)) for s, p in zip(scalars, pts)]
+    got = curve.compress(curve.scalar_mult_var_bigtable(sb, table))
+    assert [bytes(r) for r in got.tolist()] == want
+    # store rows permuted; idx gathers them back
+    store = fe.to_bytes(table)[[2, 0, 1]]
+    idx = torch.tensor([1, 2, 0], dtype=torch.int32)
+    for mult in (curve.scalar_mult_var_bigcache, curve.scalar_mult_var_bigcache_mxu):
+        got = curve.compress(mult(sb, store, idx))
+        assert [bytes(r) for r in got.tolist()] == want, mult.__name__

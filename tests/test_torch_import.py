@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-its verbatim copies match their originals modulo the import root."""
+its verbatim copies match their originals modulo the import root (and
+the few comment lines listed in REWORDED)."""
 
 import ast
 import pathlib
@@ -28,6 +29,14 @@ VERBATIM = [
     "types/quorum_cert.py",
     "types/evidence.py",
     "types/validator_set.py",
+    "libs/log.py",
+    "libs/service.py",
+    "libs/metrics.py",
+    "obs/report.py",
+    "obs/ledger.py",
+    "parallel/scheduler.py",
+    "consensus/microbatch.py",
+    "consensus/vote_batcher.py",
 ]
 
 _PROBE = r"""
@@ -51,12 +60,34 @@ def test_port_imports_without_jax_or_reference():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the port imported
+    assert int(out.stdout.strip()) >= 40  # every module of the port imported
+
+
+# The reference's comments cite its own change history by number; the
+# port's copies word these lines without the numbers. Every other byte
+# must match.
+REWORDED = {
+    "libs/metrics.py": [(
+        "the PR 9 event-loop-bound regime made visible",
+        "the event-loop-bound regime made visible",
+    )],
+    "obs/ledger.py": [(
+        "telemetry only — PR 8 already\nhit its 1024-cap reading stats from it;",
+        "telemetry only — a reader of its stats\nhits its 1024-cap;",
+    )],
+    "parallel/scheduler.py": [(
+        "(PR 8 hit\n        # the 1024-cap reading stats from this ring)",
+        "(a reader\n        # of its stats hits the 1024-cap of this ring)",
+    )],
+}
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_verbatim_copy_matches_reference(rel):
     ref = (REF / rel).read_text().replace("tendermint_tpu", "tendermint_tpu_torch")
+    for old, new in REWORDED.get(rel, []):
+        assert ref.count(old) == 1, old
+        ref = ref.replace(old, new)
     assert (PORT / rel).read_text() == ref
 
 

@@ -128,3 +128,69 @@ def test_valset_hash_and_encoding_match_reference():
     assert tv.hash() == jv.hash()
     assert tv.encode() == jv.encode()
     assert tv.get_proposer().address == jv.get_proposer().address
+
+
+def test_verify_commits_light_window_through_scheduler():
+    """A blocksync window of 8 commits x 4 validators (32 rows, bigtable_min
+    8: the big tier) verified as one batch, as blocksync's reactor does:
+    from an executor thread through a started port VerifyScheduler and
+    default_dispatch("blocksync"). Commit 5 has tampered signatures of
+    validators holding more than 1/3 of the power (False); commit 7 one
+    bad signature of the lightest validator (still True)."""
+    import asyncio
+
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.parallel import (
+        VerifyScheduler, default_dispatch, set_default_scheduler,
+    )
+
+    rng = np.random.default_rng(64)
+    seeds = [rng.bytes(32) for _ in range(4)]
+    powers = [10, 20, 30, 40]
+    port_entries, ref_entries = [], []
+    for h in range(1, 9):
+        bid_seed = b"w%d" % h
+        tv, tbid, tcommit, sigs = _build(
+            ttypes, host, seeds, powers, h, bid_seed, ["commit"] * 4, 1_700_000_000
+        )
+        pw = [v.voting_power for v in tv.validators]
+        tamper = {5: (40, 30), 7: (10,)}.get(h, ())
+        for i in (pw.index(p) for p in tamper):
+            sigs[i] = sigs[i][:5] + bytes([sigs[i][5] ^ 1]) + sigs[i][6:]
+            tcommit.signatures[i].signature = sigs[i]
+        jv, jbid, jcommit, _ = _build(
+            jtypes, jhost, seeds, powers, h, bid_seed, ["commit"] * 4,
+            1_700_000_000, sigs,
+        )
+        port_entries.append((tbid, h, tcommit))
+        ref_entries.append((jbid, h, jcommit))
+    want = jv.verify_commits_light(CHAIN, ref_entries, verifier=JaxVerifier(min_device_batch=100))
+    assert want == [True] * 4 + [False] + [True] * 3
+
+    port_v = BatchVerifier(device="cpu", min_device_batch=0, bigtable_min=8,
+                           shape_registry=ShapeRegistry())
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(
+        verifier=port_v, metrics=SchedulerMetrics(Registry("window")), ledger=ledger
+    )
+    set_default_scheduler(sched)
+    try:
+        async def run():
+            await sched.start()
+            verdicts = await asyncio.get_running_loop().run_in_executor(
+                None,
+                lambda: tv.verify_commits_light(
+                    CHAIN, port_entries, verifier=default_dispatch("blocksync")
+                ),
+            )
+            await sched.stop()
+            return verdicts
+
+        got = asyncio.run(run())
+    finally:
+        set_default_scheduler(None)
+    assert got == want
+    rounds = [e for e in ledger.entries() if e["engine"] == "sig"]
+    assert [(e["rows"], e["dispatched"]) for e in rounds] == [({"blocksync": 32}, 32)]
+    assert port_v._registry.buckets_by_tier() == {"build_big": (8,), "big": (32,)}
