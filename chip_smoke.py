@@ -5,22 +5,22 @@
 
 Phases (any failure raises and the exit code is non-zero):
 
-1. Build the ed25519 and SHA-512 kernels from
+1. Build the ed25519, SHA-512 and BLS12-381 kernels from
    ``tendermint_tpu_torch/ops/csrc`` into ``tendermint_tpu_torch/_kbuild/``
    (a ``-Xptxas -v`` report of registers and spills per kernel runs beside
    the build), print the build seconds and the card's ``nvidia-smi`` name
    and power limit.
-2. Hold each kernel against its plain PyTorch version on the card, on the
-   same inputs, with exact equality (bytes and bitmaps are integers):
-   ``neg_pubkey_table`` and ``neg_pubkey_bigtable`` on 256 keys (valid
-   plus adversarial: small order, non-canonical y, no square root, x = 0
-   with the sign bit), ``verify_prehashed_table`` and ``verify_prehashed``
-   on 256 mixed valid/invalid rows, ``verify_prehashed_bigcache`` and
-   ``_mxu`` on 2048 such rows (each also held against the host oracle),
-   ``challenge_batch`` on 2048 ragged rows (and against hashlib + % L),
-   the reduction kernel alone on adversarial digests, ``dbl_chain`` on
-   8192 points x 256 doublings (bytes and affine coordinates, row 0
-   against 256 host ``point_double``).
+2. Hold each ed25519/SHA-512 kernel against its plain PyTorch version on
+   the card, on the same inputs, with exact equality (bytes and bitmaps are
+   integers): ``neg_pubkey_table`` and ``neg_pubkey_bigtable`` on 256 keys
+   (valid plus adversarial: small order, non-canonical y, no square root,
+   x = 0 with the sign bit), ``verify_prehashed_table`` and
+   ``verify_prehashed`` on 256 mixed valid/invalid rows,
+   ``verify_prehashed_bigcache`` and ``_mxu`` on 2048 such rows (each also
+   held against the host oracle), ``challenge_batch`` on 2048 ragged rows
+   (and against hashlib + % L), the reduction kernel alone on adversarial
+   digests, ``dbl_chain`` on 8192 points x 256 doublings (bytes and affine
+   coordinates, row 0 against 256 host ``point_double``).
 3. Drive the main paths through their entry points, each with the launch
    counts zeroed just before and read just after:
    - commit verification: a seeded 150-validator ``ValidatorSet``
@@ -46,7 +46,27 @@ Phases (any failure raises and the exit code is non-zero):
    version (median of 3) at the main paths' shapes, ``verify_commit`` per
    height, and the bulk window's wall time with its host and device
    shares; work out each kernel's bound.
-5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+5. The quorum-certificate path (``qc_phase``): ``g1_aggregate`` and
+   ``g2_aggregate`` on 256 points with duplicates, opposites and the
+   identity and at the main path's shapes (150 signatures; 64 trees of
+   150 keys, each padded), ``miller`` and ``final_exp`` on the 2-pair
+   verify shape and a 65-pair random-linear-combination shape, each
+   against its plain version on the card and the host oracle, and bilinearity of
+   ``pairing_value``; then BLS keys for the 150 validators (4 through
+   ``pubkey_from_priv``, whose proof of possession is a card pairing; the
+   rest trusted keys, as set-up), QC shares on the bulk window's 64
+   commits, ``assemble_qc`` for each (launch counts read), QC 40 replaced
+   by a sub-quorum aggregate under the full bitset, and
+   ``ValidatorSet.verify_commits_qc`` over the window from an executor
+   thread through a started ``VerifyScheduler``'s ``qc_verify`` lane,
+   twice: verdicts ``[True]*39 + [False] + [True]*24``, one ledger round
+   each, launch counts read. Timings: each BLS kernel (median of 20) and
+   its plain version (one call, the comparison at the main path's shape),
+   ``check_pairs`` on the card against
+   the native host library's ``pairing_check`` on the same pairs, and the
+   window's wall split into signature and key parse, hash-to-G1, scalar
+   multiplications, G2 aggregates and pairing checks.
+6. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -131,7 +151,7 @@ def ptxas_usage(report: str) -> dict[str, str]:
     usage: dict[str, list[str]] = {}
     name = None
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '.*?([a-z][a-z_]*_kernel)", ln)
+        m = re.search(r"Compiling entry function '.*?([a-z][a-z0-9_]*_kernel)", ln)
         if m:
             name = m.group(1)
             usage[name] = []
@@ -162,6 +182,17 @@ def time_cuda(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_once(torch, fn, *args):
+    """(result, ms) of one call fn(*args) between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def mixed_rows(host, keys, pubs, n_rows: int, n_pad: int, tag: bytes):
@@ -313,6 +344,374 @@ def check_window(host, verdicts, bitmap, items, entries_ledger, n_commits,
         assert bitmap[int(i)] == host.verify(it.pubkey, it.msg, it.sig), (label, i)
     for e in entries_ledger:
         assert e["engine"] == "sig" and e["rows"] == {"blocksync": len(items)}, e
+
+
+# --- the quorum-certificate path (BLS12-381) --------------------------------
+
+BLS_SOURCE = "tendermint_tpu_torch/ops/csrc/bls_kernels.cu"
+# an Fp multiplication of bls12_381_device.cuh: Montgomery CIOS over 6 x
+# 64-bit limbs, 72 64x64->128-bit products of four 32-bit multiply-adds
+IMAD_PER_FP_MUL = 72 * 4
+# Fp multiplications per operation, counted from bls12_381_device.cuh
+FP_G1_ADD = 16
+FP_G2_ADD = 5 * 2 + 11 * 3  # 5 Fp2 squarings, 11 Fp2 multiplications
+FP_F12_MUL, FP_F12_SQR, FP_LINE = 54, 36, 54
+FP_MILLER_DBL, FP_MILLER_ADD = 31, 43
+FP_INV = 381 + 229  # Fermat: the bits and the set bits of p - 2
+FP_CYCLO_SQR, FP_FROB = 18, 18
+FP_EXP_X = 64 * FP_CYCLO_SQR + 6 * FP_F12_MUL
+FP_F12_INV = 2 * FP_F12_MUL + 37 + FP_INV
+FP_FINAL_EXP = (2 * FP_F12_MUL + FP_F12_INV + 2 * FP_FROB  # easy part
+                + 5 * FP_EXP_X + 7 * FP_F12_MUL + FP_CYCLO_SQR + 3 * FP_FROB
+                + 12 + 12 + 12)  # loads, stores, the gamma table
+MILLER_BITS = 63  # bits of |x| after the leading one
+MILLER_ADDS = 5  # set bits of |x| after the leading one
+QC_BAD = 40  # the forged certificate's height in the 64-QC window
+
+
+def miller_fp_muls(n_valid: int) -> int:
+    """Fp multiplications of tm_miller that this data needs: each valid
+    pair's loads, doubling/addition steps and line products, the f12
+    squarings of each chunk that holds a valid pair, the product of those
+    chunks and the store. Padding pairs and chunks (their value stays one)
+    count nothing."""
+    chunks = -(-n_valid // 2)
+    per_pair = (6 + MILLER_BITS * (FP_MILLER_DBL + FP_LINE)
+                + MILLER_ADDS * (FP_MILLER_ADD + FP_LINE))
+    return (n_valid * per_pair + chunks * MILLER_BITS * FP_F12_SQR
+            + (chunks - 1) * FP_F12_MUL + 12)
+
+
+def f12_pow(c, a, e: int):
+    r = c.F12_ONE
+    for bit in bin(e)[2:]:
+        r = c.f12_mul(r, r)
+        if bit == "1":
+            r = c.f12_mul(r, a)
+    return r
+
+
+def timed(module, names, acc):
+    """Wrap module functions with host timers summed into acc[name];
+    returns the originals for restore()."""
+    saved = {}
+    for name in names:
+        fn = getattr(module, name)
+        saved[name] = fn
+
+        def wrap(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                acc[_name] = acc.get(_name, 0.0) + time.perf_counter() - t0
+
+        setattr(module, name, wrap)
+    return saved
+
+
+def restore(module, saved):
+    for name, fn in saved.items():
+        setattr(module, name, fn)
+
+
+def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
+    """Phase 5: BLS kernels against their plain versions and the oracle,
+    then a 64-QC window over the 150-validator set: proposer-side assembly
+    (assemble_qc) and verify_commits_qc through a started VerifyScheduler's
+    qc_verify lane, twice. Returns the four kernels' rows."""
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+    from tendermint_tpu_torch.crypto import bls_native
+    from tendermint_tpu_torch.crypto import bls_signatures as bls
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.ops import bls_g1, bls_g2
+    from tendermint_tpu_torch.ops import bls_pairing as bp
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tendermint_tpu_torch.types import quorum_cert as qcm
+
+    assert bls_native.native_lib() is not None, "native BLS library did not build"
+
+    def scalar() -> int:
+        return int.from_bytes(rng.bytes(32), "big") % (c.R - 1) + 1
+
+    def g1(k):
+        return bls._g1_mul_point(c.G1_GEN, k)
+
+    def g2(k):
+        return bls._g2_mul_point(c.G2_GEN, k)
+
+    errs = {}
+
+    # --- kernel vs plain: aggregates on 256 points with duplicates,
+    # opposites and the identity among them (doubling and identity branches)
+    g1s = [g1(scalar()) for _ in range(200)]
+    g1s += g1s[:20] + [c.g1_neg(p) for p in g1s[20:40]] + [c.G1_INF] * 6 + [(0, 1, 0)] * 10
+    g2s = [g2(scalar()) for _ in range(200)]
+    g2s += g2s[:20] + [c.g2_neg(p) for p in g2s[20:40]] + [c.G2_INF] * 16
+    p1 = torch.stack([bls_g1.g1_from_host(p) for p in g1s]).to(dev)
+    p2 = torch.stack([bls_g2.g2_from_host(p) for p in g2s]).to(dev)
+    for name, kern, plain, pts, add, inf, to_host, eq in (
+        ("g1_aggregate", bls_g1.g1_aggregate, bls_g1.g1_aggregate_plain, p1,
+         c.g1_add, c.G1_INF, bls_g1.g1_to_host, c.g1_eq),
+        ("g2_aggregate", bls_g2.g2_aggregate, bls_g2.g2_aggregate_plain, p2,
+         c.g2_add, c.G2_INF, bls_g2.g2_to_host, c.g2_eq),
+    ):
+        got, want = kern(pts), plain(pts)
+        torch.cuda.synchronize()
+        errs[name] = max_abs_err(got, want)
+        assert errs[name] == 0, f"{name}: kernel != plain"
+        acc = inf
+        for p in (g1s if name == "g1_aggregate" else g2s):
+            acc = add(acc, p)
+        assert eq(to_host(got), acc), f"{name} != host oracle"
+
+    # the pairing: the 2-pair verify shape and a 65-pair RLC shape whose
+    # product is one (sum of a_i b_i cancelled by the last pair)
+    a, b = [scalar() for _ in range(64)], [scalar() for _ in range(64)]
+    rlc_pairs = [(g1(x), g2(y)) for x, y in zip(a, b)]
+    rlc_pairs.append((g1(-sum(x * y for x, y in zip(a, b)) % c.R), c.G2_GEN))
+    s = scalar()
+    verify_pairs = [(g1(s), c.G2_GEN), (c.g1_neg(g1(1)), g2(s))]
+    shapes = {"verify": verify_pairs, "rlc": rlc_pairs}
+    chunks = {k: bp.prepare_pairs(v, dev) for k, v in shapes.items()}
+    mill, plain_ms = {}, {}
+    for k, ch in chunks.items():
+        # the RLC shape is the timing shape: its one plain call is timed
+        got = bp.miller(*ch)
+        want, plain_ms["miller"] = time_once(torch, bp.miller_plain, *ch)
+        fe_got = bp.final_exp(got.unsqueeze(0))
+        fe_plain, plain_ms["final_exp"] = time_once(
+            torch, bp.final_exp_plain, got.unsqueeze(0))
+        torch.cuda.synchronize()
+        errs["miller"] = max(errs.get("miller", 0), max_abs_err(got, want))
+        errs["final_exp"] = max(errs.get("final_exp", 0), max_abs_err(fe_got, fe_plain))
+        assert errs["miller"] == 0, f"tm_miller != plain ({k})"
+        assert errs["final_exp"] == 0, f"tm_final_exp != plain ({k})"
+        assert bp.f12_to_host(fe_got[0]) == c.F12_ONE, f"{k} product is not one"
+        assert c.multi_pairing_is_one(shapes[k]), k
+        mill[k] = got
+    # bilinearity: e(aP, bQ) == e(P, Q)^(ab)
+    x, y = scalar(), scalar()
+    P0, Q0 = g1(scalar()), g2(scalar())
+    e_ab = bp.pairing_value([(bls._g1_mul_point(P0, x), bls._g2_mul_point(Q0, y))], dev)
+    e_1 = bp.pairing_value([(P0, Q0)], dev)
+    assert e_ab == f12_pow(c, e_1, x * y % c.R), "bilinearity"
+    assert e_1 == c.pairing(P0, Q0), "pairing_value != host oracle"
+    print("kernel-vs-plain: g1_aggregate, g2_aggregate (256 points with "
+          "duplicates, opposites, identity), miller and final_exp (2-pair "
+          "verify shape, 65-pair RLC shape) equal their plain versions "
+          "(tolerance: exact) and the host oracle; e(aP, bQ) = e(P, Q)^(ab)")
+
+    # --- the window: BLS keys for the 150 validators. Four go through
+    # pubkey_from_priv (proof of possession, one card pairing each); the
+    # rest are trusted keys, as a genesis file carries them (set-up).
+    t0 = time.perf_counter()
+    vals = vset.validators
+    privs = {v.address: scalar() for v in vals}
+    pubs = {}
+    for i, v in enumerate(vals):
+        k = privs[v.address]
+        pubs[v.address] = (bls.pubkey_from_priv(k) if i < 4 else
+                           bls.new_trusted_public_key(g2(k))).key
+    qset = types.ValidatorSet([
+        types.Validator(v.pub_key, v.voting_power, bls_pub_key=bls.g2_to_bytes(pubs[v.address]))
+        for v in vals
+    ])
+    assert [v.address for v in qset.validators] == [v.address for v in vals]
+    n_win = len(entries)
+    for h, (bid, _, commit) in enumerate(entries, start=1):
+        hm = bls.hash_to_g1(qcm.qc_sign_bytes(chain_id, h, 0, bid))
+        for cs, v in zip(commit.signatures, vals):
+            cs.qc_signature = bls.g1_to_bytes(bls._g1_mul_point(hm, privs[v.address]))
+    keys_s = time.perf_counter() - t0
+
+    # proposer side: assemble each commit's QC (the batch check and the
+    # signature sum on the card)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    qcs = [qcm.assemble_qc(chain_id, commit, qset) for _, _, commit in entries]
+    assemble_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    asm_launches = ops.kernel_launches()
+    for name in ("g1_aggregate", "miller", "final_exp"):
+        assert asm_launches[name] > 0, f"{name} was not launched assembling QCs"
+    assert all(q is not None and q.num_signers() == len(vals) for q in qcs)
+    # QC 40: the valid aggregate of a sub-quorum subset, full bitset
+    bad = qcm.QuorumCertificate.decode(qcs[QC_BAD - 1].encode())
+    hm = bls.hash_to_g1(bad.sign_bytes(chain_id))
+    shares = [bls._g1_mul_point(hm, privs[v.address]) for v in vals[: len(vals) // 2]]
+    bad.agg_signature = bls.g1_to_bytes(bls.aggregate_signatures(shares))
+    qcs[QC_BAD - 1] = bad
+    window = [(bid, h, q) for (bid, h, _), q in zip(entries, qcs)]
+
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(Registry("smoke_qc")))
+    split_names = ("g1_from_bytes", "_qc_signer_key", "hash_to_g1", "_g1_mul_point",
+                   "_g2_sums", "_pairing_is_one")
+    splits, walls = [], []
+
+    async def go():
+        await sched.start()
+        loop = asyncio.get_running_loop()
+        out = []
+        try:
+            for _ in range(2):
+                acc = {}
+                saved = timed(bls, split_names, acc)
+                try:
+                    gc.collect()
+                    t0 = time.perf_counter()
+                    out.append(await loop.run_in_executor(
+                        None, lambda: qset.verify_commits_qc(chain_id, window)))
+                    walls.append(time.perf_counter() - t0)
+                finally:
+                    restore(bls, saved)
+                splits.append(acc)
+        finally:
+            await sched.stop()
+        return out
+
+    ops.reset_launches()
+    set_default_scheduler(sched)
+    try:
+        verdicts = asyncio.run(go())
+    finally:
+        set_default_scheduler(None)
+    torch.cuda.synchronize()
+    win_launches = ops.kernel_launches()
+    want = [h != QC_BAD for h in range(1, n_win + 1)]
+    for v in verdicts:
+        assert v == want, f"qc window verdicts {v}"
+    rounds = [e for e in ledger.entries() if e["engine"] == "qc_verify"]
+    assert len(rounds) == 2 and all(e["rows"] == {"blocksync": n_win} for e in rounds), rounds
+    for name in ("g2_aggregate", "miller", "final_exp"):
+        assert win_launches[name] > 0, f"{name} was not launched on the QC window"
+    checks = win_launches["final_exp"] // 2
+    print(f"main path: qc assembly: {n_win} commits x {len(vals)} validators "
+          f"through assemble_qc, every QC with all {len(vals)} signers; launches "
+          f"{json.dumps({k: v for k, v in asm_launches.items() if v})}")
+    print(f"main path: qc window: verify_commits_qc over {n_win} QCs (QC {QC_BAD} "
+          f"a sub-quorum aggregate under the full bitset) through a started "
+          f"VerifyScheduler's qc_verify lane, x2; verdicts [True]*{QC_BAD - 1} + "
+          f"[False] + [True]*{n_win - QC_BAD} each time; {checks} pairing checks "
+          f"per window; launches {json.dumps({k: v for k, v in win_launches.items() if v})}")
+    launches = {
+        "g1_aggregate": asm_launches["g1_aggregate"],
+        "g2_aggregate": win_launches["g2_aggregate"],
+        "miller": win_launches["miller"],
+        "final_exp": win_launches["final_exp"],
+    }
+
+    # --- the aggregates at the main path's shapes, against their plain
+    # versions (one timed call each) and the host oracle: assembly sums the
+    # 150 signatures of a commit (a tree padded to 256); the window sums 64
+    # trees of 150 keys in one launch (each tree padded, one block each),
+    # here each tree the keys rotated by its index
+    sigs = [bls.g1_from_bytes(cs.qc_signature) for cs in entries[0][2].signatures]
+    sig_pts = torch.stack([bls_g1.g1_from_host(p) for p in sigs]).to(dev)
+    key_pts = torch.stack([bls_g2.g2_from_host(pubs[v.address]) for v in vals])
+    key_trees = torch.stack([key_pts.roll(t, 0) for t in range(n_win)]).to(dev)
+    sig_sum, key_sum = c.G1_INF, c.G2_INF
+    for p in sigs:
+        sig_sum = c.g1_add(sig_sum, p)
+    for v in vals:
+        key_sum = c.g2_add(key_sum, pubs[v.address])
+    sums = {}
+    for name, kern, plain, pts in (
+        ("g1_aggregate", bls_g1.g1_aggregate, bls_g1.g1_aggregate_plain, sig_pts),
+        ("g2_aggregate", bls_g2.g2_aggregate, bls_g2.g2_aggregate_plain, key_trees),
+    ):
+        got = kern(pts)
+        want, plain_ms[name] = time_once(torch, plain, pts)
+        err = max_abs_err(got, want)
+        assert err == 0, f"{name}: kernel != plain at shape {tuple(pts.shape)}"
+        errs[name] = max(errs[name], err)
+        sums[name] = got.cpu()
+    assert c.g1_eq(bls_g1.g1_to_host(sums["g1_aggregate"]), sig_sum), "g1 != host oracle"
+    assert all(c.g2_eq(bls_g2.g2_to_host(t), key_sum) for t in sums["g2_aggregate"]), \
+        "g2 trees != host oracle"
+    print(f"kernel-vs-plain: g1_aggregate at {tuple(sig_pts.shape)} and "
+          f"g2_aggregate at {tuple(key_trees.shape)} (the main path's shapes) "
+          f"equal their plain versions (tolerance: exact) and the host oracle")
+
+    # --- timings at the main path's shapes
+    rlc = chunks["rlc"]
+    f_one = mill["rlc"].unsqueeze(0).contiguous()
+    n_rlc_chunks = rlc[0].shape[0]
+    work = {
+        "g1_aggregate": (
+            lambda: bls_g1.g1_aggregate(sig_pts),
+            sig_pts.numel() + 144,
+            ((len(vals) - 1) * FP_G1_ADD + 3 * len(vals) + 3) * IMAD_PER_FP_MUL,
+            "tendermint_tpu/ops/bls_g1.py:309",
+        ),
+        "g2_aggregate": (
+            lambda: bls_g2.g2_aggregate(key_trees),
+            key_trees.numel() + n_win * 288,
+            n_win * ((len(vals) - 1) * FP_G2_ADD + 6 * len(vals) + 6) * IMAD_PER_FP_MUL,
+            "tendermint_tpu/ops/bls_g2.py:214",
+        ),
+        "miller": (
+            lambda: bp.miller(*rlc),
+            sum(t.numel() for t in rlc) + 576,
+            miller_fp_muls(len(rlc_pairs)) * IMAD_PER_FP_MUL,
+            "tendermint_tpu/ops/bls_pairing.py:405",
+        ),
+        "final_exp": (
+            lambda: bp.final_exp(f_one),
+            2 * 576,
+            FP_FINAL_EXP * IMAD_PER_FP_MUL,
+            "tendermint_tpu/ops/bls_pairing.py:443",
+        ),
+    }
+    rows = []
+    for name, (kern, nbytes, n_ops, replaces) in work.items():
+        ms = time_cuda(torch, kern, 20)
+        b_ms, b_by = bound_ms(nbytes, n_ops)
+        rows.append({
+            "name": name, "route": "cuda", "source": BLS_SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms[name],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        print(f"time: {name} kernel {ms:.4f} ms plain {plain_ms[name]:.2f} ms "
+              f"(one call) bound {b_ms:.5f} ms ({b_by}) | {smi}")
+    vchunks = chunks["verify"]
+    mv = time_cuda(torch, lambda: bp.miller(*vchunks), 20)
+    print(f"time: miller at the 2-pair verify shape {mv:.4f} ms (1 chunk); "
+          f"at the 65-pair RLC shape ({n_rlc_chunks} chunks) the miller row | {smi}")
+    for k, pairs in shapes.items():
+        g1b = b"".join(bls.g1_to_bytes(p) for p, _ in pairs)
+        g2b = b"".join(bls.g2_to_bytes(q) for _, q in pairs)
+        assert bls_native.pairing_check(g1b, g2b, len(pairs))
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            bls_native.pairing_check(g1b, g2b, len(pairs))
+            ts.append((time.perf_counter() - t0) * 1e3)
+        card = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            assert bp.check_pairs(pairs, dev)
+            card.append((time.perf_counter() - t0) * 1e3)
+        print(f"time: pairing check, {len(pairs)} pairs: native host library "
+              f"(one CPU thread) median {statistics.median(ts):.3f} ms; "
+              f"check_pairs on the card median {statistics.median(card):.3f} ms "
+              f"(host prep, miller, final_exp, copies) | {smi}")
+    print(f"time: qc set-up {keys_s:.1f} s ({len(vals)} BLS keys, 4 with a card PoP "
+          f"check; {n_win * len(vals)} signature shares, host); assembly of "
+          f"{n_win} QCs {assemble_s * 1e3:.1f} ms | {smi}")
+    labels = {"g1_from_bytes": "signature parse", "_qc_signer_key": "key parse",
+              "hash_to_g1": "hash-to-G1", "_g1_mul_point": "scalar mults",
+              "_g2_sums": "G2 aggregates", "_pairing_is_one": "pairing checks"}
+    for rep, (wall, acc) in enumerate(zip(walls, splits), start=1):
+        parts = ", ".join(f"{labels[k]} {acc.get(k, 0.0) * 1e3:.2f} ms" for k in split_names)
+        rest = wall - sum(acc.values())
+        print(f"time: qc window {rep}: wall {wall * 1e3:.2f} ms, "
+              f"{n_win / wall:.1f} QCs/s; {parts}; rest (tally, RLC sums, "
+              f"scheduler) {rest * 1e3:.2f} ms | {smi}")
+    return rows
 
 
 def main() -> int:
@@ -779,7 +1178,10 @@ def main() -> int:
                   f"{(e['queue_wait_s'] - e['host_prep_s']) * 1e3:.2f} ms; gc pauses "
                   f"{gc_s * 1e3:.2f} ms | {smi}")
 
-    # --- 5. result lines ----------------------------------------------------
+    # --- 5. the quorum-certificate path -------------------------------------
+    rows += qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries)
+
+    # --- 6. result lines ----------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

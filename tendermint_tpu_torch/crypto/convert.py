@@ -9,6 +9,12 @@
 - ``dbl_chain`` points: the Pallas kernel holds a batch as ``[4, 32, B]``
   float32 radix-2^8 limbs (loose: a limb may exceed 255); the port as
   ``[B, 4, 32]`` canonical uint8 bytes.
+- BLS12-381 values: the JAX package holds an Fp element as ``[..., 48]``
+  int32 radix-2^8 limbs, loose (a limb may exceed 255, the value p); G1
+  points ``[B, 3, 48]``, G2 ``[B, 3, 2, 48]``, Fp12 ``[..., 6, 2, 48]``,
+  pairing chunks as ``_prepare_pairs`` makes them. The port keeps the
+  same shapes as canonical little-endian uint8 bytes (``bls_from_jax``,
+  ``bls_to_jax``, ``bls_chunks_from_jax``).
 
 Inputs are numpy arrays; this module imports nothing of JAX.
 """
@@ -72,4 +78,40 @@ def points_to_pallas(points: torch.Tensor) -> np.ndarray:
         raise ValueError(f"expected [B, 4, 32] uint8, got {tuple(points.shape)}")
     return np.ascontiguousarray(
         points.cpu().numpy().transpose(1, 2, 0).astype(np.float32)
+    )
+
+
+_BLS_P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
+
+
+def bls_from_jax(limbs) -> torch.Tensor:
+    """``[..., 48]`` int32 radix-2^8 limbs (loose) -> ``[..., 48]``
+    canonical uint8 bytes of the value mod p."""
+    arr = np.asarray(limbs)
+    if arr.ndim < 1 or arr.shape[-1] != 48 or arr.dtype.kind not in "iu":
+        raise ValueError(f"expected [..., 48] integer limbs, got {arr.shape} {arr.dtype}")
+    if (arr < 0).any():
+        raise ValueError("limbs must be non-negative")
+    rows = arr.reshape(-1, 48).tolist()
+    raw = b"".join(
+        (sum(int(v) << (8 * i) for i, v in enumerate(r)) % _BLS_P).to_bytes(48, "little")
+        for r in rows
+    )
+    out = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    return out.reshape(arr.shape).clone()
+
+
+def bls_to_jax(values: torch.Tensor) -> np.ndarray:
+    """``[..., 48]`` uint8 bytes -> ``[..., 48]`` int32 limbs (canonical)."""
+    if values.dtype != torch.uint8 or values.shape[-1] != 48:
+        raise ValueError(f"expected [..., 48] uint8, got {tuple(values.shape)}")
+    return values.cpu().numpy().astype(np.int32)
+
+
+def bls_chunks_from_jax(xp, yp, xq, yq, valid) -> tuple:
+    """The JAX package's ``_prepare_pairs`` arrays -> the port's chunk
+    tensors for ``ops/bls_pairing.miller``."""
+    return (
+        bls_from_jax(xp), bls_from_jax(yp), bls_from_jax(xq), bls_from_jax(yq),
+        torch.from_numpy(np.asarray(valid, dtype=bool).copy()),
     )

@@ -1,5 +1,6 @@
-"""Device plane of the port: plain PyTorch field/curve/SHA-512 code and the
-hand-written CUDA kernels (``csrc/``) of the ed25519 verify paths.
+"""Device plane of the port: plain PyTorch field/curve/SHA-512/BLS12-381
+code and the hand-written CUDA kernels (``csrc/``) of the ed25519 verify
+paths and the quorum-certificate path.
 
 ``kernel_launches()`` reads the launch count of every kernel wrapper and
 ``reset_launches()`` zeroes them; a run that sets them to 0, drives the
@@ -8,6 +9,9 @@ main path and reads them shows which kernels the path went through.
 
 
 def _wrappers() -> dict:
+    from .bls_g1 import g1_aggregate
+    from .bls_g2 import g2_aggregate
+    from .bls_pairing import final_exp, miller
     from .dbl_chain import dbl_chain
     from .ed25519_batch import (
         neg_pubkey_bigtable,
@@ -29,6 +33,10 @@ def _wrappers() -> dict:
         "verify_prehashed_bigcache_mxu": verify_prehashed_bigcache_mxu,
         "challenge_batch": challenge_batch,
         "reduce_mod_l": reduce_mod_l,
+        "g1_aggregate": g1_aggregate,
+        "g2_aggregate": g2_aggregate,
+        "miller": miller,
+        "final_exp": final_exp,
     }
 
 

@@ -6,12 +6,13 @@ Two routes, both for sm_90a:
   ``ninja`` is present (ninja compiles the sources in parallel). Only
   ``binding.cpp`` includes ``torch/extension.h`` and it goes to the host
   compiler; nvcc sees only the plain-C ``.cu`` files.
-- otherwise ``nvcc -shared`` over both ``.cu`` files into a plain shared
+- otherwise ``nvcc -shared`` over the ``.cu`` files into a plain shared
   library bound with ``ctypes``.
 
 Both expose the same launchers (``neg_pubkey_table``, ``verify_table``,
 ``verify_generic``, ``dbl_chain``, ``neg_pubkey_bigtable``,
-``verify_bigcache``, ``challenge``, ``reduce_mod_l``), which take tensors
+``verify_bigcache``, ``challenge``, ``reduce_mod_l``, ``g1_aggregate``,
+``g2_aggregate``, ``miller``, ``final_exp``), which take tensors
 and the raw CUDA stream and raise when the launch is refused. Nothing here
 runs at import: the CPU tests import every module, and ``nvcc`` is needed
 only when a kernel is first called on the card. The first build holds a
@@ -37,6 +38,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 KERNEL_SOURCES = [
     os.path.join(CSRC, "ed25519_kernels.cu"),
     os.path.join(CSRC, "sha512_kernels.cu"),
+    os.path.join(CSRC, "bls_kernels.cu"),
 ]
 BINDING_SOURCE = os.path.join(CSRC, "binding.cpp")
 
@@ -71,6 +73,10 @@ class _CtypesKernels:
             "tm_verify_bigcache": verify_sig,
             "tm_challenge": [vp, i, vp, vp, i, vp],
             "tm_reduce_mod_l": [vp, vp, i, vp],
+            "tm_g1_aggregate": [vp, vp, vp, i, i, i, vp],
+            "tm_g2_aggregate": [vp, vp, vp, i, i, i, vp],
+            "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
+            "tm_final_exp": [vp, vp, i, vp],
         }
         for name, args in sig.items():
             getattr(lib, name).argtypes = args
@@ -132,6 +138,30 @@ class _CtypesKernels:
     def reduce_mod_l(self, digest, out, stream):
         self._launched(self._lib.tm_reduce_mod_l(
             digest.data_ptr(), out.data_ptr(), out.shape[0], stream,
+        ))
+
+    def _aggregate(self, fn, points, scratch, out, ntrees, b, nb, stream):
+        self._launched(fn(
+            points.data_ptr(), scratch.data_ptr(), out.data_ptr(), ntrees, b,
+            nb, stream,
+        ))
+
+    def g1_aggregate(self, *args):
+        self._aggregate(self._lib.tm_g1_aggregate, *args)
+
+    def g2_aggregate(self, *args):
+        self._aggregate(self._lib.tm_g2_aggregate, *args)
+
+    def miller(self, xp, yp, xq, yq, valid, scratch, out, stream):
+        self._launched(self._lib.tm_miller(
+            xp.data_ptr(), yp.data_ptr(), xq.data_ptr(), yq.data_ptr(),
+            valid.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            xp.shape[0], stream,
+        ))
+
+    def final_exp(self, f, out, stream):
+        self._launched(self._lib.tm_final_exp(
+            f.data_ptr(), out.data_ptr(), f.shape[0], stream,
         ))
 
 

@@ -1,10 +1,11 @@
-// PyTorch binding of the ed25519 and SHA-512 kernels (the
+// PyTorch binding of the ed25519, SHA-512 and BLS12-381 kernels (the
 // torch.utils.cpp_extension route). The only source that includes
 // torch/extension.h; it is compiled by the host compiler, and the kernels
-// (ed25519_kernels.cu, sha512_kernels.cu) keep a plain C interface so that
-// nvcc never sees PyTorch's headers. The Python wrappers in
-// ops/ed25519_batch.py, ops/sha512.py and ops/dbl_chain.py check shapes and
-// types before calling in; the checks here guard the raw pointers.
+// (ed25519_kernels.cu, sha512_kernels.cu, bls_kernels.cu) keep a plain C
+// interface so that nvcc never sees PyTorch's headers. The Python wrappers
+// in ops/ed25519_batch.py, ops/sha512.py, ops/dbl_chain.py and ops/bls_*.py
+// check shapes and types before calling in; the checks here guard the raw
+// pointers.
 #include <torch/extension.h>
 
 extern "C" {
@@ -27,6 +28,14 @@ int tm_verify_bigcache(const void* tables, const void* tvalid, int rows,
 int tm_challenge(const void* msg, int nblk, const void* n_blocks, void* out,
                  int b, void* stream);
 int tm_reduce_mod_l(const void* digest, void* out, int b, void* stream);
+int tm_g1_aggregate(const void* in, void* scratch, void* out, int ntrees,
+                    int b, int nb, void* stream);
+int tm_g2_aggregate(const void* in, void* scratch, void* out, int ntrees,
+                    int b, int nb, void* stream);
+int tm_miller(const void* xp, const void* yp, const void* xq, const void* yq,
+              const void* valid, void* scratch, void* out, int c,
+              void* stream);
+int tm_final_exp(const void* in, void* out, int n, void* stream);
 const char* tm_error_string(int err);
 }
 
@@ -133,6 +142,45 @@ void reduce_mod_l(torch::Tensor digest, torch::Tensor out, int64_t stream) {
                            (int)out.size(0), stream_ptr(stream)));
 }
 
+using aggregate_fn = int (*)(const void*, void*, void*, int, int, int, void*);
+
+void aggregate(aggregate_fn fn, torch::Tensor in, torch::Tensor scratch,
+               torch::Tensor out, int64_t ntrees, int64_t b, int64_t nb,
+               int64_t stream) {
+  check(in, "points");
+  check(scratch, "scratch");
+  check(out, "out");
+  launched(fn(in.data_ptr(), scratch.data_ptr(), out.data_ptr(), (int)ntrees,
+              (int)b, (int)nb, stream_ptr(stream)));
+}
+
+void g1_aggregate(torch::Tensor in, torch::Tensor scratch, torch::Tensor out,
+                  int64_t ntrees, int64_t b, int64_t nb, int64_t stream) {
+  aggregate(tm_g1_aggregate, in, scratch, out, ntrees, b, nb, stream);
+}
+
+void g2_aggregate(torch::Tensor in, torch::Tensor scratch, torch::Tensor out,
+                  int64_t ntrees, int64_t b, int64_t nb, int64_t stream) {
+  aggregate(tm_g2_aggregate, in, scratch, out, ntrees, b, nb, stream);
+}
+
+void miller(torch::Tensor xp, torch::Tensor yp, torch::Tensor xq,
+            torch::Tensor yq, torch::Tensor valid, torch::Tensor scratch,
+            torch::Tensor out, int64_t stream) {
+  for (auto* t : {&xp, &yp, &xq, &yq, &valid, &scratch, &out})
+    check(*t, "miller operand");
+  launched(tm_miller(xp.data_ptr(), yp.data_ptr(), xq.data_ptr(),
+                     yq.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+                     out.data_ptr(), (int)xp.size(0), stream_ptr(stream)));
+}
+
+void final_exp(torch::Tensor in, torch::Tensor out, int64_t stream) {
+  check(in, "f");
+  check(out, "out");
+  launched(tm_final_exp(in.data_ptr(), out.data_ptr(), (int)in.size(0),
+                        stream_ptr(stream)));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -144,4 +192,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("verify_bigcache", &verify_bigcache);
   m.def("challenge", &challenge);
   m.def("reduce_mod_l", &reduce_mod_l);
+  m.def("g1_aggregate", &g1_aggregate);
+  m.def("g2_aggregate", &g2_aggregate);
+  m.def("miller", &miller);
+  m.def("final_exp", &final_exp);
 }

@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from tendermint_tpu_torch.crypto import batch_verifier as bv
 from tendermint_tpu_torch.crypto import ed25519 as host
@@ -512,12 +513,56 @@ def test_device_path_rounds_through_scheduler():
     assert v._registry.buckets_by_tier()["small"] == (8,)
 
 
-@pytest.mark.parametrize("engine", ["bls_agg", "qc_verify", "secp_recover"])
+@pytest.mark.parametrize("engine", ["secp_recover"])
 def test_unported_engines_raise(engine):
-    """The BLS and secp256k1 engines name their ROADMAP item instead of
-    failing on a missing module; an unknown engine still runs the
-    caller's fallback."""
+    """The secp256k1 engine names its ROADMAP item instead of failing on a
+    missing module; an unknown engine still runs the caller's fallback."""
     s = _sched()
     with pytest.raises(NotImplementedError, match="gated kernels"):
         s.submit_wire_fn_sync(engine, [(b"pk", b"m", b"sig")])
     assert s.submit_wire_fn_sync("nope", [1], fallback=lambda: ["fb"]) == ["fb"]
+
+
+def _bls_engine_items(engine: str, bls):
+    """One valid and one malformed item for a BLS engine, built with the
+    given package's bls_signatures (the same scalar and message)."""
+    priv, msg = 0x5EED, b"engine-parity"
+    key = bls._g2_mul_point(bls.c.G2_GEN, priv)
+    sig = bls.g1_to_bytes(bls.sign(priv, msg))
+    if engine == "bls_agg":
+        pub = bls.public_key_to_bytes(bls.new_trusted_public_key(key))
+        return [(pub, msg, sig), (pub[:-1] + b"\x00", msg, sig)]
+    keys = bls.g2_to_bytes(key)
+    return [(msg, sig, keys), (msg, sig, keys[:-1])]
+
+
+@pytest.mark.parametrize("engine", ["bls_agg", "qc_verify"])
+def test_bls_engines_match_reference(engine, monkeypatch):
+    """The ported BLS engines return the reference engines' verdicts for a
+    valid and a malformed item, through the scheduler's wire-engine lane
+    (process verifier on the CPU: the plain versions of the kernels)."""
+    from tendermint_tpu.crypto import bls_signatures as ref_bls
+    from tendermint_tpu.parallel.engines import BUILTIN_ENGINES as REF_ENGINES
+    from tendermint_tpu_torch.crypto import bls_signatures as bls
+
+    monkeypatch.setattr(bv, "_default", BatchVerifier(device="cpu"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # thousands of small tensor operations
+    try:
+        got = _sched().submit_wire_fn_sync(engine, _bls_engine_items(engine, bls))
+    finally:
+        torch.set_num_threads(threads)
+    want = REF_ENGINES[engine](_bls_engine_items(engine, ref_bls))
+    assert got == want == [True, False]
+
+
+def test_bls_agg_malformed_signature_is_a_false_verdict(monkeypatch):
+    """A malformed signature beside a valid key is a False verdict (the
+    reference engine appends the key before the signature parses, and its
+    lists then disagree in length)."""
+    from tendermint_tpu_torch.crypto import bls_signatures as bls
+
+    monkeypatch.setattr(bv, "_default", BatchVerifier(device="cpu"))
+    good, _ = _bls_engine_items("bls_agg", bls)
+    bad_sig = (good[0], good[1], b"\x11" * 96)
+    assert _sched().submit_wire_fn_sync("bls_agg", [bad_sig]) == [False]
