@@ -5,7 +5,7 @@
 
 Phases (any failure raises and the exit code is non-zero):
 
-1. Build the ed25519, SHA-512 and BLS12-381 kernels from
+1. Build the ed25519, SHA-512, BLS12-381, secp256k1 and SHA-256 kernels from
    ``tendermint_tpu_torch/ops/csrc`` into ``tendermint_tpu_torch/_kbuild/``
    (a ``-Xptxas -v`` report of registers and spills per kernel runs beside
    the build), print the build seconds and the card's ``nvidia-smi`` name
@@ -66,7 +66,33 @@ Phases (any failure raises and the exit code is non-zero):
    the native host library's ``pairing_check`` on the same pairs, and the
    window's wall split into signature and key parse, hash-to-G1, scalar
    multiplications, G2 aggregates and pairing checks.
-6. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+6. The mixed-key path and the L2 block's merkle leaves (``mixed_phase``):
+   ``secp_verify_prehashed`` on 64 crafted rows (valid, flipped s, wrong
+   message, cross key, ``ok_in`` False, Q = G with u1 = u2, R at infinity,
+   a point with x >= n taking the direct and the wrapped compare, the
+   forged wrap r = x - n + 2^256, u1 = u2 = 0) and ``sha256_batch`` on
+   one-block rows, 2-block inner rows and the leaf batch of the L2 block
+   (ragged block counts), each against its plain version on the card, the
+   JAX package's rule or hashlib. Then a validator set of the 150 keys in
+   which every third holds a secp256k1 key (equal power), with
+   ``TM_TPU_SECP_DEVICE=1``: ``verify_commit`` on 5 heights (the 50
+   secp256k1 rows on the kernel, a tampered secp256k1 signature rejected
+   with the reference's message) and ``verify_commits_light`` over a
+   64-commit window (6,400 ed25519 rows on the big tier, 3,200 secp256k1
+   rows on the kernel; commit 40 with tampered ed25519 and secp256k1
+   signatures of more than 1/3 of the power) from an executor thread
+   through a started ``VerifyScheduler``, twice, each wall split into
+   secp256k1 host prep, the kernel with its copies, the ed25519 round and
+   sign-bytes assembly; the secp256k1 rows against the native host route
+   (also timed, as the yardstick), a sample against the host oracles. Then
+   ``Data.hash()`` of an L2 block (4,000 transactions of 100-1,024 bytes
+   and 2 payload leaves) with the device gate at 1,024 leaves, and
+   ``merkle_root_pow2`` over 4,096 leaves, both equal to the host tree.
+   Launch counts are read after each path; timings: both kernels (median
+   of 20) at the path's shapes with their bounds, the per-height and
+   window walls, the native and device routes of the 3,200 rows, the
+   merkle block by the card (``pad_messages`` apart) and by hashlib.
+7. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -146,14 +172,27 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """The `*_kernel` identifier inside a mangled name: the one whose
+    length prefix reads exactly its characters (an anonymous namespace
+    puts the file's name before it)."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):
+            n = int(m.group()[k:])
+            name = mangled[m.end() : m.end() + n]
+            if len(name) == n and re.fullmatch(r"[a-z]\w*_kernel", name):
+                return name
+    return mangled
+
+
 def ptxas_usage(report: str) -> dict[str, str]:
     """kernel name -> its stack/spill and register lines of -Xptxas -v."""
     usage: dict[str, list[str]] = {}
     name = None
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '.*?([a-z][a-z0-9_]*_kernel)", ln)
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            name = m.group(1)
+            name = kernel_name(m.group(1))
             usage[name] = []
         elif name and ("spill" in ln or "Used" in ln):
             usage[name].append(ln.replace("ptxas info    :", "").strip())
@@ -392,8 +431,8 @@ def f12_pow(c, a, e: int):
 
 
 def timed(module, names, acc):
-    """Wrap module functions with host timers summed into acc[name];
-    returns the originals for restore()."""
+    """Wrap module functions (or an object's methods) with host timers
+    summed into acc[name]; returns the originals for restore()."""
     saved = {}
     for name in names:
         fn = getattr(module, name)
@@ -412,7 +451,10 @@ def timed(module, names, acc):
 
 def restore(module, saved):
     for name, fn in saved.items():
-        setattr(module, name, fn)
+        if hasattr(fn, "__func__") and fn.__self__ is module:
+            delattr(module, name)  # a bound method: drop the instance's wrapper
+        else:
+            setattr(module, name, fn)
 
 
 def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
@@ -712,6 +754,460 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
               f"{n_win / wall:.1f} QCs/s; {parts}; rest (tally, RLC sums, "
               f"scheduler) {rest * 1e3:.2f} ms | {smi}")
     return rows
+
+
+# --- the mixed-key path (secp256k1) and the L2 block's merkle leaves --------
+
+SECP_SOURCE = "tendermint_tpu_torch/ops/csrc/secp256k1_kernels.cu"
+SHA256_SOURCE = "tendermint_tpu_torch/ops/csrc/sha256_kernels.cu"
+# a field multiplication of secp256k1_device.cuh: 16 64x64->128-bit
+# products and 5 in the fold, each four 32-bit multiply-adds
+IMAD_PER_SECP_MUL = 21 * 4
+# field multiplications of a doubling (2M + 5S) and an addition (12M + 4S)
+FE_SECP_DBL, FE_SECP_ADD = 7, 16
+# SHA-256, per 64-byte block, from ops/csrc/sha256_kernels.cu: 64 rounds of
+# ~20 32-bit operations, 48 schedule steps of ~12, 16 word loads of ~7
+SHA256_OPS_PER_BLOCK = 64 * 20 + 48 * 12 + 16 * 7
+
+
+def secp_crafted_rows(host, secp_native, rng):
+    """64 rows of the secp256k1 kernel's operands as host integers,
+    (Q affine, u1, u2, r, ok_in), and each row's verdict by the JAX
+    package's rule: ok_in, R = u1 G + u2 Q not at infinity, and x(R) == r
+    or (x(R) >= n and x(R) - n == r). Valid signatures; flipped s, wrong
+    message, cross key; ok_in False; Q = G with u1 = u2 (the ladder meets
+    P == Q); u2 = n - u1 with Q = G (R at infinity); a point T with
+    x(T) >= n as Q with u1 = 0, u2 = 1 (r = x(T) - n takes the wrapped
+    branch); the forged wrap r = x(R) - n + 2^256 for x(R) < n; u1 = u2 = 0;
+    zero padding rows."""
+    n_ord, g = host.N, (host.GX, host.GY)
+    keys = [host.PrivKey.from_secret(b"smoke-secp-%d" % i) for i in range(4)]
+    pubs = [k.public_key().data for k in keys]
+    rows = []
+
+    def signed(pub, msg, sig, ok=True):
+        prep = secp_native.prep_digest_item(pub, hashlib.sha256(msg).digest(), sig)
+        if prep is None:
+            rows.append(((0, 0), 0, 0, 0, False))
+        else:
+            r, pt, u1, u2 = prep
+            rows.append((pt, u1, u2, r, ok))
+
+    for i in range(16):  # valid; for 8 of them flipped s, wrong message, cross key
+        msg = b"crafted-%d" % i
+        sig = keys[i % 4].sign(msg)
+        signed(pubs[i % 4], msg, sig)
+        if i < 8:
+            signed(pubs[i % 4], msg, sig[:62] + bytes([sig[62] ^ 2]) + sig[63:])
+            signed(pubs[i % 4], msg + b"!", sig)
+            signed(pubs[(i + 1) % 4], msg, sig)
+    for i in range(4):  # valid, but the host pre-checks said no
+        msg = b"crafted-ok-%d" % i
+        signed(pubs[i], msg, keys[i].sign(msg), ok=False)
+    for i in range(4):  # Q = G, u1 = u2: the first add doubles
+        u = int.from_bytes(rng.bytes(32), "big") % (n_ord - 1) + 1
+        x = host._to_affine(host._jmul(2 * u, (*g, 1)))[0]
+        rows.append((g, u, u, x % n_ord + (i % 2), True))
+    for _ in range(2):  # u2 = n - u1, Q = G: R at infinity
+        u = int.from_bytes(rng.bytes(32), "big") % (n_ord - 1) + 1
+        rows.append((g, u, n_ord - u, 1, True))
+    xt = n_ord
+    while host._lift_x(xt, 0) is None:
+        xt += 1
+    t_pt = host._lift_x(xt, 0)
+    for r in (xt - n_ord, xt, xt - n_ord + 1):
+        rows.append((t_pt, 0, 1, r, True))
+    q_pt = host.decompress_point(pubs[0])
+    assert q_pt[0] < n_ord
+    rows.append((q_pt, 0, 1, q_pt[0] - n_ord + (1 << 256), True))  # forged wrap
+    rows.append((q_pt, 0, 1, q_pt[0], True))
+    rows.append((q_pt, 0, 0, 1, True))  # u1 = u2 = 0
+    while len(rows) < 64:
+        rows.append(((0, 0), 0, 0, 0, False))
+    want = []
+    for (qx, qy), u1, u2, r, ok in rows:
+        R = host._to_affine(host._jadd(host._jmul(u1, (*g, 1)), host._jmul(u2, (qx, qy, 1))))
+        want.append(bool(ok) and R is not None
+                    and (R[0] == r or (R[0] >= n_ord and R[0] - n_ord == r)))
+    return rows, want
+
+
+def secp_row_arrays(np, fe, rows):
+    """The kernel's operands of host-integer rows: qx, qy [B, 32] int32
+    limbs; u1, u2, r [B, 32] uint8 big-endian; ok_in [B] bool."""
+    b = len(rows)
+    qx = np.zeros((b, 32), np.int32)
+    qy = np.zeros((b, 32), np.int32)
+    u1 = np.zeros((b, 32), np.uint8)
+    u2 = np.zeros((b, 32), np.uint8)
+    rb = np.zeros((b, 32), np.uint8)
+    ok = np.zeros(b, bool)
+    for i, ((x, y), a, c, r, o) in enumerate(rows):
+        qx[i], qy[i] = fe.from_int(x), fe.from_int(y)
+        for arr, v in ((u1, a), (u2, c), (rb, r)):
+            arr[i] = np.frombuffer(v.to_bytes(32, "big"), np.uint8)
+        ok[i] = o
+    return qx, qy, u1, u2, rb, ok
+
+
+def secp_fe_muls(u1: int, u2: int) -> int:
+    """Field multiplications of tm_secp_verify for one live row with these
+    scalars: the table of Q (7 doublings, 7 additions), then the ladder's
+    doublings once the accumulator has left the identity and its
+    additions of a nonzero digit onto a non-identity accumulator (the
+    others return early), then the Z^2 check."""
+    muls, started = 7 * FE_SECP_DBL + 7 * FE_SECP_ADD, False
+    for k in range(64):
+        if started:
+            muls += 4 * FE_SECP_DBL
+        for s in (u2, u1):
+            if (s >> (4 * (63 - k))) & 15:
+                muls += FE_SECP_ADD if started else 0
+                started = True
+    return muls + 3
+
+
+def run_mixed_window(verifier, vset, chain_id, entries, reps, secp_native):
+    """verify_commits_light over the mixed-key window `reps` times, from an
+    executor thread through a started VerifyScheduler and
+    default_dispatch("blocksync"), each rep's wall split by host timers
+    (secp256k1 prep, the secp256k1 route, the ed25519 round, sign-bytes
+    assembly); then the window's rows once more for the per-row bitmap.
+    Returns (verdicts, walls, splits, bitmap, items, ledger entries)."""
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.parallel import (
+        VerifyScheduler, default_dispatch, set_default_scheduler,
+    )
+
+    items = [it for _, _, c in entries for it in vset._gather_items(chain_id, c, True)[0]]
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(verifier=verifier, ledger=ledger,
+                            metrics=SchedulerMetrics(Registry("smoke_mixed")))
+    verdicts, walls, splits = [], [], []
+
+    async def go():
+        await sched.start()
+        loop = asyncio.get_running_loop()
+        try:
+            for _ in range(reps):
+                acc = {}
+                saved = [
+                    (secp_native, timed(secp_native, ("prep_digest_item",), acc)),
+                    (verifier, timed(verifier, ("verify", "_verify_secp_device"), acc)),
+                    (vset, timed(vset, ("_gather_items",), acc)),
+                ]
+                try:
+                    gc.collect()
+                    t0 = time.perf_counter()
+                    verdicts.append(await loop.run_in_executor(
+                        None,
+                        lambda: vset.verify_commits_light(
+                            chain_id, entries, verifier=default_dispatch("blocksync")),
+                    ))
+                    walls.append(time.perf_counter() - t0)
+                finally:
+                    for obj, s in saved:
+                        restore(obj, s)
+                splits.append(acc)
+            return await loop.run_in_executor(
+                None, lambda: default_dispatch("blocksync").verify(items))
+        finally:
+            await sched.stop()
+
+    set_default_scheduler(sched)
+    try:
+        bitmap = asyncio.run(go())
+    finally:
+        set_default_scheduler(None)
+    return verdicts, walls, splits, [bool(v) for v in bitmap], items, ledger.entries()
+
+
+def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights):
+    """Phase 6: the secp256k1 and SHA-256 kernels against their plain
+    versions, then the mixed-key commit path (a 150-validator set, every
+    third key secp256k1, equal power) per height and over a 64-commit
+    blocksync window, the 4,002-leaf L2 block data hash and
+    merkle_root_pow2 on the card. Returns the two kernels' rows."""
+    from tendermint_tpu_torch.crypto import batch_verifier as bv
+    from tendermint_tpu_torch.crypto import ed25519 as ed_host
+    from tendermint_tpu_torch.crypto import merkle
+    from tendermint_tpu_torch.crypto import secp256k1 as host
+    from tendermint_tpu_torch.crypto import secp_native
+    from tendermint_tpu_torch.crypto.shape_registry import ShapeRegistry
+    from tendermint_tpu_torch.ops import secp256k1_kernel as sk
+    from tendermint_tpu_torch.ops import sha256 as s2
+    from tendermint_tpu_torch.types.block import Data
+
+    assert secp_native.native_lib() is not None, "native secp256k1 library did not build"
+    D = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    errs, plain_ms = {}, {}
+
+    # --- kernel vs plain: tm_secp_verify on the 64 crafted rows
+    rows, want = secp_crafted_rows(host, secp_native, rng)
+    crafted = tuple(D(a) for a in secp_row_arrays(np, sk.fe, rows))
+    got = sk.verify_prehashed(*crafted)
+    plain = sk.verify_prehashed_plain(*crafted)
+    torch.cuda.synchronize()
+    errs["secp"] = max_abs_err(got, plain)
+    assert errs["secp"] == 0, "tm_secp_verify != plain (crafted rows)"
+    assert got.cpu().tolist() == want, "tm_secp_verify != the JAX package's rule (crafted rows)"
+
+    # --- tm_sha256: one-block leaves, the 2-block inner shape, ragged rows
+    def sha_check(buf, cnt, msgs, label):
+        got = s2.sha256_batch(D(buf), D(cnt))
+        plain, ms = time_once(torch, s2.sha256_batch_plain, D(buf), D(cnt))
+        err = max_abs_err(got, plain)
+        assert err == 0, f"tm_sha256 != plain ({label})"
+        assert [bytes(r) for r in got.cpu().numpy()[: len(msgs)]] == [
+            hashlib.sha256(m).digest() for m in msgs], f"tm_sha256 != hashlib ({label})"
+        errs["sha256"] = max(errs.get("sha256", 0), err)
+        return ms
+
+    leaves32 = [rng.bytes(32) for _ in range(4096)]
+    buf, cnt = s2.pad_messages(leaves32, prefix=b"\x00")
+    sha_check(buf, cnt, [b"\x00" + x for x in leaves32], "one-block leaves")
+    pairs = [rng.bytes(64) for _ in range(2048)]
+    buf, cnt = s2.pad_messages(pairs, prefix=b"\x01")
+    sha_check(buf, cnt, [b"\x01" + x for x in pairs], "2-block inner rows")
+
+    # the L2 block: 4000 transactions of 100-1024 bytes and its two payload
+    # leaves, as Data.hash() gives them to the leaf batch: 4002 rows padded
+    # to the 4096 bucket, the block axis (17 for the longest) to 32
+    txs = [rng.bytes(int(k)) for k in rng.integers(100, 1025, 4000)]
+    data = Data(txs=txs, l2_block_meta=rng.bytes(256), l2_batch_header=rng.bytes(128))
+    leaves = [b"\x00" + tx for tx in txs] + [b"\x01" + data.l2_block_meta,
+                                              b"\x02" + data.l2_batch_header]
+    msgs = leaves + [b""] * (4096 - len(leaves))
+    leaf_buf, leaf_cnt = s2.pad_messages(msgs, prefix=b"\x00")
+    nblk = leaf_buf.shape[1] // 64
+    leaf_buf = np.pad(leaf_buf, ((0, 0), (0, ((1 << (nblk - 1).bit_length()) - nblk) * 64)))
+    plain_ms["sha256"] = sha_check(leaf_buf, leaf_cnt, [b"\x00" + x for x in msgs],
+                                   "the leaf batch")
+    print(f"kernel-vs-plain: secp_verify_prehashed on 64 crafted rows (valid, flipped "
+          f"s, wrong message, cross key, ok_in False, Q = G with u1 = u2, R at "
+          f"infinity, x(T) >= n direct and wrapped, the forged wrap, u1 = u2 = 0, "
+          f"padding: {sum(want)} accepted) and sha256_batch on {len(leaves32)} "
+          f"one-block rows, {len(pairs)} 2-block rows and the leaf batch "
+          f"{tuple(leaf_buf.shape)} (ragged n_blocks) equal their plain versions "
+          f"(tolerance: exact), the JAX package's rule and hashlib")
+
+    # --- the mixed-key set: every third validator holds a secp256k1 key
+    t0 = time.perf_counter()
+    signers = [host.PrivKey.from_secret(rng.bytes(32)) if i % 3 == 2 else k
+               for i, k in enumerate(ed_keys)]
+    vset = types.ValidatorSet([types.Validator(s.public_key(), 10) for s in signers])
+    by_addr = {s.public_key().address(): s for s in signers}
+    n_vals = len(vset.validators)
+    is_secp = [v.pub_key.type_name == "secp256k1" for v in vset.validators]
+    n_secp = sum(is_secp)
+
+    def commit_at(height):
+        bid = types.BlockID(hash=rng.bytes(32), part_set_header=types.PartSetHeader(
+            total=1, hash=rng.bytes(32)))
+        sigs = [types.CommitSig(types.BlockIDFlag.COMMIT, v.address,
+                                1_700_000_000_000_000_000 + height * 10**9 + i)
+                for i, v in enumerate(vset.validators)]
+        commit = types.Commit(height, 0, bid, sigs)
+        for i, v in enumerate(vset.validators):
+            sigs[i].signature = by_addr[v.address].sign(commit.vote_sign_bytes(chain_id, i))
+        return bid, commit
+
+    commits = [commit_at(h) for h in range(1, heights + 2)]
+    entries, tampered = signed_window(None, types, vset, by_addr, chain_id, WINDOW,
+                                      QC_BAD, rng)
+    setup_s = time.perf_counter() - t0
+    assert {is_secp[i] for i in tampered} == {True, False}
+
+    os.environ["TM_TPU_SECP_DEVICE"] = "1"  # the JAX package's gate, on
+    try:
+        # --- per height, through the process verifier on the card
+        verifier = bv.default_verifier()
+        ops.reset_launches()
+        commit_ms = []
+        for h, (bid, commit) in enumerate(commits[:heights], start=1):
+            t0 = time.perf_counter()
+            vset.verify_commit(chain_id, bid, h, commit)
+            commit_ms.append((time.perf_counter() - t0) * 1e3)
+        bid, commit = commits[-1]
+        bad_i = max(i for i in range(n_vals) if is_secp[i])
+        sig = commit.signatures[bad_i].signature
+        commit.signatures[bad_i].signature = sig[:3] + bytes([sig[3] ^ 1]) + sig[4:]
+        try:
+            vset.verify_commit(chain_id, bid, heights + 1, commit)
+        except ValueError as e:
+            assert str(e) == f"wrong signature at index {bad_i}", e
+        else:
+            raise AssertionError("tampered mixed-key commit verified")
+        torch.cuda.synchronize()
+        height_launches = ops.kernel_launches()
+        for name in ("verify_prehashed_table", "secp_verify_prehashed"):
+            assert height_launches[name] > 0, f"{name} was not launched per height"
+        print(f"main path: mixed verify_commit x{heights} at {n_vals} validators "
+              f"({n_vals - n_secp} ed25519, {n_secp} secp256k1, TM_TPU_SECP_DEVICE=1) "
+              f"ok; tampered secp256k1 index {bad_i} rejected; launches "
+              f"{json.dumps({k: v for k, v in height_launches.items() if v})}")
+
+        # --- the blocksync window, twice
+        wverifier = bv.BatchVerifier(shape_registry=ShapeRegistry())
+        ops.reset_launches()
+        verdicts, walls, splits, bitmap, items, ledger = run_mixed_window(
+            wverifier, vset, chain_id, entries, 2, secp_native)
+        torch.cuda.synchronize()
+        win_launches = ops.kernel_launches()
+    finally:
+        del os.environ["TM_TPU_SECP_DEVICE"]
+    for name in ("neg_pubkey_bigtable", "verify_prehashed_bigcache", "secp_verify_prehashed"):
+        assert win_launches[name] > 0, f"{name} was not launched on the mixed window"
+    want_v = [h != QC_BAD for h in range(1, WINDOW + 1)]
+    assert all(v == want_v for v in verdicts), verdicts
+    bad_rows = {(QC_BAD - 1) * n_vals + i for i in tampered}
+    assert [i for i, ok in enumerate(bitmap) if not ok] == sorted(bad_rows)
+    secp_rows = [i for i, it in enumerate(items) if it.key_type == "secp256k1"]
+    secp_items = [items[i] for i in secp_rows]
+    assert len(secp_rows) == WINDOW * n_secp
+    # the native host route over the same rows: the yardstick, and the
+    # same verdicts
+    t0 = time.perf_counter()
+    native = secp_native.verify_msgs_batch(
+        [it.pubkey for it in secp_items], [it.msg for it in secp_items],
+        [it.sig for it in secp_items])
+    native_s = time.perf_counter() - t0
+    assert native == [bitmap[i] for i in secp_rows], "secp256k1 rows: kernel != native route"
+    for i in rng.choice(len(items), size=256, replace=False):
+        it = items[int(i)]
+        key = host.PubKey(it.pubkey) if it.key_type == "secp256k1" else ed_host.PubKey(it.pubkey)
+        assert bitmap[int(i)] == key.verify(it.msg, it.sig), i
+    tiers = wverifier._registry.buckets_by_tier()
+    rounds = [e for e in ledger if e["engine"] == "sig"]
+    assert len(rounds) == 3 and all(e["rows"] == {"blocksync": len(items)} for e in rounds)
+    b_secp = wverifier._registry.bucket_for(len(secp_rows))
+    print(f"main path: mixed window: {WINDOW} commits x {n_vals} validators = "
+          f"{len(items)} rows ({len(items) - len(secp_rows)} ed25519, "
+          f"{len(secp_rows)} secp256k1 padded to {b_secp}), "
+          f"tiers {json.dumps({k: list(v) for k, v in tiers.items()})}; verdicts "
+          f"[True]*{QC_BAD - 1} + [False] + [True]*{WINDOW - QC_BAD} x2 (commit "
+          f"{QC_BAD}: {len(tampered)} tampered signatures, ed25519 and "
+          f"secp256k1); bitmap False on exactly those rows; secp256k1 rows = "
+          f"the native host route; 256-row sample = host oracles; launches "
+          f"{json.dumps({k: v for k, v in win_launches.items() if v})}")
+
+    # --- the L2 block's data hash: the 4,002 leaves on the card (the
+    # commit hash's 150 leaves stay under the gate, on the host)
+    host_root = merkle.hash_from_byte_slices(leaves)
+    merkle.DEVICE_LEAF_MIN = 1024
+    ops.reset_launches()
+    pad_acc = {}
+    saved = timed(s2, ("pad_messages",), pad_acc)
+    try:
+        gc.collect()
+        t0 = time.perf_counter()
+        card_root = data.hash()
+        card_s = time.perf_counter() - t0
+        assert len(commits[0][1].hash()) == 32
+    finally:
+        restore(s2, saved)
+        merkle.DEVICE_LEAF_MIN = 0
+    torch.cuda.synchronize()
+    data_launches = ops.kernel_launches()["sha256_batch"]
+    assert data_launches == 1, data_launches
+    assert card_root == host_root, "Data.hash() on the card != the host tree"
+    t0 = time.perf_counter()
+    assert merkle.hash_from_byte_slices(leaves) == host_root
+    hashlib_s = time.perf_counter() - t0
+    # merkle_root_pow2: 4096 leaves of 32 bytes, one leaf and 12 inner levels
+    ops.reset_launches()
+    root = s2.merkle_root_pow2(D(np.array(leaves32, dtype="S32").view(np.uint8).reshape(-1, 32)))
+    torch.cuda.synchronize()
+    root_launches = ops.kernel_launches()["sha256_batch"]
+    assert root_launches == 13, root_launches
+    assert bytes(root.cpu().numpy()) == merkle.hash_from_byte_slices(leaves32)
+    print(f"main path: Data.hash() of {len(txs)} transactions + 2 L2 leaves "
+          f"(TM_TPU_DEVICE_MERKLE_MIN=1024) on the card = the host tree, "
+          f"{data_launches} launch; merkle_root_pow2 over {len(leaves32)} leaves "
+          f"= the host tree, {root_launches} launches")
+
+    # --- the secp256k1 kernel at the window's shape: its rows padded on the
+    # ladder, prepared as _verify_secp_device prepares them
+    w_rows = []
+    for it in secp_items:
+        r, pt, a, c = secp_native.prep_digest_item(
+            it.pubkey, hashlib.sha256(it.msg).digest(), it.sig)
+        w_rows.append((pt, a, c, r, True))
+    live_muls = sum(secp_fe_muls(a, c) for _, a, c, _, _ in w_rows)
+    w_rows += [((0, 0), 0, 0, 0, False)] * (b_secp - len(w_rows))
+    w_args = tuple(D(a) for a in secp_row_arrays(np, sk.fe, w_rows))
+    got = sk.verify_prehashed(*w_args)
+    plain, plain_ms["secp"] = time_once(torch, sk.verify_prehashed_plain, *w_args)
+    err = max_abs_err(got, plain)
+    assert err == 0, f"tm_secp_verify != plain at ({b_secp},)"
+    errs["secp"] = max(errs["secp"], err)
+    assert got.cpu().tolist()[: len(secp_items)] == native
+    # the same rows through the whole device route and the native route
+    t0 = time.perf_counter()
+    assert wverifier._verify_secp_device(secp_items).tolist() == native
+    route_s = time.perf_counter() - t0
+    print(f"kernel-vs-plain: secp_verify_prehashed at the window's shape ({b_secp} rows, "
+          f"{len(secp_items)} live) equals its plain version (tolerance: exact)")
+
+    leaf_d, leaf_cnt_d = D(leaf_buf), D(leaf_cnt)
+    work = {
+        "secp_verify_prehashed": (
+            lambda: sk.verify_prehashed(*w_args),
+            len(secp_items) * (2 * 128 + 3 * 32 + 1) + b_secp + 16 * 3 * 32,
+            live_muls * IMAD_PER_SECP_MUL,
+            "tendermint_tpu/ops/secp256k1_kernel.py:161", SECP_SOURCE,
+        ),
+        "sha256_batch": (
+            lambda: s2.sha256_batch(leaf_d, leaf_cnt_d),
+            int(leaf_cnt.sum()) * 64 + 4 * len(leaf_cnt) + 32 * len(leaf_cnt),
+            int(leaf_cnt.sum()) * SHA256_OPS_PER_BLOCK,
+            "tendermint_tpu/ops/sha256.py:159", SHA256_SOURCE,
+        ),
+    }
+    launches = {
+        "secp_verify_prehashed": height_launches["secp_verify_prehashed"]
+        + win_launches["secp_verify_prehashed"],
+        "sha256_batch": data_launches + root_launches,
+    }
+    out_rows = []
+    for name, (kern, nbytes, n_ops, replaces, source) in work.items():
+        short = "secp" if name.startswith("secp") else "sha256"
+        ms = time_cuda(torch, kern, 20)
+        b_ms, b_by = bound_ms(nbytes, n_ops)
+        out_rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[short], "ms": ms,
+            "plain_ms": plain_ms[short], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        print(f"time: {name} kernel {ms:.4f} ms plain {plain_ms[short]:.2f} ms "
+              f"(one call) bound {b_ms:.5f} ms ({b_by}); launches {launches[name]} | {smi}")
+    print(f"time: mixed set-up {setup_s:.1f} s ({heights + 1} heights and the "
+          f"{WINDOW}-commit window signed on the host, {n_secp} secp256k1 keys) | {smi}")
+    print(f"time: mixed verify_commit ms per height "
+          f"{[round(x, 3) for x in commit_ms]} | {smi}")
+    print(f"time: secp256k1 rows of the window ({len(secp_items)}): native host route "
+          f"{native_s * 1e3:.2f} ms (one CPU thread, prep included); device route "
+          f"(_verify_secp_device: prep, copies, tm_secp_verify) {route_s * 1e3:.2f} ms | {smi}")
+    labels = (("prep_digest_item", "secp256k1 host prep"), ("_verify_secp_device", None),
+              ("verify", "ed25519 round"), ("_gather_items", "sign-bytes assembly"))
+    for rep, (wall, acc) in enumerate(zip(walls, splits), start=1):
+        prep = acc.get("prep_digest_item", 0.0)
+        kern = acc.get("_verify_secp_device", 0.0) - prep
+        rest = wall - acc.get("_verify_secp_device", 0.0) - acc.get("verify", 0.0) \
+            - acc.get("_gather_items", 0.0)
+        parts = ", ".join(f"{lab} {acc.get(k, 0.0) * 1e3:.2f} ms"
+                          for k, lab in labels if lab)
+        print(f"time: mixed window {rep}: wall {wall * 1e3:.2f} ms, "
+              f"{WINDOW / wall:.1f} commits/s; {parts}; secp256k1 kernel with its "
+              f"array fills and copies {kern * 1e3:.2f} ms; rest (tally, "
+              f"scheduler) {rest * 1e3:.2f} ms | {smi}")
+    pad_s = pad_acc.get("pad_messages", 0.0)
+    print(f"time: L2 block data hash ({len(leaves)} leaves): card {card_s * 1e3:.2f} ms "
+          f"(pad_messages {pad_s * 1e3:.2f} ms, the rest {(card_s - pad_s) * 1e3:.2f} ms: "
+          f"copies, tm_sha256, the host fold); hashlib {hashlib_s * 1e3:.2f} ms | {smi}")
+    return out_rows
 
 
 def main() -> int:
@@ -1181,7 +1677,11 @@ def main() -> int:
     # --- 5. the quorum-certificate path -------------------------------------
     rows += qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries)
 
-    # --- 6. result lines ----------------------------------------------------
+    # --- 6. the mixed-key path and the L2 block's merkle leaves ----------
+    rows += mixed_phase(torch, np, rng, dev, smi, ops, types, vkeys, chain_id,
+                        args.heights)
+
+    # --- 7. result lines ----------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

@@ -1,7 +1,8 @@
 """Shared build-or-load machinery for the native C++ fast paths.
 
-The port's native library (_tmbls.so, the BLS12-381 host fast path) is
-compiled from the repo's native/<name>.cpp on first use, into the port's
+The port's native libraries (_tmbls.so, the BLS12-381 host fast path;
+_tmsecp.so, the secp256k1 host verify route) are compiled from the
+repo's native/<name>.cpp on first use, into the port's
 own build directory tendermint_tpu_torch/_kbuild/ (git-ignored): the JAX
 package's libraries are never loaded. Staleness is decided by a SHA-256
 of the source embedded in a sidecar file (<so>.srchash), not by mtimes:

@@ -24,11 +24,16 @@ over unchanged:
 - the ``prepare()``/``run()`` split: ``prepare`` is host-only (no tensor
   reaches the card before ``run``), so the dispatch scheduler's prep
   thread overlaps its dispatch thread;
-- the host crossover ``min_device_batch`` and the mixed-key partition.
+- the host crossover ``min_device_batch`` and the mixed-key partition:
+  ed25519 rows ride the device batch; secp256k1 rows go to the secp256k1
+  kernel (``ops/secp256k1_kernel``, host prep by
+  ``secp_native.prep_digest_item``) when ``TM_TPU_SECP_DEVICE=1`` and
+  there are at least 32 of them, else to the native host batch
+  (``secp_native.verify_msgs_batch``), as in the JAX package; sr25519
+  rows verify on the host.
 
 Not in this slice, and raising ``NotImplementedError`` (a missing feature,
-never a quiet fallback): a mesh or more than one device, and host
-verification of secp256k1 / sr25519 rows.
+never a quiet fallback): a mesh or more than one device.
 """
 
 from __future__ import annotations
@@ -62,7 +67,10 @@ _TABLE_ROWS_MIN = 128
 _DEVICE_HASH_MAX_BYTES = 2048
 
 _ROADMAP_MESH = "ROADMAP multi-GPU slice (kernel 13)"
-_ROADMAP_KEYS = "ROADMAP gated kernels: secp256k1 / sr25519 host verify"
+
+# secp256k1 rows of a mixed batch take the kernel under TM_TPU_SECP_DEVICE=1
+# from this many rows on (the JAX package's gate)
+SECP_DEVICE_MIN = 32
 
 
 @dataclass(frozen=True)
@@ -292,15 +300,72 @@ class BatchVerifier:
         return self.prepare(items).run()
 
     def _verify_mixed(self, items: list[SigItem], other_idx: list[int]):
-        """ed25519 rows ride the device batch, other types verify on the
-        host, and the bitmap is re-interleaved."""
+        """Mixed-key partition (a validator set of ed25519 and secp256k1
+        keys, reference crypto/secp256k1/secp256k1.go:192): ed25519 rows
+        ride the device batch, secp256k1 rows the secp256k1 kernel or the
+        native host batch, other types verify on the host, and the bitmap
+        is re-interleaved."""
         out = np.zeros(len(items), dtype=bool)
         ed_idx = [i for i, it in enumerate(items) if it.key_type == "ed25519"]
         if ed_idx:
             out[ed_idx] = self.verify([items[i] for i in ed_idx])
+        secp_idx = [i for i in other_idx if items[i].key_type == "secp256k1"]
+        if secp_idx:
+            secp = [items[i] for i in secp_idx]
+            if (
+                os.environ.get("TM_TPU_SECP_DEVICE") == "1"
+                and len(secp) >= SECP_DEVICE_MIN
+            ):
+                out[secp_idx] = self._verify_secp_device(secp)
+            else:
+                from . import secp_native
+
+                out[secp_idx] = secp_native.verify_msgs_batch(
+                    [it.pubkey for it in secp],
+                    [it.msg for it in secp],
+                    [it.sig for it in secp],
+                )
         for i in other_idx:
-            out[i] = self._verify_host_other(items[i])
+            if items[i].key_type != "secp256k1":
+                out[i] = self._verify_host_other(items[i])
         return out
+
+    def _verify_secp_device(self, items: list[SigItem]) -> np.ndarray:
+        """secp256k1 rows on the kernel: the host does parse, low-S,
+        u1/u2 and decompression (``secp_native.prep_digest_item``, the half
+        both routes share), the card the joint ladder, on this verifier's
+        device. Rows pad to the shape registry's ladder; a row the host
+        rejects, and every padding row, has ``ok_in`` False."""
+        import hashlib
+
+        from ..ops import secp256k1_kernel as sk
+        from . import secp_native
+
+        n = len(items)
+        b = self._registry.bucket_for(n)
+        qx = np.zeros((b, sk.NLIMBS), dtype=np.int32)
+        qy = np.zeros((b, sk.NLIMBS), dtype=np.int32)
+        u1 = np.zeros((b, 32), dtype=np.uint8)
+        u2 = np.zeros((b, 32), dtype=np.uint8)
+        rb = np.zeros((b, 32), dtype=np.uint8)
+        ok = np.zeros(b, dtype=bool)
+        for i, it in enumerate(items):
+            prep = secp_native.prep_digest_item(
+                it.pubkey, hashlib.sha256(it.msg).digest(), it.sig
+            )
+            if prep is None:
+                continue
+            _r, pt, u1v, u2v = prep
+            qx[i] = sk.fe.from_int(pt[0])
+            qy[i] = sk.fe.from_int(pt[1])
+            u1[i] = np.frombuffer(u1v.to_bytes(32, "big"), np.uint8)
+            u2[i] = np.frombuffer(u2v.to_bytes(32, "big"), np.uint8)
+            rb[i] = np.frombuffer(it.sig[:32], np.uint8)
+            ok[i] = True
+        out = sk.verify_prehashed(
+            *(self._to_device(a) for a in (qx, qy, u1, u2, rb, ok))
+        )
+        return out.cpu().numpy()[:n]
 
     def prepare(self, items: list[SigItem]) -> _PreparedBatch:
         """Host-side assembly of one batch (partition, padding, array
@@ -431,9 +496,12 @@ class BatchVerifier:
 
     @staticmethod
     def _verify_host_other(it: SigItem) -> bool:
-        """Host verify for non-ed25519 key types; unknown types reject."""
-        if it.key_type in ("secp256k1", "sr25519"):
-            raise NotImplementedError(f"{it.key_type} rows: {_ROADMAP_KEYS}")
+        """Host verify for the key types other than ed25519 and secp256k1
+        (which _verify_mixed batches): sr25519; unknown types reject."""
+        if it.key_type == "sr25519":
+            from . import sr25519
+
+            return sr25519.PubKey(it.pubkey).verify(it.msg, it.sig)
         return False
 
     def verify_one(self, pubkey: bytes, msg: bytes, sig: bytes) -> bool:

@@ -5,10 +5,12 @@ Reference: crypto/merkle/tree.go:9-93 (HashFromByteSlices), proof.go:52
 attacks: leaf = SHA-256(0x00 || data), inner = SHA-256(0x01 || l || r),
 empty tree hash = SHA-256("").
 
-All hashing is on the host. The device leaf-hash branch of the JAX package
-(gated by TM_TPU_DEVICE_MERKLE_MIN) is not ported: it waits on the SHA-256
-kernel (ROADMAP "gated kernels"). Until then a batch that the gate would
-send to the device raises instead of quietly hashing somewhere else.
+With TM_TPU_DEVICE_MERKLE_MIN set, a batch of at least that many leaves,
+none longer than DEVICE_LEAF_MAX_BYTES, hashes its LEAVES as one batch on
+the process verifier's device (the SHA-256 kernel, ops/sha256.py; its
+plain version when that verifier runs on the CPU); the fold stays on the
+host. The JAX package's gate, with one difference: where its device path
+fails it warns and hashes on the host, and here the failure is raised.
 """
 
 from __future__ import annotations
@@ -38,20 +40,60 @@ def _split_point(n: int) -> int:
     return k
 
 
+# Batches >= this many leaves hash their leaves on the device; 0 (the
+# default) keeps every batch on the host
 DEVICE_LEAF_MIN = int(os.environ.get("TM_TPU_DEVICE_MERKLE_MIN", "0") or 0)
+# one oversized leaf would pad EVERY row's buffer to its length class
+# (the same cap as the device SHA-512 path, batch_verifier.py)
+DEVICE_LEAF_MAX_BYTES = 2048
 
 
 def hash_from_byte_slices(items: list[bytes]) -> bytes:
     n = len(items)
     if n == 0:
         return _sha256(b"")
-    if DEVICE_LEAF_MIN and n >= DEVICE_LEAF_MIN:
-        raise NotImplementedError(
-            "TM_TPU_DEVICE_MERKLE_MIN: device merkle leaves wait on the "
-            "SHA-256 kernel (ROADMAP: gated kernels)"
-        )
-    leaves = [leaf_hash(x) for x in items]
+    if (
+        DEVICE_LEAF_MIN
+        and n >= DEVICE_LEAF_MIN
+        and max(len(x) for x in items) <= DEVICE_LEAF_MAX_BYTES
+    ):
+        leaves = _device_leaf_hashes(items)
+    else:
+        leaves = [leaf_hash(x) for x in items]
     return _root_from_leaf_hashes(leaves)
+
+
+# shape buckets of the leaf batch: a handful of shapes, not one per
+# (batch, length-class) pair, as in the JAX package
+_LEAF_BATCH_BUCKETS = (64, 256, 1024, 4096, 16384)
+
+
+def _device_leaf_hashes(items: list[bytes]) -> list[bytes]:
+    """All RFC 6962 leaf hashes as ONE device batch (0x00-prefixed, ragged
+    lengths padded on the host by ops/sha256.pad_messages), the batch and
+    block-count axes padded up to buckets."""
+    import numpy as np
+    import torch
+
+    from ..ops import sha256 as dsha
+    from .batch_verifier import default_verifier
+
+    n = len(items)
+    b = next((x for x in _LEAF_BATCH_BUCKETS if x >= n), None)
+    if b is None:
+        q = _LEAF_BATCH_BUCKETS[-1]
+        b = ((n + q - 1) // q) * q
+    buf, counts = dsha.pad_messages(items + [b""] * (b - n), prefix=b"\x00")
+    # round the block axis up to a power of two (length classes)
+    nblk = buf.shape[1] // 64
+    nblk_b = 1 << (nblk - 1).bit_length()
+    if nblk_b != nblk:
+        buf = np.pad(buf, ((0, 0), (0, (nblk_b - nblk) * 64)))
+    dev = default_verifier().device
+    out = dsha.sha256_batch(
+        torch.from_numpy(buf).to(dev), torch.from_numpy(counts).to(dev)
+    ).cpu().numpy()
+    return [bytes(row) for row in out[:n]]
 
 
 def _root_from_leaf_hashes(leaves: list[bytes]) -> bytes:

@@ -1,6 +1,7 @@
-"""Device plane of the port: plain PyTorch field/curve/SHA-512/BLS12-381
-code and the hand-written CUDA kernels (``csrc/``) of the ed25519 verify
-paths and the quorum-certificate path.
+"""Device plane of the port: plain PyTorch field/curve/SHA-512/BLS12-381/
+secp256k1/SHA-256 code and the hand-written CUDA kernels (``csrc/``) of
+the ed25519 verify paths, the quorum-certificate path, the secp256k1 rows
+of mixed-key commits and the merkle leaf hashes.
 
 ``kernel_launches()`` reads the launch count of every kernel wrapper and
 ``reset_launches()`` zeroes them; a run that sets them to 0, drives the
@@ -21,6 +22,8 @@ def _wrappers() -> dict:
         verify_prehashed_bigcache_mxu,
         verify_prehashed_table,
     )
+    from .secp256k1_kernel import verify_prehashed as secp_verify_prehashed
+    from .sha256 import sha256_batch
     from .sha512 import challenge_batch, reduce_mod_l
 
     return {
@@ -37,6 +40,8 @@ def _wrappers() -> dict:
         "g2_aggregate": g2_aggregate,
         "miller": miller,
         "final_exp": final_exp,
+        "secp_verify_prehashed": secp_verify_prehashed,
+        "sha256_batch": sha256_batch,
     }
 
 

@@ -6,13 +6,15 @@ Two routes, both for sm_90a:
   ``ninja`` is present (ninja compiles the sources in parallel). Only
   ``binding.cpp`` includes ``torch/extension.h`` and it goes to the host
   compiler; nvcc sees only the plain-C ``.cu`` files.
-- otherwise ``nvcc -shared`` over the ``.cu`` files into a plain shared
-  library bound with ``ctypes``.
+- otherwise one ``nvcc -c`` per ``.cu`` file, all started together, then
+  ``nvcc -shared`` over the objects into a plain shared library bound with
+  ``ctypes``.
 
 Both expose the same launchers (``neg_pubkey_table``, ``verify_table``,
 ``verify_generic``, ``dbl_chain``, ``neg_pubkey_bigtable``,
 ``verify_bigcache``, ``challenge``, ``reduce_mod_l``, ``g1_aggregate``,
-``g2_aggregate``, ``miller``, ``final_exp``), which take tensors
+``g2_aggregate``, ``miller``, ``final_exp``, ``secp_verify``,
+``sha256``), which take tensors
 and the raw CUDA stream and raise when the launch is refused. Nothing here
 runs at import: the CPU tests import every module, and ``nvcc`` is needed
 only when a kernel is first called on the card. The first build holds a
@@ -39,6 +41,8 @@ KERNEL_SOURCES = [
     os.path.join(CSRC, "ed25519_kernels.cu"),
     os.path.join(CSRC, "sha512_kernels.cu"),
     os.path.join(CSRC, "bls_kernels.cu"),
+    os.path.join(CSRC, "secp256k1_kernels.cu"),
+    os.path.join(CSRC, "sha256_kernels.cu"),
 ]
 BINDING_SOURCE = os.path.join(CSRC, "binding.cpp")
 
@@ -77,6 +81,8 @@ class _CtypesKernels:
             "tm_g2_aggregate": [vp, vp, vp, i, i, i, vp],
             "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
             "tm_final_exp": [vp, vp, i, vp],
+            "tm_secp_verify": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+            "tm_sha256": [vp, i, vp, vp, i, vp],
         }
         for name, args in sig.items():
             getattr(lib, name).argtypes = args
@@ -164,14 +170,34 @@ class _CtypesKernels:
             f.data_ptr(), out.data_ptr(), f.shape[0], stream,
         ))
 
+    def secp_verify(self, qx, qy, u1, u2, r, ok_in, gtab, out, stream):
+        self._launched(self._lib.tm_secp_verify(
+            qx.data_ptr(), qy.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            r.data_ptr(), ok_in.data_ptr(), gtab.data_ptr(), out.data_ptr(),
+            out.shape[0], stream,
+        ))
+
+    def sha256(self, msg, n_blocks, out, stream):
+        self._launched(self._lib.tm_sha256(
+            msg.data_ptr(), msg.shape[1] // 64, n_blocks.data_ptr(),
+            out.data_ptr(), out.shape[0], stream,
+        ))
+
 
 def _build_ctypes() -> _CtypesKernels:
+    objs = []
+    procs = []
+    for src in KERNEL_SOURCES:
+        obj = os.path.join(BUILD_DIR, os.path.basename(src) + ".o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_nvcc(), ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+             "-o", obj, src],
+        ))
+    if any(proc.wait() != 0 for proc in procs):
+        raise RuntimeError("nvcc failed on a kernel source")
     path = os.path.join(BUILD_DIR, "libtm_kernels.so")
-    subprocess.run(
-        [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-         "-fPIC", "-o", path, *KERNEL_SOURCES],
-        check=True,
-    )
+    subprocess.run([_nvcc(), ARCH, "-shared", "-o", path, *objs], check=True)
     return _CtypesKernels(path)
 
 

@@ -1,11 +1,12 @@
-// PyTorch binding of the ed25519, SHA-512 and BLS12-381 kernels (the
-// torch.utils.cpp_extension route). The only source that includes
-// torch/extension.h; it is compiled by the host compiler, and the kernels
-// (ed25519_kernels.cu, sha512_kernels.cu, bls_kernels.cu) keep a plain C
-// interface so that nvcc never sees PyTorch's headers. The Python wrappers
-// in ops/ed25519_batch.py, ops/sha512.py, ops/dbl_chain.py and ops/bls_*.py
-// check shapes and types before calling in; the checks here guard the raw
-// pointers.
+// PyTorch binding of the ed25519, SHA-512, BLS12-381, secp256k1 and
+// SHA-256 kernels (the torch.utils.cpp_extension route). The only source
+// that includes torch/extension.h; it is compiled by the host compiler, and
+// the kernels (ed25519_kernels.cu, sha512_kernels.cu, bls_kernels.cu,
+// secp256k1_kernels.cu, sha256_kernels.cu) keep a plain C interface so that
+// nvcc never sees PyTorch's headers. The Python wrappers in
+// ops/ed25519_batch.py, ops/sha512.py, ops/dbl_chain.py, ops/bls_*.py,
+// ops/secp256k1_kernel.py and ops/sha256.py check shapes and types before
+// calling in; the checks here guard the raw pointers.
 #include <torch/extension.h>
 
 extern "C" {
@@ -36,6 +37,11 @@ int tm_miller(const void* xp, const void* yp, const void* xq, const void* yq,
               const void* valid, void* scratch, void* out, int c,
               void* stream);
 int tm_final_exp(const void* in, void* out, int n, void* stream);
+int tm_secp_verify(const void* qx, const void* qy, const void* u1,
+                   const void* u2, const void* r, const void* ok_in,
+                   const void* gtab, void* out, int b, void* stream);
+int tm_sha256(const void* msg, int nblk, const void* n_blocks, void* out,
+              int b, void* stream);
 const char* tm_error_string(int err);
 }
 
@@ -181,6 +187,27 @@ void final_exp(torch::Tensor in, torch::Tensor out, int64_t stream) {
                         stream_ptr(stream)));
 }
 
+void secp_verify(torch::Tensor qx, torch::Tensor qy, torch::Tensor u1,
+                 torch::Tensor u2, torch::Tensor r, torch::Tensor ok_in,
+                 torch::Tensor gtab, torch::Tensor out, int64_t stream) {
+  for (auto* t : {&qx, &qy, &u1, &u2, &r, &ok_in, &gtab, &out})
+    check(*t, "secp_verify operand");
+  launched(tm_secp_verify(qx.data_ptr(), qy.data_ptr(), u1.data_ptr(),
+                          u2.data_ptr(), r.data_ptr(), ok_in.data_ptr(),
+                          gtab.data_ptr(), out.data_ptr(), (int)out.size(0),
+                          stream_ptr(stream)));
+}
+
+void sha256(torch::Tensor msg, torch::Tensor n_blocks, torch::Tensor out,
+            int64_t stream) {
+  check(msg, "msg_buf");
+  check(n_blocks, "n_blocks");
+  check(out, "out");
+  launched(tm_sha256(msg.data_ptr(), (int)(msg.size(1) / 64),
+                     n_blocks.data_ptr(), out.data_ptr(), (int)out.size(0),
+                     stream_ptr(stream)));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -196,4 +223,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("g2_aggregate", &g2_aggregate);
   m.def("miller", &miller);
   m.def("final_exp", &final_exp);
+  m.def("secp_verify", &secp_verify);
+  m.def("sha256", &sha256);
 }

@@ -10,8 +10,8 @@ on the fn plane's per-engine axis.
 
 ``bls_agg`` and ``qc_verify`` run on the port's BLS12-381 kernels
 (``crypto/bls_signatures``: pairings and sums on the process verifier's
-device). ``secp_recover`` raises ``NotImplementedError``: secp256k1 is not
-ported.
+device). ``secp_recover`` recovers each signer's Ethereum address on the
+host, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -82,11 +82,22 @@ _engine_bls_agg.internal_rows = _bls_agg_rows
 
 
 def _engine_secp_recover(items: list[tuple]) -> list:
-    """(hash32, sig65) pairs -> recovered eth address bytes. secp256k1 and
-    its kernel (ROADMAP, kernel 10) are not ported: raises."""
-    raise NotImplementedError(
-        "secp_recover engine: ROADMAP gated kernels (row 10: secp256k1)"
-    )
+    """(hash32, sig65) pairs -> recovered eth address bytes (empty on
+    failure). The sequencer-set membership check stays client-side —
+    the allowed set is the client's config, not the service's."""
+    from ..crypto import secp256k1
+
+    out: list = []
+    for parts in items:
+        if len(parts) != 2:
+            raise WireError("secp_recover item needs (hash, sig)")
+        h, sig = parts
+        try:
+            addr = secp256k1.eth_recover_address(h, sig) if sig else None
+        except Exception:
+            addr = None
+        out.append(addr or b"")
+    return out
 
 
 def _engine_qc_verify(items: list[tuple]) -> list:

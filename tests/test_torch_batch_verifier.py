@@ -8,8 +8,9 @@ retry, cache reset, the mixed-key partition, the big tier's switches
 (``TM_TPU_MXU_GATHER``, the bulk warm, the 2 KiB device-hash cap, the
 generic fallback with host challenges; its parity with the reference is in
 ``test_torch_batch_verifier_big.py``), and the features the port does not
-have yet, which must raise NotImplementedError. Tolerance: exact bitmap
-equality.
+have yet, which must raise NotImplementedError; secp256k1 and sr25519
+rows of a mixed batch on the host (the secp256k1 kernel route is in
+``test_torch_secp_verify.py``). Tolerance: exact bitmap equality.
 """
 
 import numpy as np
@@ -153,19 +154,40 @@ def test_mixed_key_partition_and_malformed_rows():
 
 
 def test_unported_features_raise():
-    """A mesh, more than one device, and secp256k1 / sr25519 rows stay
-    unported: each raises NotImplementedError naming its ROADMAP item."""
+    """A mesh and more than one device stay unported: each raises
+    NotImplementedError naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         bv.BatchVerifier(mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         bv.BatchVerifier(devices=2, device="cpu")
+
+
+def _other_key_rows(key_type: str) -> list[bv.SigItem]:
+    """A valid row, a wrong-message row and a malformed key of key_type."""
+    if key_type == "secp256k1":
+        from tendermint_tpu_torch.crypto import secp256k1 as mod
+    else:
+        from tendermint_tpu_torch.crypto import sr25519 as mod
+    k = mod.PrivKey.from_secret(b"other-" + key_type.encode())
+    pub, sig = k.public_key().data, k.sign(b"m")
+    bad_pub = b"\x02" * 33 if key_type == "secp256k1" else b"\x05" * 32
+    return [bv.SigItem(pub, b"m", sig, key_type), bv.SigItem(pub, b"m!", sig, key_type),
+            bv.SigItem(bad_pub, b"m", b"s" * 64, key_type)]
+
+
+@pytest.mark.parametrize("key_type", ["secp256k1", "sr25519"])
+def test_secp256k1_and_sr25519_rows_match_reference(key_type):
+    """secp256k1 and sr25519 rows verify on the host, alone and mixed into
+    an ed25519 device batch, with the JAX package's verdicts."""
     port = _port(min_device_batch=0)
-    for key_type, pub in (("secp256k1", b"\x02" * 33), ("sr25519", b"\x05" * 32)):
-        row = bv.SigItem(pub, b"m", b"s" * 64, key_type)
-        with pytest.raises(NotImplementedError, match=key_type):
-            port.verify([row])
-        with pytest.raises(NotImplementedError, match=key_type):
-            port.verify(_items(8, seed=9) + [row])
+    ref = JaxVerifier(min_device_batch=100)
+    rows = _other_key_rows(key_type)
+    eds = _items(8, seed=9)
+    for batch in (rows, eds[:4] + rows + eds[4:]):
+        got = port.verify(batch).tolist()
+        assert got == ref.verify(_jax_items(batch)).tolist()
+    assert got[4:7] == [True, False, False]
+    assert got[:4] + got[7:] == _oracle(eds)
 
 
 def test_mxu_gather_selected_once(monkeypatch):

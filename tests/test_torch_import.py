@@ -18,6 +18,11 @@ VERBATIM = [
     "crypto/ed25519.py",
     "crypto/keccak.py",
     "crypto/bls12_381.py",
+    "crypto/secp256k1.py",
+    "crypto/secp_native.py",
+    "crypto/merlin.py",
+    "crypto/ristretto.py",
+    "crypto/sr25519.py",
     "crypto/shape_registry.py",
     "crypto/tmhash.py",
     "libs/protoio.py",
@@ -88,7 +93,13 @@ REWORDED = {
 
 # Copies whose docstrings cite the reference source by its checkout path
 # cite it as "reference <file>" or "the reference" instead.
-PATHLESS = {"crypto/bls12_381.py", "crypto/keccak.py"}
+PATHLESS = {
+    "crypto/bls12_381.py",
+    "crypto/keccak.py",
+    "crypto/merlin.py",
+    "crypto/ristretto.py",
+    "crypto/sr25519.py",
+}
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

@@ -8,6 +8,7 @@ the same deterministic stubs. Also: the unported fn-lane engines raise
 NotImplementedError. Tolerance: exact verdicts."""
 
 import asyncio
+import hashlib
 import threading
 import time
 
@@ -513,13 +514,25 @@ def test_device_path_rounds_through_scheduler():
     assert v._registry.buckets_by_tier()["small"] == (8,)
 
 
-@pytest.mark.parametrize("engine", ["secp_recover"])
-def test_unported_engines_raise(engine):
-    """The secp256k1 engine names its ROADMAP item instead of failing on a
-    missing module; an unknown engine still runs the caller's fallback."""
+def test_secp_recover_engine_matches_reference():
+    """The ported secp_recover engine recovers the signer's Ethereum
+    address on the host, as the reference engine does, for a valid, a
+    malformed (bad recovery id, short) and an empty signature, through the
+    scheduler's wire-engine lane; an unknown engine still runs the
+    caller's fallback."""
+    from tendermint_tpu.parallel.engines import BUILTIN_ENGINES as REF_ENGINES
+    from tendermint_tpu_torch.crypto import secp256k1
+
+    key = secp256k1.PrivKey.from_secret(b"sequencer")
+    digest = hashlib.sha256(b"block-v2").digest()
+    sig = secp256k1.eth_sign(digest, key.secret)
+    items = [(digest, sig), (digest, sig[:64] + b"\x07"), (digest, sig[:40]),
+             (digest, b"")]
     s = _sched()
-    with pytest.raises(NotImplementedError, match="gated kernels"):
-        s.submit_wire_fn_sync(engine, [(b"pk", b"m", b"sig")])
+    got = s.submit_wire_fn_sync("secp_recover", items)
+    assert got == REF_ENGINES["secp_recover"](items)
+    assert got[0] == secp256k1.eth_address(secp256k1.decompress_point(key.public_key().data))
+    assert got[1:] == [b"", b"", b""]
     assert s.submit_wire_fn_sync("nope", [1], fallback=lambda: ["fb"]) == ["fb"]
 
 
