@@ -48,24 +48,31 @@ Phases (any failure raises and the exit code is non-zero):
    shares; work out each kernel's bound.
 5. The quorum-certificate path (``qc_phase``): ``g1_aggregate`` and
    ``g2_aggregate`` on 256 points with duplicates, opposites and the
-   identity and at the main path's shapes (150 signatures; 64 trees of
-   150 keys, each padded), ``miller`` and ``final_exp`` on the 2-pair
+   identity and at the device route's shapes (150 signatures; 150 keys),
+   ``miller`` and ``final_exp`` on the 2-pair
    verify shape and a 65-pair random-linear-combination shape, each
    against its plain version on the card and the host oracle, and bilinearity of
    ``pairing_value``; then BLS keys for the 150 validators (4 through
-   ``pubkey_from_priv``, whose proof of possession is a card pairing; the
+   ``pubkey_from_priv``, whose proof of possession is a native pairing; the
    rest trusted keys, as set-up), QC shares on the bulk window's 64
-   commits, ``assemble_qc`` for each (launch counts read), QC 40 replaced
-   by a sub-quorum aggregate under the full bitset, and
+   commits, then both BLS routes of the JAX package's order, each with
+   the launch counts read: the native route (``TM_TPU_BLS_PAIRING_DEVICE``
+   unset: native pairing and MSM, no BLS kernel may launch) and the device
+   route (the gate set: every pairing check on the card, and each QC's
+   signature sum and signer-key sum again through
+   ``aggregate_signatures_device`` / ``aggregate_public_keys_device``,
+   equal to the native sums). On each route ``assemble_qc`` for each
+   commit (the two routes' certificates equal), QC 40 replaced by a
+   sub-quorum aggregate under the full bitset, and
    ``ValidatorSet.verify_commits_qc`` over the window from an executor
    thread through a started ``VerifyScheduler``'s ``qc_verify`` lane,
    twice: verdicts ``[True]*39 + [False] + [True]*24``, one ledger round
-   each, launch counts read. Timings: each BLS kernel (median of 20) and
-   its plain version (one call, the comparison at the main path's shape),
-   ``check_pairs`` on the card against
-   the native host library's ``pairing_check`` on the same pairs, and the
-   window's wall split into signature and key parse, hash-to-G1, scalar
-   multiplications, G2 aggregates and pairing checks.
+   each. Timings: each BLS kernel (median of 20) and its plain version
+   (one call, the comparison at the device route's shape),
+   ``check_pairs`` on the card against the native host library's
+   ``pairing_check`` on the same pairs, each route's assembly per QC and
+   its window walls split into signature and key parse, hash-to-G1,
+   scalar multiplications and pairing checks.
 6. The mixed-key path and the L2 block's merkle leaves (``mixed_phase``):
    ``secp_verify_prehashed`` on 64 crafted rows (valid, flipped s, wrong
    message, cross key, ``ok_in`` False, Q = G with u1 = u2, R at infinity,
@@ -92,7 +99,25 @@ Phases (any failure raises and the exit code is non-zero):
    of 20) at the path's shapes with their bounds, the per-height and
    window walls, the native and device routes of the 3,200 rows, the
    merkle block by the card (``pad_messages`` apart) and by hashlib.
-7. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+7. The in-process consensus net (``consensus_phase``): ``NET_VALIDATORS``
+   (32) validators in this process, wired with the full-mesh
+   broadcast hook, each a ``ConsensusState`` over ``KVStoreApplication``
+   through ``LocalClient``, ``MemKV`` stores, ``MockL2Node`` and ``MockPV``,
+   on the process verifier (the card) behind one started
+   ``VerifyScheduler`` as the process default. Mode (a), legacy commits,
+   and mode (b), quorum certificates with batch points every 2 blocks
+   whose precommits carry BLS dual-signatures checked by the L2 mock's
+   registry verifier (the pairing gate unset), each run to
+   ``NET_HEIGHTS`` (3) heights plus one. Checks: every node the same block (so
+   the same app hash) at every height, every stored LastCommit signature
+   true by the host oracle, the ledger's consensus-class rounds (mode a:
+   signature rounds from ``min_device_batch`` rows, at least one per
+   height; mode b: ``qc_verify`` rounds), small-tier launches in mode (a)
+   (big-tier ones where a round reaches 512 rows), BLS data at every
+   sealed batch point and no BLS launch in either mode. Prints the walls
+   per height, rows and buckets per round, and the device and host
+   shares; the net's launches add to the kernels line.
+8. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -154,6 +179,12 @@ SC_REDUCE_OPS = 1000
 # commits per blocksync window (VERIFY_WINDOW, tendermint_tpu/blocksync/
 # reactor.py:243): the bulk path verifies one window as one batch
 WINDOW = 64
+
+# the in-process consensus net: the live size of the JAX package's
+# committee_scale sweep (bench.py, _run_committee_net), and the heights
+# each mode commits past the first
+NET_VALIDATORS = 32
+NET_HEIGHTS = 3
 
 SOURCE = "tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu"
 SHA_SOURCE = "tendermint_tpu_torch/ops/csrc/sha512_kernels.cu"
@@ -449,12 +480,111 @@ def timed(module, names, acc):
     return saved
 
 
+def timed_async(cls, name, acc):
+    """timed() for one coroutine method: its wall per call, awaits
+    included, summed into acc[name]; returns the original for restore()."""
+    fn = getattr(cls, name)
+
+    async def wrap(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return await fn(*a, **k)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(cls, name, wrap)
+    return {name: fn}
+
+
 def restore(module, saved):
     for name, fn in saved.items():
         if hasattr(fn, "__func__") and fn.__self__ is module:
             delattr(module, name)  # a bound method: drop the instance's wrapper
         else:
             setattr(module, name, fn)
+
+
+BLS_GATE = "TM_TPU_BLS_PAIRING_DEVICE"
+
+
+def qc_route(torch, ops, bls, qcm, qset, vals, privs, chain_id, entries,
+             split_names, device):
+    """One BLS route of the QC path: assemble_qc over the window's commits
+    (launch counts read), QC QC_BAD replaced by a sub-quorum aggregate
+    under the full bitset, then verify_commits_qc over the window from an
+    executor thread through a started VerifyScheduler's qc_verify lane,
+    twice (launch counts read). With `device`, each QC's signature sum and
+    signer-key sum also go through the named device sums, held against
+    the assembled (native) ones."""
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    qcs = [qcm.assemble_qc(chain_id, commit, qset) for _, _, commit in entries]
+    assemble_s = time.perf_counter() - t0
+    assert all(q is not None and q.num_signers() == len(vals) for q in qcs)
+    if device:
+        for q, (_, _, commit) in zip(qcs, entries):
+            shares = [bls.g1_from_bytes(commit.signatures[i].qc_signature)
+                      for i in q.signers.ones()]
+            got = bls.g1_to_bytes(bls.aggregate_signatures_device(shares))
+            assert got == q.agg_signature, "aggregate_signatures_device != native"
+            keys = [bls.new_trusted_public_key(
+                bls.g2_from_bytes(qset.validators[i].bls_pub_key))
+                for i in q.signers.ones()]
+            got = bls.g2_to_bytes(bls.aggregate_public_keys_device(keys))
+            assert got == bls.g2_to_bytes(bls.aggregate_public_keys(keys).key), \
+                "aggregate_public_keys_device != native"
+    torch.cuda.synchronize()
+    asm_launches = ops.kernel_launches()
+    bad = qcm.QuorumCertificate.decode(qcs[QC_BAD - 1].encode())
+    hm = bls.hash_to_g1(bad.sign_bytes(chain_id))
+    shares = [bls._g1_mul_point(hm, privs[v.address]) for v in vals[: len(vals) // 2]]
+    bad.agg_signature = bls.g1_to_bytes(bls.aggregate_signatures(shares))
+    window = [(bid, h, q) for (bid, h, _), q in zip(entries, qcs)]
+    window[QC_BAD - 1] = (window[QC_BAD - 1][0], QC_BAD, bad)
+
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(
+        Registry(f"smoke_qc_{int(device)}")))
+    splits, walls = [], []
+
+    async def go():
+        await sched.start()
+        loop = asyncio.get_running_loop()
+        out = []
+        try:
+            for _ in range(2):
+                acc = {}
+                saved = timed(bls, split_names, acc)
+                try:
+                    gc.collect()
+                    t0 = time.perf_counter()
+                    out.append(await loop.run_in_executor(
+                        None, lambda: qset.verify_commits_qc(chain_id, window)))
+                    walls.append(time.perf_counter() - t0)
+                finally:
+                    restore(bls, saved)
+                splits.append(acc)
+        finally:
+            await sched.stop()
+        return out
+
+    ops.reset_launches()
+    set_default_scheduler(sched)
+    try:
+        verdicts = asyncio.run(go())
+    finally:
+        set_default_scheduler(None)
+    torch.cuda.synchronize()
+    return {
+        "qcs": qcs, "assemble_s": assemble_s, "asm_launches": asm_launches,
+        "verdicts": verdicts, "walls": walls, "splits": splits,
+        "win_launches": ops.kernel_launches(),
+        "rounds": [e for e in ledger.entries() if e["engine"] == "qc_verify"],
+    }
 
 
 def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
@@ -465,11 +595,8 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     from tendermint_tpu_torch.crypto import bls12_381 as c
     from tendermint_tpu_torch.crypto import bls_native
     from tendermint_tpu_torch.crypto import bls_signatures as bls
-    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
-    from tendermint_tpu_torch.obs.ledger import DispatchLedger
     from tendermint_tpu_torch.ops import bls_g1, bls_g2
     from tendermint_tpu_torch.ops import bls_pairing as bp
-    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
     from tendermint_tpu_torch.types import quorum_cert as qcm
 
     assert bls_native.native_lib() is not None, "native BLS library did not build"
@@ -546,7 +673,7 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
           "(tolerance: exact) and the host oracle; e(aP, bQ) = e(P, Q)^(ab)")
 
     # --- the window: BLS keys for the 150 validators. Four go through
-    # pubkey_from_priv (proof of possession, one card pairing each); the
+    # pubkey_from_priv (proof of possession, one native pairing each); the
     # rest are trusted keys, as a genesis file carries them (set-up).
     t0 = time.perf_counter()
     vals = vset.validators
@@ -568,92 +695,76 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
             cs.qc_signature = bls.g1_to_bytes(bls._g1_mul_point(hm, privs[v.address]))
     keys_s = time.perf_counter() - t0
 
-    # proposer side: assemble each commit's QC (the batch check and the
-    # signature sum on the card)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    qcs = [qcm.assemble_qc(chain_id, commit, qset) for _, _, commit in entries]
-    assemble_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    asm_launches = ops.kernel_launches()
-    for name in ("g1_aggregate", "miller", "final_exp"):
-        assert asm_launches[name] > 0, f"{name} was not launched assembling QCs"
-    assert all(q is not None and q.num_signers() == len(vals) for q in qcs)
-    # QC 40: the valid aggregate of a sub-quorum subset, full bitset
-    bad = qcm.QuorumCertificate.decode(qcs[QC_BAD - 1].encode())
-    hm = bls.hash_to_g1(bad.sign_bytes(chain_id))
-    shares = [bls._g1_mul_point(hm, privs[v.address]) for v in vals[: len(vals) // 2]]
-    bad.agg_signature = bls.g1_to_bytes(bls.aggregate_signatures(shares))
-    qcs[QC_BAD - 1] = bad
-    window = [(bid, h, q) for (bid, h, _), q in zip(entries, qcs)]
-
-    ledger = DispatchLedger()
-    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(Registry("smoke_qc")))
-    split_names = ("g1_from_bytes", "_qc_signer_key", "hash_to_g1", "_g1_mul_point",
-                   "_g2_sums", "_pairing_is_one")
-    splits, walls = [], []
-
-    async def go():
-        await sched.start()
-        loop = asyncio.get_running_loop()
-        out = []
-        try:
-            for _ in range(2):
-                acc = {}
-                saved = timed(bls, split_names, acc)
-                try:
-                    gc.collect()
-                    t0 = time.perf_counter()
-                    out.append(await loop.run_in_executor(
-                        None, lambda: qset.verify_commits_qc(chain_id, window)))
-                    walls.append(time.perf_counter() - t0)
-                finally:
-                    restore(bls, saved)
-                splits.append(acc)
-        finally:
-            await sched.stop()
-        return out
-
-    ops.reset_launches()
-    set_default_scheduler(sched)
-    try:
-        verdicts = asyncio.run(go())
-    finally:
-        set_default_scheduler(None)
-    torch.cuda.synchronize()
-    win_launches = ops.kernel_launches()
+    # the two routes of the JAX package's order: by default native pairing
+    # and MSM on the host (no BLS kernel may launch); under
+    # TM_TPU_BLS_PAIRING_DEVICE=1 every pairing check on the card, and the
+    # named device sums (aggregate_signatures_device for each QC's shares,
+    # aggregate_public_keys_device for its signer keys) beside assembly
     want = [h != QC_BAD for h in range(1, n_win + 1)]
-    for v in verdicts:
-        assert v == want, f"qc window verdicts {v}"
-    rounds = [e for e in ledger.entries() if e["engine"] == "qc_verify"]
-    assert len(rounds) == 2 and all(e["rows"] == {"blocksync": n_win} for e in rounds), rounds
-    for name in ("g2_aggregate", "miller", "final_exp"):
-        assert win_launches[name] > 0, f"{name} was not launched on the QC window"
-    checks = win_launches["final_exp"] // 2
-    print(f"main path: qc assembly: {n_win} commits x {len(vals)} validators "
-          f"through assemble_qc, every QC with all {len(vals)} signers; launches "
-          f"{json.dumps({k: v for k, v in asm_launches.items() if v})}")
-    print(f"main path: qc window: verify_commits_qc over {n_win} QCs (QC {QC_BAD} "
-          f"a sub-quorum aggregate under the full bitset) through a started "
-          f"VerifyScheduler's qc_verify lane, x2; verdicts [True]*{QC_BAD - 1} + "
-          f"[False] + [True]*{n_win - QC_BAD} each time; {checks} pairing checks "
-          f"per window; launches {json.dumps({k: v for k, v in win_launches.items() if v})}")
+    bls_kernels = ("g1_aggregate", "g2_aggregate", "miller", "final_exp")
+    split_names = ("g1_from_bytes", "_qc_signer_key", "hash_to_g1", "_g1_mul_point",
+                   "_pairing_is_one")
+    routes = {}
+    for route in ("native", "device"):
+        if route == "device":
+            os.environ[BLS_GATE] = "1"
+        else:
+            os.environ.pop(BLS_GATE, None)
+        try:
+            routes[route] = qc_route(
+                torch, ops, bls, qcm, qset, vals, privs, chain_id, entries,
+                split_names, route == "device")
+        finally:
+            os.environ.pop(BLS_GATE, None)
+        r = routes[route]
+        for v in r["verdicts"]:
+            assert v == want, f"qc window verdicts ({route}) {v}"
+        assert len(r["rounds"]) == 2 and all(
+            e["rows"] == {"blocksync": n_win} for e in r["rounds"]), r["rounds"]
+        if route == "native":
+            for name in bls_kernels:
+                assert r["asm_launches"][name] == r["win_launches"][name] == 0, \
+                    f"{name} launched on the native route"
+        else:
+            for name in ("g1_aggregate", "g2_aggregate", "miller", "final_exp"):
+                assert r["asm_launches"][name] > 0, f"{name} not launched assembling QCs"
+            for name in ("miller", "final_exp"):
+                assert r["win_launches"][name] > 0, f"{name} not launched on the QC window"
+    assert [q.encode() for q in routes["native"]["qcs"]] == \
+        [q.encode() for q in routes["device"]["qcs"]], "routes assembled other QCs"
+    for route, r in routes.items():
+        checks = r["win_launches"]["final_exp"] // 2
+        print(f"main path: qc assembly ({route} route): {n_win} commits x {len(vals)} "
+              f"validators through assemble_qc, every QC with all {len(vals)} signers"
+              + (", each QC's signature sum and signer-key sum again through "
+                 "aggregate_signatures_device / aggregate_public_keys_device, equal "
+                 "to the native sums" if route == "device" else "")
+              + f"; launches {json.dumps({k: v for k, v in r['asm_launches'].items() if v})}")
+        print(f"main path: qc window ({route} route): verify_commits_qc over {n_win} QCs "
+              f"(QC {QC_BAD} a sub-quorum aggregate under the full bitset) through a "
+              f"started VerifyScheduler's qc_verify lane, x2; verdicts [True]*"
+              f"{QC_BAD - 1} + [False] + [True]*{n_win - QC_BAD} each time; {checks} "
+              f"card pairing checks per window; launches "
+              f"{json.dumps({k: v for k, v in r['win_launches'].items() if v})}")
+    dev_r = routes["device"]
     launches = {
-        "g1_aggregate": asm_launches["g1_aggregate"],
-        "g2_aggregate": win_launches["g2_aggregate"],
-        "miller": win_launches["miller"],
-        "final_exp": win_launches["final_exp"],
+        "g1_aggregate": dev_r["asm_launches"]["g1_aggregate"],
+        "g2_aggregate": dev_r["asm_launches"]["g2_aggregate"],
+        "miller": dev_r["asm_launches"]["miller"] + dev_r["win_launches"]["miller"],
+        "final_exp": dev_r["asm_launches"]["final_exp"] + dev_r["win_launches"]["final_exp"],
     }
 
-    # --- the aggregates at the main path's shapes, against their plain
-    # versions (one timed call each) and the host oracle: assembly sums the
-    # 150 signatures of a commit (a tree padded to 256); the window sums 64
-    # trees of 150 keys in one launch (each tree padded, one block each),
-    # here each tree the keys rotated by its index
+    # --- the aggregates at the device route's shapes, against their plain
+    # versions (one timed call each) and the host oracle: each QC's 150
+    # signatures (a tree padded to 256) and its 150 signer keys (one tree);
+    # and the launch of the no-library QC engine (_g2_sums), 64 trees of
+    # 150 keys in one grid (each tree padded, one block each), here each
+    # tree the keys rotated by its index
     sigs = [bls.g1_from_bytes(cs.qc_signature) for cs in entries[0][2].signatures]
     sig_pts = torch.stack([bls_g1.g1_from_host(p) for p in sigs]).to(dev)
     key_pts = torch.stack([bls_g2.g2_from_host(pubs[v.address]) for v in vals])
-    key_trees = torch.stack([key_pts.roll(t, 0) for t in range(n_win)]).to(dev)
+    key_trees = key_pts.unsqueeze(0).to(dev)
+    key_forest = torch.stack([key_pts.roll(t, 0) for t in range(n_win)]).to(dev)
     sig_sum, key_sum = c.G1_INF, c.G2_INF
     for p in sigs:
         sig_sum = c.g1_add(sig_sum, p)
@@ -663,19 +774,27 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     for name, kern, plain, pts in (
         ("g1_aggregate", bls_g1.g1_aggregate, bls_g1.g1_aggregate_plain, sig_pts),
         ("g2_aggregate", bls_g2.g2_aggregate, bls_g2.g2_aggregate_plain, key_trees),
+        ("g2_forest", bls_g2.g2_aggregate, bls_g2.g2_aggregate_plain, key_forest),
     ):
         got = kern(pts)
-        want, plain_ms[name] = time_once(torch, plain, pts)
+        want, t_ms = time_once(torch, plain, pts)
         err = max_abs_err(got, want)
         assert err == 0, f"{name}: kernel != plain at shape {tuple(pts.shape)}"
-        errs[name] = max(errs[name], err)
+        if name != "g2_forest":
+            plain_ms[name] = t_ms
+        kname = "g2_aggregate" if name == "g2_forest" else name
+        errs[kname] = max(errs[kname], err)
         sums[name] = got.cpu()
     assert c.g1_eq(bls_g1.g1_to_host(sums["g1_aggregate"]), sig_sum), "g1 != host oracle"
-    assert all(c.g2_eq(bls_g2.g2_to_host(t), key_sum) for t in sums["g2_aggregate"]), \
-        "g2 trees != host oracle"
-    print(f"kernel-vs-plain: g1_aggregate at {tuple(sig_pts.shape)} and "
-          f"g2_aggregate at {tuple(key_trees.shape)} (the main path's shapes) "
-          f"equal their plain versions (tolerance: exact) and the host oracle")
+    for name in ("g2_aggregate", "g2_forest"):
+        assert len(sums[name]) == (n_win if name == "g2_forest" else 1)
+        assert all(c.g2_eq(bls_g2.g2_to_host(t), key_sum) for t in sums[name]), \
+            f"{name} trees != host oracle"
+    print(f"kernel-vs-plain: g1_aggregate at {tuple(sig_pts.shape)}, "
+          f"g2_aggregate at {tuple(key_trees.shape)} (the device route's shapes) "
+          f"and at {tuple(key_forest.shape)} (the no-library QC engine's "
+          f"{n_win}-tree launch) equal their plain versions (tolerance: exact) "
+          f"and the host oracle")
 
     # --- timings at the main path's shapes
     rlc = chunks["rlc"]
@@ -690,8 +809,8 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
         ),
         "g2_aggregate": (
             lambda: bls_g2.g2_aggregate(key_trees),
-            key_trees.numel() + n_win * 288,
-            n_win * ((len(vals) - 1) * FP_G2_ADD + 6 * len(vals) + 6) * IMAD_PER_FP_MUL,
+            key_trees.numel() + 288,
+            ((len(vals) - 1) * FP_G2_ADD + 6 * len(vals) + 6) * IMAD_PER_FP_MUL,
             "tendermint_tpu/ops/bls_g2.py:214",
         ),
         "miller": (
@@ -741,18 +860,23 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
               f"(one CPU thread) median {statistics.median(ts):.3f} ms; "
               f"check_pairs on the card median {statistics.median(card):.3f} ms "
               f"(host prep, miller, final_exp, copies) | {smi}")
-    print(f"time: qc set-up {keys_s:.1f} s ({len(vals)} BLS keys, 4 with a card PoP "
-          f"check; {n_win * len(vals)} signature shares, host); assembly of "
-          f"{n_win} QCs {assemble_s * 1e3:.1f} ms | {smi}")
+    print(f"time: qc set-up {keys_s:.1f} s ({len(vals)} BLS keys, 4 with a "
+          f"proof-of-possession pairing; {n_win * len(vals)} signature shares, "
+          f"host) | {smi}")
     labels = {"g1_from_bytes": "signature parse", "_qc_signer_key": "key parse",
               "hash_to_g1": "hash-to-G1", "_g1_mul_point": "scalar mults",
-              "_g2_sums": "G2 aggregates", "_pairing_is_one": "pairing checks"}
-    for rep, (wall, acc) in enumerate(zip(walls, splits), start=1):
-        parts = ", ".join(f"{labels[k]} {acc.get(k, 0.0) * 1e3:.2f} ms" for k in split_names)
-        rest = wall - sum(acc.values())
-        print(f"time: qc window {rep}: wall {wall * 1e3:.2f} ms, "
-              f"{n_win / wall:.1f} QCs/s; {parts}; rest (tally, RLC sums, "
-              f"scheduler) {rest * 1e3:.2f} ms | {smi}")
+              "_pairing_is_one": "pairing checks"}
+    for route, r in routes.items():
+        print(f"time: qc assembly ({route} route) of {n_win} QCs "
+              f"{r['assemble_s'] * 1e3:.1f} ms, {r['assemble_s'] * 1e3 / n_win:.2f} "
+              f"ms per QC (assemble_qc alone) | {smi}")
+        for rep, (wall, acc) in enumerate(zip(r["walls"], r["splits"]), start=1):
+            parts = ", ".join(f"{labels[k]} {acc.get(k, 0.0) * 1e3:.2f} ms"
+                              for k in split_names)
+            rest = wall - sum(acc.values())
+            print(f"time: qc window {rep} ({route} route): wall {wall * 1e3:.2f} ms, "
+                  f"{n_win / wall:.1f} QCs/s; {parts}; rest (tally, signer-key "
+                  f"sums, RLC sums, scheduler) {rest * 1e3:.2f} ms | {smi}")
     return rows
 
 
@@ -1208,6 +1332,300 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
           f"(pad_messages {pad_s * 1e3:.2f} ms, the rest {(card_s - pad_s) * 1e3:.2f} ms: "
           f"copies, tm_sha256, the host fold); hashlib {hashlib_s * 1e3:.2f} ms | {smi}")
     return out_rows
+
+
+# --- the in-process consensus net --------------------------------------------
+
+
+def committee_config(cls, n: int, **fields):
+    """Static timeouts generous enough that a host-bound in-process
+    committee never advances rounds on verify latency (the committee-scale
+    configuration of the JAX package's benchmark); skip_timeout_commit."""
+    scale = 1.0 + n / 25.0
+    cfg = cls(timeout_propose=10.0 * scale, timeout_propose_delta=2.0,
+              timeout_prevote=10.0 * scale, timeout_prevote_delta=2.0,
+              timeout_precommit=10.0 * scale, timeout_precommit_delta=2.0,
+              timeout_commit=0.05, skip_timeout_commit=True)
+    for k, v in fields.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
+    """One n_vals-validator net in this process, wired with the full-mesh
+    broadcast hook, every node KVStoreApplication through LocalClient,
+    MemKV stores, MockL2Node and MockPV, all on the process verifier (the
+    card) behind one started VerifyScheduler as the process default. With
+    `qc`: quorum certificates on, a BLS key per validator, batch points
+    every 2 blocks with the L2 mock's registry verifier. Runs to
+    heights + 1 and returns what the checks and the report need."""
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.consensus.state_machine import ConsensusConfig, ConsensusState
+    from tendermint_tpu_torch.crypto import bls_signatures as bls
+    from tendermint_tpu_torch.crypto.bls12_381 import R
+    from tendermint_tpu_torch.l2node.mock import MockL2Node
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.state import State
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.store.block_store import BlockStore
+    from tendermint_tpu_torch.store.kv import MemKV
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+
+    tag = b"%d-%s" % (seed, b"qc" if qc else b"legacy")
+    pvs = [MockPV.from_secret(tag + b"-%d" % i) for i in range(n_vals)]
+    scalars = [int.from_bytes(hashlib.sha256(tag + b"-bls%d" % i).digest(), "big")
+               % (R - 1) + 1 for i in range(n_vals)]
+    registry = bls.BLSKeyRegistry()
+    gvals = []
+    for pv, k in zip(pvs, scalars):
+        bls_key = b""
+        if qc:
+            pub = bls.pubkey_from_priv(k)  # a native proof-of-possession check
+            registry.register(pv.get_pub_key().data, pub)
+            bls_key = bls.g2_to_bytes(pub.key)
+        gvals.append(GenesisValidator("ed25519", pv.get_pub_key().data, 10,
+                                      bls_pub_key=bls_key))
+    genesis = GenesisDoc(chain_id="smoke-net", genesis_time_ns=1_700_000_000 * 10**9,
+                         validators=gvals)
+    genesis.validate_and_complete()
+    config = committee_config(ConsensusConfig, n_vals, quorum_certificates=qc)
+    nodes = []
+    for pv, k in zip(pvs, scalars):
+        l2 = (MockL2Node(batch_blocks_interval=2, bls_verifier=registry.verifier())
+              if qc else MockL2Node())
+        state = State.from_genesis(genesis)
+        state_store = StateStore(MemKV())
+        state_store.bootstrap(state)
+        block_store = BlockStore(MemKV())
+        executor = BlockExecutor(state_store, block_store,
+                                 LocalClient(KVStoreApplication()), l2)
+        executor.qc_enabled = qc
+        cs = ConsensusState(config, state, executor, block_store, l2, priv_validator=pv,
+                            bls_signer=bls.signer_for(k) if qc else None)
+        nodes.append((cs, l2, block_store))
+    css = [n[0] for n in nodes]
+    for i, n in enumerate(css):
+        def hook(msg, i=i):
+            for j, other in enumerate(css):
+                if j != i:
+                    other.peer_msg_queue.put_nowait((msg, f"node{i}"))
+
+        n.broadcast_hook = hook
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(
+        Registry(f"smoke_net_{int(qc)}")))
+    marks = []
+    # CUDA events around every kernel wrapper call of the net, recorded
+    # just before the call and just after it returns, before the verdict
+    # copy: the card's time for the wrapper's work, host launch gaps
+    # between the events included (an upper bound on busy time). The
+    # ledger's device_s is a host clock around the whole round, GIL waits
+    # behind the nodes' event loop included. The verifier's _dispatch is
+    # wrapped, not the kernel wrappers, whose launch counters are their
+    # module globals. The first small-tier round's inputs and verdicts are
+    # kept (cloned) for the check against the plain version.
+    from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
+
+    verifier = default_verifier()
+    events = []
+    kept = {}
+    dispatch = verifier._dispatch
+
+    def evented_dispatch(fn, tier, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def evented(*a):
+            start.record()
+            got = fn(*a)
+            end.record()
+            return got
+
+        out = dispatch(evented, tier, *args)
+        events.append((tier, start, end))
+        if tier == "small" and "small" not in kept:
+            kept["small"] = ([t.clone() for t in args[2:]], out.copy())
+        return out
+
+    async def drive():
+        await sched.start()
+        for cs in css:
+            await cs.start()
+        marks.append(time.perf_counter())
+        try:
+            for h in range(1, heights + 2):
+                await asyncio.gather(*(cs.wait_for_height(h, timeout=180) for cs in css))
+                marks.append(time.perf_counter())
+        finally:
+            for cs in css:
+                await cs.stop()
+            await sched.stop()
+
+    # where the host time goes: single-vote checks (on the event loop,
+    # serial across nodes), LastCommit validation (executor threads,
+    # scheduler waits included) and apply_block (awaits included)
+    splits = {}
+    saved_cs = timed(ConsensusState, ("_verify_vote",), splits)
+    saved_ex = timed(BlockExecutor, ("validate_block",), splits)
+    saved_ex.update(timed_async(BlockExecutor, "apply_block", splits))
+    gc.collect()
+    ops.reset_launches()
+    set_default_scheduler(sched)
+    verifier._dispatch = evented_dispatch
+    try:
+        asyncio.run(drive())
+    finally:
+        set_default_scheduler(None)
+        del verifier._dispatch  # the instance attribute: the method shows again
+        restore(ConsensusState, saved_cs)
+        restore(BlockExecutor, saved_ex)
+    torch.cuda.synchronize()
+    kernel_ms = {}
+    for name, start, end in events:
+        kernel_ms[name] = kernel_ms.get(name, 0.0) + start.elapsed_time(end)
+    return {"nodes": nodes, "pvs": pvs, "launches": ops.kernel_launches(),
+            "ledger": ledger.entries(), "marks": marks, "kernel_ms": kernel_ms,
+            "splits": splits, "kept": kept,
+            "min_batch": css[0].verifier._min_device_batch}
+
+
+def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int):
+    """Phase 7: the live net, legacy commits (mode a) and QC heights with
+    batch-point BLS dual-signing (mode b, the pairing gate unset). Checks
+    agreement, the LastCommit signatures against the host oracle, the
+    ledger's consensus rounds and the launch counts, and holds the first
+    small-tier LastCommit round, at the shape it was dispatched, against
+    the plain version (as dispatched, and with one row's challenge
+    flipped); prints the walls. Returns the launches of both modes,
+    summed per kernel, and that check's max_abs_err per kernel."""
+    from tendermint_tpu_torch.ops import ed25519_batch as ed
+
+    assert os.environ.get(BLS_GATE) is None
+    bls_kernels = ("g1_aggregate", "g2_aggregate", "miller", "final_exp")
+    total, errs = {}, {}
+    for mode, qc in (("legacy", False), ("qc", True)):
+        r = run_net(torch, ops, seed, n_vals, heights, qc)
+        nodes, launches, ledger = r["nodes"], r["launches"], r["ledger"]
+        bs0 = nodes[0][2]
+        pubs = {pv.get_pub_key().address(): pv.get_pub_key().data for pv in r["pvs"]}
+        for h in range(1, heights + 2):
+            hashes = {n[2].load_block(h).hash() for n in nodes}
+            assert len(hashes) == 1, f"{mode}: nodes disagree on block {h}"
+        for h in range(2, heights + 2):  # each header carries the app hash of h - 1
+            blk = bs0.load_block(h)
+            assert len({n[2].load_block(h).header.app_hash for n in nodes}) == 1
+            commit = blk.last_commit
+            bitmap = [host.verify(pubs[cs.validator_address],
+                                  commit.vote_sign_bytes(blk.header.chain_id, i),
+                                  cs.signature)
+                      for i, cs in enumerate(commit.signatures) if not cs.is_absent()]
+            assert all(bitmap) and 3 * len(bitmap) > 2 * n_vals, (mode, h, bitmap)
+        rounds = [e for e in ledger if "consensus" in e["rows"]]
+        sig_rounds = [e for e in rounds if e["engine"] == "sig"
+                      and e["requested"] >= r["min_batch"]]
+        qc_rounds = [e for e in rounds if e["engine"] == "qc_verify"]
+        for name in bls_kernels:
+            assert launches[name] == 0, f"{mode}: {name} launched with the gate unset"
+        if qc:
+            l2 = nodes[0][1]
+            points = [h for h in range(1, heights + 2) if bs0.load_block(h).header.batch_hash]
+            assert points and l2.committed_batches, "qc: no batch point sealed"
+            assert all(datas for _, datas in l2.committed_batches), "qc: batch without BLS data"
+            carried = [h for h in range(2, heights + 2) if bs0.load_block(h).last_qc]
+            assert carried, "qc: no block carried a QC"
+            assert len(rounds) >= heights, (mode, rounds)
+        else:
+            assert len(sig_rounds) >= heights, (mode, ledger)
+            for name in ("neg_pubkey_table", "verify_prehashed_table"):
+                assert launches[name] > 0, f"{name} was not launched on the live net"
+            if any(e["dispatched"] >= 512 for e in sig_rounds):
+                for name in ("neg_pubkey_bigtable", "verify_prehashed_bigcache"):
+                    assert launches[name] > 0, f"{name} was not launched on the live net"
+            # the first small-tier round, as the net dispatched it, against
+            # the plain version; then row 0's challenge flipped (every
+            # signature of the net is valid, so this is the rejecting case)
+            args, seen = r["kept"]["small"]
+            n_rows = int(args[2].shape[0])
+            assert seen[0], "first LastCommit round rejected its row 0"
+            got = ed.verify_prehashed_table(*args)
+            plain = ed.verify_prehashed_table_plain(*args)
+            err = max(max_abs_err(got, plain),
+                      max_abs_err(got, torch.from_numpy(seen)))
+            bad_k = args[5].clone()
+            bad_k[0, 0] ^= 1
+            bad = args[:5] + [bad_k] + args[6:]
+            got_bad = ed.verify_prehashed_table(*bad)
+            plain_bad = ed.verify_prehashed_table_plain(*bad)
+            err = max(err, max_abs_err(got_bad, plain_bad))
+            assert err == 0, "verify_prehashed_table != plain on the net's round"
+            assert not bool(got_bad[0]) and torch.equal(got_bad[1:].cpu(), got[1:].cpu()), \
+                "the flipped challenge was not rejected alone"
+            errs["verify_prehashed_table"] = err
+            print(f"kernel-vs-plain: verify_prehashed_table on the net's first "
+                  f"small-tier LastCommit round as dispatched ({n_rows} rows over "
+                  f"a store of {int(args[0].shape[0])} key tables; "
+                  f"{int(seen.sum())} accepted), and again with row 0's challenge "
+                  f"flipped: equal to its plain version and to the verdicts the "
+                  f"net got (tolerance: exact); the flipped row alone rejected")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        marks = r["marks"]
+        walls = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        wall = marks[-1] - marks[0]
+        sig_all = [e for e in rounds if e["engine"] == "sig"]
+        device_s = sum(e["device_s"] for e in sig_rounds)
+        prep_s = sum(e["host_prep_s"] for e in sig_rounds)
+        oracle_s = sum(e["device_s"] for e in sig_all) - device_s
+        qc_s = sum(e["device_s"] for e in qc_rounds)
+        desc = ("quorum certificates, batch points every 2 blocks with BLS "
+                "dual-signing through the registry verifier (pairing gate unset)"
+                if qc else "legacy commits")
+        extra = (f"; batch points at heights {points}, {len(l2.committed_batches)} "
+                 f"batches committed to the L2 with {[len(d) for _, d in l2.committed_batches]} "
+                 f"BLS datas; QCs carried by blocks {carried}" if qc else "")
+        print(f"main path: consensus net ({mode}): {n_vals} validators in one "
+              f"process, {desc}; {heights + 1} heights committed by every node, "
+              f"same block (and app hash) on every node at every height; every "
+              f"stored LastCommit signature true by the host oracle{extra}; "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        print(f"main path: consensus net ({mode}): {len(sig_all)} consensus-class "
+              f"signature rounds, {len(sig_rounds)} of them from min_device_batch "
+              f"({r['min_batch']}) rows up; rows per round "
+              f"{[e['requested'] for e in sig_all]}; buckets "
+              f"{[e['dispatched'] for e in sig_all]}; {len(qc_rounds)} qc_verify "
+              f"rounds ({sum(e['requested'] for e in qc_rounds)} certificates, "
+              f"native host pairing)")
+        busy = sum(r["kernel_ms"].values()) / 1e3
+        print(f"time: consensus net ({mode}) ms per height {[round(w, 1) for w in walls]} "
+              f"(first height, then steady); wall {wall * 1e3:.1f} ms; verify "
+              f"kernel wrapper calls on the card by tier (CUDA events around "
+              f"the call, before the verdict copy; launch gaps included) "
+              f"{json.dumps({k: round(v, 3) for k, v in r['kernel_ms'].items()})} ms, "
+              f"device busy share at most {busy / wall:.5f}, idle share at "
+              f"least {1 - busy / wall:.5f}; ledger (host clocks, GIL waits included): "
+              f"signature rounds from min_device_batch rows device_s "
+              f"{device_s * 1e3:.2f} ms + host prepare {prep_s * 1e3:.2f} ms, "
+              f"smaller signature rounds (host oracle) {oracle_s * 1e3:.2f} ms, "
+              f"qc_verify rounds (host) {qc_s * 1e3:.2f} ms | {smi}")
+        sp = r["splits"]
+        per = n_vals * (heights + 1)  # node-heights
+        print(f"time: consensus net ({mode}) host split: single-vote checks "
+              f"(host oracle, on the event loop) {sp.get('_verify_vote', 0.0) * 1e3:.1f} "
+              f"ms = {sp.get('_verify_vote', 0.0) / wall:.3f} of the wall; "
+              f"LastCommit validation (executor threads, scheduler waits "
+              f"included) {sp.get('validate_block', 0.0) * 1e3:.1f} ms summed, "
+              f"{sp.get('validate_block', 0.0) * 1e3 / per:.2f} ms per node-height; "
+              f"apply_block (awaits included) {sp.get('apply_block', 0.0) * 1e3:.1f} "
+              f"ms summed, {sp.get('apply_block', 0.0) * 1e3 / per:.2f} ms per "
+              f"node-height | {smi}")
+        del r, nodes
+        gc.collect()
+    return total, errs
 
 
 def main() -> int:
@@ -1681,7 +2099,17 @@ def main() -> int:
     rows += mixed_phase(torch, np, rng, dev, smi, ops, types, vkeys, chain_id,
                         args.heights)
 
-    # --- 7. result lines ----------------------------------------------------
+    # --- 7. the in-process consensus net -------------------------------------
+    net, net_errs = consensus_phase(torch, ops, host, smi, args.seed,
+                                    NET_VALIDATORS, NET_HEIGHTS)
+    for row in rows:
+        row["launches"] += net.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], net_errs.get(row["name"], 0))
+    print(f"main path: consensus net launches per kernel, both modes "
+          f"{json.dumps({k: v for k, v in net.items() if v})} (added to the "
+          f"kernels line's launches)")
+
+    # --- 8. result lines ----------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

@@ -23,18 +23,27 @@ Unlike the reference (which trusts kilic's FromBytes on-curve check only),
 deserialization here also subgroup-checks — defense in depth; documented
 divergence.
 
-Port of ``tendermint_tpu/crypto/bls_signatures.py``. Pairing checks
-(``_pairing_is_one``), public-key and signature sums
-(``aggregate_public_keys``, ``aggregate_signatures``) and the signer-key
-sums of ``verify_qc_items`` run on the port's device: the CUDA kernels of
-``ops/bls_g1.py``, ``ops/bls_g2.py`` and ``ops/bls_pairing.py`` on the
-card, their plain versions when the process verifier
-(``crypto/batch_verifier.default_verifier``) was built with
-``device="cpu"``. The device is the process verifier's, CUDA by default;
-a kernel that fails to build or launch raises. The native C++ library
-(``crypto/bls_native.py``) serves only host work: subgroup checks, the
-field steps of hash-to-G1, and scalar multiplications by random
-coefficients and secret keys.
+Port of ``tendermint_tpu/crypto/bls_signatures.py``, in its order of
+routes at every call site:
+
+- pairing checks (``_pairing_is_one``) run on the device under
+  ``TM_TPU_BLS_PAIRING_DEVICE=1`` (``ops/bls_pairing.py``), else the
+  native C++ ``pairing_check``, else host bigints;
+- public-key and signature sums (``aggregate_public_keys``,
+  ``aggregate_signatures``) and the signer-key sums of
+  ``verify_qc_items`` take the native MSM when the library is present;
+  without it, sums of ``DEVICE_AGGREGATE_MIN`` points and up (and every
+  multi-key signer sum of a QC round) run the device tree of
+  ``ops/bls_g1.py`` / ``ops/bls_g2.py``, smaller ones the exact host
+  loop. ``aggregate_signatures_device`` and
+  ``aggregate_public_keys_device`` name the device trees.
+
+The device is the process verifier's
+(``crypto/batch_verifier.default_verifier``): the CUDA kernels on the
+card, CUDA by default, their plain versions when it was built with
+``device="cpu"``. Where the device route is taken, a kernel that fails to
+build or launch raises; unlike the JAX package, nothing falls through to
+the host.
 """
 
 from __future__ import annotations
@@ -144,9 +153,8 @@ def g2_from_bytes(b: bytes):
 
 # --- device and native primitives -----------------------------------------
 # Point values stay python int tuples throughout (the wire format is the
-# exchange format with the native library); the scalar-multiplication
-# helpers fall back to the pure-python bls12_381 module when the C++
-# library is unavailable.
+# exchange format with the native library); every host helper falls back
+# to the pure-python bls12_381 module when the C++ library is unavailable.
 
 
 def _device() -> torch.device:
@@ -157,11 +165,22 @@ def _device() -> torch.device:
 
 
 def _pairing_is_one(pairs) -> bool:
-    """prod e(P_i, Q_i) == 1: the Miller-loop and final-exponentiation
-    kernels on the card (their plain versions on the CPU)."""
-    from ..ops import bls_pairing
+    """prod e(P_i, Q_i) == 1 — three tiers: under
+    TM_TPU_BLS_PAIRING_DEVICE=1 the Miller-loop and final-exponentiation
+    kernels on the process verifier's device (a failure there raises),
+    else native C++, else host bigints."""
+    if os.environ.get("TM_TPU_BLS_PAIRING_DEVICE") == "1":
+        from ..ops import bls_pairing
 
-    return bls_pairing.check_pairs(pairs, _device())
+        return bls_pairing.check_pairs(pairs, _device())
+    if native.native_lib() is not None:
+        g1s = b"".join(g1_to_bytes(p) for p, _ in pairs)
+        g2s = b"".join(g2_to_bytes(q) for _, q in pairs)
+        try:
+            return bool(native.pairing_check(g1s, g2s, len(pairs)))
+        except ValueError:
+            return False
+    return c.multi_pairing_is_one(pairs)
 
 
 def _g1_mul_point(p, k: int):
@@ -268,37 +287,45 @@ def _verify2(sig, message: bytes, pub: PublicKey, key_validation_mode: bool) -> 
     )
 
 
-def _on_device(n: int) -> bool:
-    """Whether an n-point sum runs on the device: every sum of more than
-    one point on the card; on the CPU the plain tree from
-    DEVICE_AGGREGATE_MIN up, the exact host loop below it."""
-    if n < 2:
-        return False
-    return _device().type == "cuda" or n >= DEVICE_AGGREGATE_MIN
-
-
 def aggregate_public_keys(pubs: list[PublicKey]) -> PublicKey:
-    """Point sum of N G2 public keys: the device tree reduction
-    (ops/bls_g2, see _on_device), else the exact host loop."""
-    if _on_device(len(pubs)):
-        return new_trusted_public_key(_g2_sums([b"".join(_pub_wire(p) for p in pubs)])[0])
+    """Point sum of N G2 public keys — same preference order as
+    aggregate_signatures: native C++ batch-affine sum, then the device
+    tree reduction (ops/bls_g2), then the exact host loop."""
+    if native.native_lib() is not None and len(pubs) > 1:
+        out = native.g2_msm(
+            b"".join(_pub_wire(pk) for pk in pubs), None, len(pubs)
+        )
+        return new_trusted_public_key(_g2_parse_unchecked(out))
+    if len(pubs) >= DEVICE_AGGREGATE_MIN:
+        return new_trusted_public_key(aggregate_public_keys_device(pubs))
     acc = c.G2_INF
     for pk in pubs:
         acc = c.g2_add(acc, pk.key)
     return new_trusted_public_key(acc)
 
 
-# the reference's host->device switchover (AggregateSignatures' N-point
-# loop, bls_signatures.go:138-149); in the port it applies on the CPU
-# only: below it the exact host loop, from it the plain tree of
-# ops/bls_g1.py / ops/bls_g2.py
+def aggregate_public_keys_device(pubs: list[PublicKey]):
+    """Sum N G2 keys as a log2(N)-level device tree reduction."""
+    return _g2_sums([b"".join(_pub_wire(p) for p in pubs)])[0]
+
+
+# host->device switchover for point sums without the native library:
+# below this the serial host loop beats the device round-trip; above it
+# the tree reduction of ops/bls_g1.py / ops/bls_g2.py wins (the
+# N-proportional part of AggregateSignatures, bls_signatures.go:138-149)
 DEVICE_AGGREGATE_MIN = 64
 
 
 def aggregate_signatures(sigs: list):
-    """Point sum of N G1 signatures: the device tree reduction
-    (ops/bls_g1, see _on_device), else the exact host loop."""
-    if _on_device(len(sigs)):
+    """Point sum of N G1 signatures. Preference order: native C++ MSM,
+    then the device tree reduction (ops/bls_g1), then the exact host
+    loop."""
+    if native.native_lib() is not None and len(sigs) > 1:
+        out = native.g1_msm(
+            b"".join(g1_to_bytes(s) for s in sigs), None, len(sigs)
+        )
+        return _g1_parse_unchecked(out)
+    if len(sigs) >= DEVICE_AGGREGATE_MIN:
         return aggregate_signatures_device(sigs)
     acc = c.G1_INF
     for s in sigs:
@@ -467,6 +494,7 @@ def verify_qc_items(items: list[tuple]) -> list:
     reg.record_dispatch("qc_verify", reg.bucket_for(n))
     parsed: list = [None] * n  # (H(m), apk, sig) per parseable item
     out: list = [False] * n
+    lib = native.native_lib() is not None
     multi: list[int] = []  # items whose signer keys sum on the device
     for i, parts in enumerate(items):
         if len(parts) != 3:
@@ -482,12 +510,17 @@ def verify_qc_items(items: list[tuple]) -> list:
             ]
         except BLSError:
             continue
-        if len(keys) > 1:
+        apk = keys[0]
+        if lib and len(keys) > 1:
+            # the wire slices ARE the MSM input — no per-key
+            # re-serialization on the aggregate path
+            apk = _g2_parse_unchecked(native.g2_msm(pks_b, None, len(keys)))
+        elif len(keys) > 1:
             multi.append(i)
-        parsed[i] = (hash_to_g1(msg, False), keys[0], sig)
+        parsed[i] = (hash_to_g1(msg, False), apk, sig)
     if multi:
-        # the wire slices ARE the tree's leaves — no per-key
-        # re-serialization on the aggregate path
+        # no native library: one device launch sums every multi-key
+        # item's signer keys (the wire slices ARE the tree's leaves)
         sums = _g2_sums([items[i][2] for i in multi])
         for i, apk in zip(multi, sums):
             parsed[i] = (parsed[i][0], apk, parsed[i][2])

@@ -5,11 +5,12 @@ Mirrors ``tests/test_qc.py``: the codec golden, assembly that isolates a
 corrupt contribution, forged-aggregate and sub-quorum rejections, the
 ``qc_verify`` engine directly and through a started ``VerifyScheduler``'s
 fn lane (``ValidatorSet.verify_commits_qc`` -> ``qc_dispatch`` -> engine).
-The port runs with its process verifier on ``device="cpu"``, so pairings
-and sums take the plain versions of its BLS kernels; the JAX package runs
-its own path (native pairing). Both get the same seeded keys and
-signatures, and the verdicts, certificates and error messages must be
-equal. Tolerance: exact.
+Both packages take the same route by default (native pairing and MSM);
+the port's process verifier is on ``device="cpu"``, so where a case sets
+``TM_TPU_BLS_PAIRING_DEVICE=1`` or hides the native library its pairings
+and sums take the plain versions of its BLS kernels. Both get the same
+seeded keys and signatures, and the verdicts, certificates and error
+messages must be equal. Tolerance: exact.
 """
 
 import asyncio
@@ -214,6 +215,28 @@ def test_verify_commits_qc_window_through_scheduler_lane(window, cpu_verifier):
     assert verdicts["port"] == verdicts["ref"] == [True, True, False, True]
 
 
+def test_qc_window_gate_on_runs_plain_pairing(window, cpu_verifier, monkeypatch):
+    """TM_TPU_BLS_PAIRING_DEVICE=1: the qc_verify engine's RLC checks and
+    bisection run the plain pairing (check_pairs on the CPU) and give the
+    JAX package's verdicts on the window with the sub-quorum forgery."""
+    from tendermint_tpu_torch.ops import bls_pairing
+
+    vs, keys, entries = window["port"]
+    entries = list(entries)
+    bid, h, qc = entries[2]
+    entries[2] = (bid, h, _forge_subquorum(PORT, vs, keys, qc))
+    checks = []
+    real = bls_pairing.check_pairs
+    monkeypatch.setattr(bls_pairing, "check_pairs",
+                        lambda pairs, dev: checks.append(len(pairs)) or real(pairs, dev))
+    monkeypatch.setenv("TM_TPU_BLS_PAIRING_DEVICE", "1")
+    ops.reset_launches()
+    got = vs.verify_commits_qc(CHAIN, entries, engine=port_qc.qc_verify_items_direct)
+    assert not any(ops.kernel_launches().values())  # CPU: plain versions
+    assert checks and checks[0] == N_QCS + 1  # one RLC check first
+    assert got == [True, True, False, True]
+
+
 def test_forged_aggregate_rejected(window):
     for name, ns in (("port", PORT), ("ref", REF)):
         vs, _, entries = window[name]
@@ -269,11 +292,11 @@ def test_assemble_isolates_corrupt_contribution(window, cpu_verifier):
 
 
 @pytest.mark.parametrize("n", [3, bls.DEVICE_AGGREGATE_MIN])
-def test_aggregate_public_keys_equals_host_sum(n, cpu_verifier):
-    """Below DEVICE_AGGREGATE_MIN the exact host loop, from it the plain
-    G2 tree through the route the card takes for every multi-key sum; a
-    duplicate and the point at infinity among the keys. The sum equals the
-    JAX package's host sum and verifies the matching aggregate signature."""
+def test_aggregate_public_keys_equals_host_sum(n, cpu_verifier, monkeypatch):
+    """Without the native library: below DEVICE_AGGREGATE_MIN the exact
+    host loop, from it the plain G2 tree (the device route); a duplicate
+    and the point at infinity among the keys. The sum equals the JAX
+    package's host sum and verifies the matching aggregate signature."""
     from tendermint_tpu.crypto import bls12_381 as ref_c
 
     scalars = [_scalar(100 + i) for i in range(n - 2)]
@@ -283,7 +306,9 @@ def test_aggregate_public_keys_equals_host_sum(n, cpu_verifier):
     for k in keys:
         want = ref_c.g2_add(want, k)
     ops.reset_launches()
-    agg = bls.aggregate_public_keys([bls.new_trusted_public_key(k) for k in keys])
+    with monkeypatch.context() as mp:
+        mp.setattr(bls.native, "native_lib", lambda build=True: None)
+        agg = bls.aggregate_public_keys([bls.new_trusted_public_key(k) for k in keys])
     assert not any(ops.kernel_launches().values())  # CPU: plain versions
     assert ref_c.g2_eq(agg.key, want)
     msg = b"aggregate-keys"
