@@ -117,7 +117,33 @@ Phases (any failure raises and the exit code is non-zero):
    sealed batch point and no BLS launch in either mode. Prints the walls
    per height, rows and buckets per round, and the device and host
    shares; the net's launches add to the kernels line.
-8. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+8. The multi-device path (``mesh_phase``) over a ``Mesh`` of
+   ``MESH_SHARDS`` (8) shards, all on ``cuda:0``: every line of the
+   sharded path (the row split, the table store copied per distinct
+   device, a launch per shard, the gather, the local trees and the XOR
+   butterfly) with the JAX tests' shard count, on one card. Kernel 13,
+   ``g1_aggregate_sharded`` and ``g2_aggregate_sharded`` (the trees of
+   rows 11a/11b and the new ``g1_add``/``g2_add`` butterfly kernels), on
+   the QC window's 150 signatures and 150 keys, the 256 adversarial points
+   and 5 points, each against its plain version on the CPU (bytes) and the
+   host sum. The blocksync window (the same 64 commits, 9,600 rows, bucket
+   16,384, 2,048 rows a shard) through a started ``VerifyScheduler`` over
+   ``BatchVerifier(mesh=...)``, host-hashed x2, card-hashed x2
+   (``device_challenge_min=2048``) and MXU x1: verdicts and per-row bitmap
+   equal to phase 3's 1-device window's, every round stamped
+   ``devices=8`` and sharded, the ``verify_mesh_devices`` gauge 8; one
+   150-row commit (below ``mesh_min_rows``) stamped ``devices=1``; the
+   phase-3 commit round sharded on the small tier and the generic kernel
+   (``mesh_min_rows=1``); ``prewarm_buckets`` with both device variants
+   where the ladder allows; the secp256k1 kernel sharded over the mixed
+   window's 8,192 rows (3,200 live), equal to the unsharded launch. Times:
+   the add kernels, kernel 13 with its bound, the windows beside phase 3's,
+   the secp256k1 rows sharded and not. Where ``torch.cuda.device_count()``
+   is 2 or more, kernel 13, the host-hashed window and the secp256k1
+   launch again over ``build_mesh(0, 1, "cuda")``; else it prints
+   ``mesh: real multi-GPU mesh not run (1 device)``. The path's launches
+   add to the kernels line, which gains ``g1_add`` and ``g2_add``.
+9. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -332,7 +358,8 @@ def signed_window(host, types, vset, by_addr, chain_id, n_commits, bad_height, r
     return entries, tampered
 
 
-def run_window(verifier, vset, chain_id, entries, reps: int, label: str):
+def run_window(verifier, vset, chain_id, entries, reps: int, label: str,
+               metrics=None):
     """verify_commits_light over the window, `reps` times, from an executor
     thread through a started VerifyScheduler installed as the process
     default (default_dispatch("blocksync")), as blocksync's reactor does;
@@ -340,7 +367,8 @@ def run_window(verifier, vset, chain_id, entries, reps: int, label: str):
     per-row bitmap. Each timed window starts after a full garbage
     collection, and the collector's pauses inside it are summed. Returns
     (verdicts per rep, wall seconds per rep, gc pause seconds per rep,
-    bitmap, items, the scheduler's ledger entries)."""
+    bitmap, items, the scheduler's ledger entries). `metrics` (a
+    SchedulerMetrics) is the scheduler's, one of its own when None."""
     from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
     from tendermint_tpu_torch.obs.ledger import DispatchLedger
     from tendermint_tpu_torch.parallel import (
@@ -353,7 +381,7 @@ def run_window(verifier, vset, chain_id, entries, reps: int, label: str):
     ledger = DispatchLedger()
     sched = VerifyScheduler(
         verifier=verifier, ledger=ledger,
-        metrics=SchedulerMetrics(Registry("smoke_" + label)),
+        metrics=metrics or SchedulerMetrics(Registry("smoke_" + label)),
     )
 
     gc_pause = [0.0, 0.0]  # summed seconds, start of the current pause
@@ -591,7 +619,8 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     """Phase 5: BLS kernels against their plain versions and the oracle,
     then a 64-QC window over the 150-validator set: proposer-side assembly
     (assemble_qc) and verify_commits_qc through a started VerifyScheduler's
-    qc_verify lane, twice. Returns the four kernels' rows."""
+    qc_verify lane, twice. Returns the four kernels' rows and, for the mesh
+    phase, the point sets {"g1"|"g2": [(label, points, host points)]}."""
     from tendermint_tpu_torch.crypto import bls12_381 as c
     from tendermint_tpu_torch.crypto import bls_native
     from tendermint_tpu_torch.crypto import bls_signatures as bls
@@ -877,7 +906,14 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
             print(f"time: qc window {rep} ({route} route): wall {wall * 1e3:.2f} ms, "
                   f"{n_win / wall:.1f} QCs/s; {parts}; rest (tally, signer-key "
                   f"sums, RLC sums, scheduler) {rest * 1e3:.2f} ms | {smi}")
-    return rows
+    point_sets = {
+        "g1": [("the QC window's 150 signatures", sig_pts, sigs),
+               ("256 adversarial points", p1, g1s)],
+        "g2": [("the QC window's 150 keys", key_pts.to(dev),
+                [pubs[v.address] for v in vals]),
+               ("256 adversarial points", p2, g2s)],
+    }
+    return rows, point_sets
 
 
 # --- the mixed-key path (secp256k1) and the L2 block's merkle leaves --------
@@ -1052,7 +1088,8 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
     versions, then the mixed-key commit path (a 150-validator set, every
     third key secp256k1, equal power) per height and over a 64-commit
     blocksync window, the 4,002-leaf L2 block data hash and
-    merkle_root_pow2 on the card. Returns the two kernels' rows."""
+    merkle_root_pow2 on the card. Returns the two kernels' rows and the
+    secp256k1 kernel's operands at the window's shape (numpy)."""
     from tendermint_tpu_torch.crypto import batch_verifier as bv
     from tendermint_tpu_torch.crypto import ed25519 as ed_host
     from tendermint_tpu_torch.crypto import merkle
@@ -1260,7 +1297,8 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
         w_rows.append((pt, a, c, r, True))
     live_muls = sum(secp_fe_muls(a, c) for _, a, c, _, _ in w_rows)
     w_rows += [((0, 0), 0, 0, 0, False)] * (b_secp - len(w_rows))
-    w_args = tuple(D(a) for a in secp_row_arrays(np, sk.fe, w_rows))
+    w_arrays = secp_row_arrays(np, sk.fe, w_rows)
+    w_args = tuple(D(a) for a in w_arrays)
     got = sk.verify_prehashed(*w_args)
     plain, plain_ms["secp"] = time_once(torch, sk.verify_prehashed_plain, *w_args)
     err = max_abs_err(got, plain)
@@ -1331,7 +1369,7 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
     print(f"time: L2 block data hash ({len(leaves)} leaves): card {card_s * 1e3:.2f} ms "
           f"(pad_messages {pad_s * 1e3:.2f} ms, the rest {(card_s - pad_s) * 1e3:.2f} ms: "
           f"copies, tm_sha256, the host fold); hashlib {hashlib_s * 1e3:.2f} ms | {smi}")
-    return out_rows
+    return out_rows, w_arrays
 
 
 # --- the in-process consensus net --------------------------------------------
@@ -1436,20 +1474,23 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
     kept = {}
     dispatch = verifier._dispatch
 
-    def evented_dispatch(fn, tier, *args):
+    def evented_dispatch(fn, tier, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        operands = []
 
         def evented(*a):
             start.record()
             got = fn(*a)
             end.record()
+            operands.append(a)
             return got
 
-        out = dispatch(evented, tier, *args)
+        out = dispatch(evented, tier, *args, **kw)
         events.append((tier, start, end))
         if tier == "small" and "small" not in kept:
-            kept["small"] = ([t.clone() for t in args[2:]], out.copy())
+            (a,) = operands  # one device: one launch
+            kept["small"] = ([t.clone() for t in a], out.copy())
         return out
 
     async def drive():
@@ -1626,6 +1667,269 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
         del r, nodes
         gc.collect()
     return total, errs
+
+
+# --- the multi-device path: a mesh of shards ---------------------------------
+
+# shards of the mesh phase: the JAX tests' mesh size (tests/conftest.py)
+MESH_SHARDS = 8
+
+
+def counted(torch, ops, acc, fn, *args):
+    """fn(*args) with the launch counts set to 0 just before and read just
+    after (the card synchronised); they are added to acc."""
+    ops.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    for name, n in ops.kernel_launches().items():
+        acc[name] = acc.get(name, 0) + n
+    return out
+
+
+def sharded_sums(torch, ops, mesh, point_sets, acc, errs, label) -> None:
+    """Kernel 13 (g1/g2_aggregate_sharded) over `mesh` at three sizes,
+    held against its plain version (the same schedule on the CPU, byte
+    for byte) and the host sum (affine)."""
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+    from tendermint_tpu_torch.ops import bls_g1, bls_g2
+
+    groups = {
+        "g1": (bls_g1.g1_aggregate_sharded, bls_g1.g1_aggregate_sharded_plain,
+               bls_g1.g1_to_host, c.g1_add, c.G1_INF, c.g1_eq),
+        "g2": (bls_g2.g2_aggregate_sharded, bls_g2.g2_aggregate_sharded_plain,
+               bls_g2.g2_to_host, c.g2_add, c.G2_INF, c.g2_eq),
+    }
+    sizes = []
+    for g, (kern, plain, to_host, add, inf, eq) in groups.items():
+        first = point_sets[g][0]
+        cases = point_sets[g] + [("5 points (fewer than the shards)",
+                                  first[1][:5], first[2][:5])]
+        for what, pts, host_pts in cases:
+            got = counted(torch, ops, acc, kern, pts, mesh)
+            err = max_abs_err(got, plain(pts.cpu(), mesh))
+            errs[g + "_add"] = max(errs.get(g + "_add", 0), err)
+            assert err == 0, f"{g}_aggregate_sharded != plain ({what}, {label})"
+            want = inf
+            for p in host_pts:
+                want = add(want, p)
+            assert eq(to_host(got), want), f"{g}_aggregate_sharded != host ({what}, {label})"
+            sizes.append(f"{g} {what}")
+    print(f"kernel-vs-plain: {label}: g1/g2_aggregate_sharded equal their plain "
+          f"versions (the schedule on the CPU; tolerance: exact bytes) and the "
+          f"host sums (affine) on {'; '.join(sizes)}")
+
+
+def mesh_window(torch, ops, host, rng, acc, verifier, vset, chain_id, entries,
+                tampered, bad_height, one, reps, label, shards):
+    """The blocksync window through a started VerifyScheduler over a mesh
+    verifier: run_window's checks, plus the verdicts and the per-row
+    bitmap equal to the 1-device run's (`one`, byte for byte), every round
+    stamped with the mesh's shards and sharded, and the scheduler's
+    verify_mesh_devices gauge reading them. Returns the walls and the
+    round's launches."""
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+
+    metrics = SchedulerMetrics(Registry("smoke_" + label))
+    ops.reset_launches()
+    verdicts, walls, _, bitmap, items, ledger = run_window(
+        verifier, vset, chain_id, entries, reps, label, metrics)
+    torch.cuda.synchronize()
+    counts = ops.kernel_launches()
+    for name, n in counts.items():
+        acc[name] = acc.get(name, 0) + n
+    check_window(host, verdicts, bitmap, items, ledger, len(entries), bad_height,
+                 tampered, len(vset.validators), rng, label)
+    assert verdicts == one["verdicts"], f"{label}: verdicts != the 1-device window's"
+    assert bitmap == one["bitmap"], f"{label}: bitmap != the 1-device window's"
+    b = verifier._registry.bucket_for(len(items), multiple_of=shards)
+    for e in ledger:
+        assert e["devices"] == shards and e["sharded"] and e["dispatched"] == b, e
+    assert metrics.mesh_devices.value() == shards, metrics.mesh_devices.value()
+    return walls, {k: n for k, n in counts.items() if n}
+
+
+def mesh_phase(torch, np, rng, dev, smi, ops, host, vset, chain_id, entries,
+               tampered, bad_height, bulk, g_items, point_sets, secp_arrays):
+    """Phase 8: the multi-device path over MESH_SHARDS shards on `dev`,
+    then over every card where there are two or more. Returns the rows of
+    the butterfly add kernels and the path's launches per kernel."""
+    from tendermint_tpu_torch.crypto import batch_verifier as bv
+    from tendermint_tpu_torch.crypto.shape_registry import ShapeRegistry
+    from tendermint_tpu_torch.ops import bls_g1, bls_g2
+    from tendermint_tpu_torch.ops import secp256k1_kernel as sk
+    from tendermint_tpu_torch.parallel import build_mesh
+    from tendermint_tpu_torch.parallel.mesh import Mesh, shard_rows
+
+    mesh = Mesh([dev] * MESH_SHARDS)
+    acc, errs = {}, {}
+    label = f"mesh of {MESH_SHARDS} shards on {mesh.devices.flat[0]}"
+
+    # --- kernel 13 at three sizes, against its plain version and the host
+    sharded_sums(torch, ops, mesh, point_sets, acc, errs, label)
+
+    # --- the blocksync window on the mesh, host- and card-hashed and MXU
+    m_host = bv.BatchVerifier(mesh=mesh, shape_registry=ShapeRegistry())
+    m_dev = bv.BatchVerifier(mesh=mesh, device_challenge_min=2048,
+                             shape_registry=ShapeRegistry())
+    os.environ["TM_TPU_MXU_GATHER"] = "1"
+    m_mxu = bv.BatchVerifier(mesh=mesh, shape_registry=ShapeRegistry())
+    del os.environ["TM_TPU_MXU_GATHER"]
+    n_rows = len(entries) * len(vset.validators)
+    walls = {}
+    for name, verifier, reps, path_kernels in (
+        ("host_hash", m_host, 2, ("neg_pubkey_bigtable", "verify_prehashed_bigcache")),
+        ("device_hash", m_dev, 2, ("challenge_batch", "verify_prehashed_bigcache")),
+        ("mxu_gather", m_mxu, 1, ("verify_prehashed_bigcache_mxu",)),
+    ):
+        if verifier is not m_host:
+            verifier._big = m_host._big  # the window's tables, built once
+        walls[name], counts = mesh_window(
+            torch, ops, host, rng, acc, verifier, vset, chain_id, entries, tampered,
+            bad_height, bulk[name], reps, "mesh_" + name, MESH_SHARDS)
+        for k in path_kernels:
+            assert counts.get(k, 0) >= MESH_SHARDS, f"{k} not launched per shard ({name})"
+        print(f"main path: mesh bulk {name}: {len(entries)} commits x "
+              f"{len(vset.validators)} validators = {n_rows} rows over {label}, "
+              f"bucket {m_host._registry.bucket_for(n_rows, MESH_SHARDS)} "
+              f"({m_host._registry.bucket_for(n_rows, MESH_SHARDS) // MESH_SHARDS} rows a "
+              f"shard); verdicts and per-row bitmap = the 1-device window's x{reps}; "
+              f"rounds stamped devices={MESH_SHARDS}, sharded; verify_mesh_devices "
+              f"gauge {MESH_SHARDS}; launches {json.dumps(counts)}")
+
+    # a 150-row round, below mesh_min_rows, stays on one device
+    ops.reset_launches()
+    verdicts, _, _, bitmap, items, ledger = run_window(
+        m_host, vset, chain_id, entries[:1], 1, "mesh_one_commit")
+    torch.cuda.synchronize()
+    one_commit = {k: n for k, n in ops.kernel_launches().items() if n}
+    for k, n in one_commit.items():
+        acc[k] = acc.get(k, 0) + n
+    assert verdicts == [[True]] and all(bitmap), verdicts
+    assert bitmap == bulk["host_hash"]["bitmap"][: len(items)]
+    for e in ledger:
+        assert e["devices"] == 1 and not e["sharded"] and e["rows"] == {
+            "blocksync": len(items)}, e
+    assert one_commit.get("neg_pubkey_table", 0) == MESH_SHARDS, one_commit
+    print(f"main path: mesh one commit ({len(items)} rows, below mesh_min_rows "
+          f"{m_host._mesh_min_rows}): rounds stamped devices=1 on the small tier; "
+          f"its table build sharded; launches {json.dumps(one_commit)}")
+
+    # the small and generic families sharded (mesh_min_rows=1): the commit
+    # round of phase 3 with its tampered row
+    want = [host.verify(it.pubkey, it.msg, it.sig) for it in g_items]
+    solo = bv.BatchVerifier(shape_registry=ShapeRegistry(), device=dev).verify(
+        g_items).tolist()
+    assert solo == want
+    for tier, kw in (("small", {}), ("generic", {"table_cache_capacity": 64})):
+        v = bv.BatchVerifier(mesh=mesh, mesh_min_rows=1, shape_registry=ShapeRegistry(), **kw)
+        prep = v.prepare(g_items)
+        assert prep.devices == MESH_SHARDS
+        got = counted(torch, ops, acc, prep.run).tolist()
+        assert got == want, f"sharded {tier} round != host oracle"
+        (shape,) = v._registry.shapes_by_tier()[tier]
+        assert shape[2] == MESH_SHARDS, shape
+    print(f"main path: the {len(g_items)}-row commit round (one tampered row) "
+          f"sharded over {label} on the small tier and the generic kernel "
+          f"(mesh_min_rows=1) = the host oracle = the 1-device verifier")
+
+    # prewarm_buckets on the mesh verifier: both device variants where the
+    # ladder lets them
+    entries_pw = counted(torch, ops, acc, m_host.prewarm_buckets)
+    variants = {}
+    for e in entries_pw:
+        variants.setdefault(e["bucket"], set()).add(e["devices"])
+    ladder = m_host._registry.ladder
+    for i, b in enumerate(ladder):
+        prev = ladder[i - 1] if i else 0
+        want_v = {d for d, ok in ((1, prev + 1 < m_host._mesh_min_rows),
+                                  (MESH_SHARDS, b >= m_host._mesh_min_rows)) if ok}
+        assert variants[b] == want_v, (b, variants)
+    assert any(len(v) == 2 for v in variants.values()), variants
+    print(f"main path: prewarm_buckets on the mesh verifier (rungs {list(ladder)}, "
+          f"mesh_min_rows {m_host._mesh_min_rows}): {json.dumps(entries_pw)}")
+
+    # the sharded secp256k1 launch: the mixed window's rows
+    n_live = int(secp_arrays[5].sum())
+    one_dev = sk.verify_prehashed(*(torch.from_numpy(a).to(dev) for a in secp_arrays))
+    got = counted(torch, ops, acc, shard_rows, sk.verify_prehashed, mesh, secp_arrays)
+    assert got.tolist() == one_dev.cpu().tolist(), "sharded secp256k1 != unsharded"
+    print(f"main path: secp_verify_prehashed sharded over {label}: "
+          f"{len(got)} rows ({n_live} live) = the unsharded launch's bitmap")
+
+    # --- timings
+    sig_pts, key_pts = point_sets["g1"][0][1], point_sets["g2"][0][1]
+    rows = []
+    for g, add, add_plain, kern, plain, pts, fp_add, per_coord in (
+        ("g1", bls_g1.g1_add, bls_g1.g1_add_plain, bls_g1.g1_aggregate_sharded,
+         bls_g1.g1_aggregate_sharded_plain, sig_pts, FP_G1_ADD, 1),
+        ("g2", bls_g2.g2_add, bls_g2.g2_add_plain, bls_g2.g2_aggregate_sharded,
+         bls_g2.g2_aggregate_sharded_plain, key_pts, FP_G2_ADD, 2),
+    ):
+        b = pts.shape[0]
+        # one butterfly launch: one pair, as every round adds per shard
+        p, q = pts[:1].contiguous(), pts[1:2].contiguous()
+        got = add(p, q)
+        want, plain_ms = time_once(torch, add_plain, p, q)
+        err = max_abs_err(got, want)
+        assert err == 0, f"{g}_add != plain"
+        errs[g + "_add"] = max(errs[g + "_add"], err)
+        ms = time_cuda(torch, lambda: add(p, q), 20)
+        point_bytes = p.numel()
+        b_ms, b_by = bound_ms(3 * point_bytes, (fp_add + 9 * per_coord) * IMAD_PER_FP_MUL)
+        rows.append({
+            "name": f"{g}_add", "route": "cuda", "source": BLS_SOURCE,
+            "replaces": "tendermint_tpu/ops/shard_reduce.py:48",
+            "launches": acc.get(f"{g}_add", 0), "max_abs_err": errs[g + "_add"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        print(f"time: {g}_add kernel (one butterfly launch, 1 pair) {ms:.4f} ms plain "
+              f"{plain_ms:.2f} ms (one call) bound {b_ms:.3g} ms ({b_by}) | {smi}")
+        sum_ms = time_cuda(torch, lambda: kern(pts, mesh), 20)
+        t0 = time.perf_counter()
+        plain(pts.cpu(), mesh)
+        sum_plain_ms = (time.perf_counter() - t0) * 1e3
+        s_ms, s_by = bound_ms(pts.numel() + point_bytes,
+                              ((b - 1) * fp_add + 3 * per_coord * (b + 1)) * IMAD_PER_FP_MUL)
+        rounds = MESH_SHARDS.bit_length() - 1
+        print(f"time: {g}_aggregate_sharded (kernel 13) of {b} points over {label}: "
+              f"{sum_ms:.4f} ms ({MESH_SHARDS} tree launches + {MESH_SHARDS * rounds} "
+              f"add launches, median of 20 by CUDA events); plain on the CPU "
+              f"{sum_plain_ms:.2f} ms (one call, host clock); bound {s_ms:.3g} ms "
+              f"({s_by}, the {b - 1} additions any sum of {b} points needs) | {smi}")
+    win_1 = {k: [round(w * 1e3, 2) for w in bulk[k]["walls"]] for k in walls}
+    win_m = {k: [round(w * 1e3, 2) for w in v] for k, v in walls.items()}
+    print(f"time: blocksync window ms, {label} {json.dumps(win_m)} against one "
+          f"device {json.dumps(win_1)} | {smi}")
+    d_arrays = [torch.from_numpy(a).to(dev) for a in secp_arrays]
+    secp_one = time_cuda(torch, lambda: sk.verify_prehashed(*d_arrays), 20)
+    secp_sh = time_cuda(
+        torch, lambda: shard_rows(sk.verify_prehashed, mesh, secp_arrays), 5)
+    print(f"time: secp_verify_prehashed {len(secp_arrays[0])} rows: one launch "
+          f"{secp_one:.4f} ms (operands on the card); sharded over {label} "
+          f"{secp_sh:.4f} ms (copies, {MESH_SHARDS} launches, the gather; median of 5) "
+          f"| {smi}")
+
+    # --- a real mesh: every card, where there are two or more
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print("mesh: real multi-GPU mesh not run (1 device)")
+        return rows, acc
+    real = build_mesh(0, 1, "cuda")
+    label = f"mesh of {real.size} cards"
+    sharded_sums(torch, ops, real, point_sets, acc, errs, label)
+    r_host = bv.BatchVerifier(mesh=real, shape_registry=ShapeRegistry())
+    r_walls, counts = mesh_window(
+        torch, ops, host, rng, acc, r_host, vset, chain_id, entries, tampered,
+        bad_height, bulk["host_hash"], 2, "real_mesh_host_hash", real.size)
+    got = counted(torch, ops, acc, shard_rows, sk.verify_prehashed, real, secp_arrays)
+    assert got.tolist() == one_dev.cpu().tolist(), "sharded secp256k1 != unsharded (cards)"
+    print(f"main path: {label}: kernel 13 at the three sizes, the host-hashed window "
+          f"(= the 1-device window, rounds stamped devices={real.size}) and the "
+          f"sharded secp256k1 launch pass; window walls "
+          f"{[round(w * 1e3, 2) for w in r_walls]} ms; launches {json.dumps(counts)} "
+          f"| {smi}")
+    return rows, acc
 
 
 def main() -> int:
@@ -1931,7 +2235,8 @@ def main() -> int:
         tiers = bverifier._registry.buckets_by_tier()
         assert tiers[tier] == (b,), tiers
         bulk[label] = {"walls": walls, "gcs": gcs, "ledger": ledger, "tiers": tiers,
-                       "launches": {k: v for k, v in counts.items() if v}}
+                       "launches": {k: v for k, v in counts.items() if v},
+                       "verdicts": verdicts, "bitmap": bitmap}
         print(f"main path: bulk {label}: {n_win} commits x {args.validators} "
               f"validators = {n_sigs} rows, bucket {b}, tiers "
               f"{json.dumps({k: list(v) for k, v in tiers.items()})}; verdicts "
@@ -2093,11 +2398,14 @@ def main() -> int:
                   f"{gc_s * 1e3:.2f} ms | {smi}")
 
     # --- 5. the quorum-certificate path -------------------------------------
-    rows += qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries)
+    qc_rows, point_sets = qc_phase(torch, rng, dev, smi, ops, types, vset,
+                                   chain_id, entries)
+    rows += qc_rows
 
     # --- 6. the mixed-key path and the L2 block's merkle leaves ----------
-    rows += mixed_phase(torch, np, rng, dev, smi, ops, types, vkeys, chain_id,
-                        args.heights)
+    mix_rows, secp_arrays = mixed_phase(torch, np, rng, dev, smi, ops, types,
+                                          vkeys, chain_id, args.heights)
+    rows += mix_rows
 
     # --- 7. the in-process consensus net -------------------------------------
     net, net_errs = consensus_phase(torch, ops, host, smi, args.seed,
@@ -2109,7 +2417,24 @@ def main() -> int:
           f"{json.dumps({k: v for k, v in net.items() if v})} (added to the "
           f"kernels line's launches)")
 
-    # --- 8. result lines ----------------------------------------------------
+    # --- 8. the multi-device path -------------------------------------------
+    mesh_rows, mesh_launches = mesh_phase(
+        torch, np, rng, dev, smi, ops, host, vset, chain_id, entries, tampered,
+        bad_height, bulk, g_items, point_sets, secp_arrays)
+    for row in rows:
+        row["launches"] += mesh_launches.get(row["name"], 0)
+    rows += mesh_rows
+    for name in ("neg_pubkey_table", "verify_prehashed_table", "verify_prehashed",
+                 "neg_pubkey_bigtable", "verify_prehashed_bigcache",
+                 "verify_prehashed_bigcache_mxu", "challenge_batch",
+                 "secp_verify_prehashed", "g1_aggregate", "g2_aggregate",
+                 "g1_add", "g2_add"):
+        assert mesh_launches.get(name, 0) > 0, f"{name} was not launched on the mesh path"
+    print(f"main path: mesh path launches per kernel "
+          f"{json.dumps({k: v for k, v in mesh_launches.items() if v})} (added to "
+          f"the kernels line's launches)")
+
+    # --- 9. result lines ----------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

@@ -30,10 +30,16 @@ over unchanged:
   ``secp_native.prep_digest_item``) when ``TM_TPU_SECP_DEVICE=1`` and
   there are at least 32 of them, else to the native host batch
   (``secp_native.verify_msgs_batch``), as in the JAX package; sr25519
-  rows verify on the host.
-
-Not in this slice, and raising ``NotImplementedError`` (a missing feature,
-never a quiet fallback): a mesh or more than one device.
+  rows verify on the host;
+- an optional device mesh (``parallel/mesh.Mesh``): rounds of at least
+  ``mesh_min_rows`` rows are row-sharded over every mesh device (the
+  bucket rounded up to a multiple of the device count, the pad rows
+  verdict-inert), chunk i launched on ``mesh.devices.flat[i]`` against
+  that device's copy of the table store, every shard launched before any
+  verdict is read, the verdicts gathered in shard order
+  (``parallel/mesh.shard_rows``); smaller rounds run on the mesh's first
+  device alone, as without a mesh. Table builds always shard over the
+  mesh, and their rows go to one store per distinct device.
 """
 
 from __future__ import annotations
@@ -59,14 +65,18 @@ TABLE_CACHE_CAPACITY = 4096
 # batches whose bucket reaches this size use the big (doubling-free) tier
 BIGTABLE_MIN = 512
 
+# batches below this row count stay on one device even under a mesh: a
+# sharded round pays its split and gather, which only bulk rounds repay.
+# 1024 keeps every vote-path bucket (8..512) on one device and shards the
+# bulk rungs (2048+). Override with TM_TPU_MESH_MIN_ROWS.
+DEFAULT_MESH_MIN_ROWS = 1024
+
 # initial allocated rows of the lazy table stores
 _TABLE_ROWS_MIN = 128
 
 # one message longer than this (with R || A) keeps the batch on host
 # hashing: the device buffer pads every row to the longest one's blocks
 _DEVICE_HASH_MAX_BYTES = 2048
-
-_ROADMAP_MESH = "ROADMAP multi-GPU slice (kernel 13)"
 
 # secp256k1 rows of a mixed batch take the kernel under TM_TPU_SECP_DEVICE=1
 # from this many rows on (the JAX package's gate)
@@ -83,8 +93,9 @@ class SigItem:
 
 class _PreparedBatch:
     """Host-assembled batch whose device dispatch is deferred; ``run()``
-    blocks for the verdict bitmap (len == n). ``devices`` is the shard
-    count of the dispatch (always 1: one card)."""
+    blocks for the verdict bitmap (len == n). ``devices`` is the mesh
+    shard count of the dispatch (1 = one device); the scheduler stamps
+    its round with it."""
 
     __slots__ = ("n", "run", "devices")
 
@@ -100,24 +111,55 @@ def _use_mxu_gather() -> bool:
     return os.environ.get("TM_TPU_MXU_GATHER") == "1"
 
 
+def _store_rows(stores: dict) -> int:
+    """The allocated rows of a table store (every copy has the same)."""
+    return int(next(iter(stores.values()))[0].shape[0])
+
+
 class _TableCache:
     """One device-resident table store (pubkey -> row), lazily grown.
+
+    Under a mesh, builds shard the pubkeys over every shard device and
+    their rows are installed in one full copy of the store per distinct
+    device (``stores()``), kept in step through growth and resets;
+    ``tables``/``valid`` are the first device's copy.
 
     All methods take the store's lock: a vote micro-batcher may call
     verify() from an executor thread while the event loop verifies."""
 
     def __init__(self, lock, build_fn, entry_shape, capacity, device,
-                 registry=None, tier="build"):
+                 registry=None, tier="build", mesh=None):
         self._lock = lock
         self._build_fn = build_fn
         self._entry_shape = tuple(entry_shape)  # per-key dims after the row
         self._capacity = capacity
-        self._device = device
         self._registry = registry or default_shape_registry()
         self._tier = tier
+        self._shards = [device] if mesh is None else list(mesh.devices.flat)
+        self._devices = list(dict.fromkeys(self._shards))
         self._idx: dict[bytes, int] = {}
-        self.tables: torch.Tensor | None = None  # [rows, *entry_shape] u8
-        self.valid: torch.Tensor | None = None  # [rows] bool
+        # per distinct device: [tables [rows, *entry_shape] u8, valid [rows]]
+        self._copies: list[list] = [[None, None] for _ in self._devices]
+
+    @property
+    def tables(self) -> torch.Tensor | None:
+        return self._copies[0][0]
+
+    @tables.setter
+    def tables(self, t) -> None:
+        self._copies[0][0] = t
+
+    @property
+    def valid(self) -> torch.Tensor | None:
+        return self._copies[0][1]
+
+    @valid.setter
+    def valid(self, v) -> None:
+        self._copies[0][1] = v
+
+    def stores(self) -> dict:
+        """device -> (tables, valid) of each copy."""
+        return {d: tuple(c) for d, c in zip(self._devices, self._copies)}
 
     def _grow(self, needed_rows: int) -> None:
         rows = _TABLE_ROWS_MIN
@@ -127,14 +169,35 @@ class _TableCache:
         cur = 0 if self.tables is None else self.tables.shape[0]
         if rows <= cur:
             return
-        tables = torch.zeros(
-            (rows, *self._entry_shape), dtype=torch.uint8, device=self._device
-        )
-        valid = torch.zeros(rows, dtype=torch.bool, device=self._device)
-        if cur:
-            tables[:cur] = self.tables
-            valid[:cur] = self.valid
-        self.tables, self.valid = tables, valid
+        for d, copy in zip(self._devices, self._copies):
+            tables = torch.zeros(
+                (rows, *self._entry_shape), dtype=torch.uint8, device=d
+            )
+            valid = torch.zeros(rows, dtype=torch.bool, device=d)
+            if cur:
+                tables[:cur] = copy[0]
+                valid[:cur] = copy[1]
+            copy[:] = [tables, valid]
+
+    def allocate(self) -> None:
+        """Allocate every copy at its initial size (prewarm)."""
+        with self._lock:
+            self._grow(_TABLE_ROWS_MIN)
+
+    def _build(self, chunk: list[bytes]):
+        """Build a chunk's tables sharded over the shard devices; returns
+        per-shard (tables, valid), each shard launched before any is read."""
+        nshards = len(self._shards)
+        b = self._registry.bucket_for(len(chunk), multiple_of=nshards)
+        self._registry.record_dispatch(self._tier, b, devices=nshards)
+        arr = np.zeros((b, 32), dtype=np.uint8)
+        for i, pk in enumerate(chunk):
+            arr[i] = np.frombuffer(pk, dtype=np.uint8)
+        c = b // nshards
+        return [
+            self._build_fn(torch.from_numpy(arr[i * c : (i + 1) * c]).to(d))
+            for i, d in enumerate(self._shards)
+        ]
 
     def ensure(self, pubkeys: list[bytes], abort=None) -> bool:
         """Build + install tables for unseen pubkeys. Returns False when
@@ -151,7 +214,7 @@ class _TableCache:
                 # fresh tensors, not an in-place wipe: a concurrent verify
                 # may still hold a snapshot of the old store
                 self._idx.clear()
-                self.tables = self.valid = None
+                self._copies = [[None, None] for _ in self._devices]
                 new = uniq
             self._grow(len(self._idx) + len(new))
             # chunked builds: a big-tier chunk of 512 keys is 64 MiB of table
@@ -159,26 +222,22 @@ class _TableCache:
                 if abort is not None and abort.is_set():
                     return True  # partial warm is fine; ensure is idempotent
                 chunk = new[lo : lo + 512]
-                b = self._registry.bucket_for(len(chunk))
-                self._registry.record_dispatch(self._tier, b)
-                arr = np.zeros((b, 32), dtype=np.uint8)
-                for i, pk in enumerate(chunk):
-                    arr[i] = np.frombuffer(pk, dtype=np.uint8)
-                tables, valid = self._build_fn(
-                    torch.from_numpy(arr).to(self._device)
-                )
+                parts = self._build(chunk)
                 rows = []
                 for pk in chunk:
                     self._idx[pk] = len(self._idx)
                     rows.append(self._idx[pk])
-                rows_t = torch.tensor(rows, dtype=torch.int64, device=self._device)
-                self.tables[rows_t] = tables[: len(chunk)]
-                self.valid[rows_t] = valid[: len(chunk)]
+                for d, copy in zip(self._devices, self._copies):
+                    rows_t = torch.tensor(rows, dtype=torch.int64, device=d)
+                    for k in (0, 1):
+                        piece = [part[k].to(d) for part in parts]
+                        whole = piece[0] if len(piece) == 1 else torch.cat(piece)
+                        copy[k][rows_t] = whole[: len(chunk)]
             return True
 
     def snapshot(self, row_pubkeys: list[tuple[int, bytes]], b: int):
-        """(tables, valid, idx[b]) for the (row, pubkey) pairs, or None if
-        a pubkey was concurrently evicted (the caller retries)."""
+        """(stores, idx[b]) for the (row, pubkey) pairs, or None if a
+        pubkey was concurrently evicted (the caller retries)."""
         with self._lock:
             idx = np.full(b, -1, dtype=np.int32)
             for i, pk in row_pubkeys:
@@ -186,12 +245,12 @@ class _TableCache:
                 if row is None:
                     return None
                 idx[i] = row
-            return self.tables, self.valid, idx
+            return self.stores(), idx
 
 
 class BatchVerifier:
-    """Batched ed25519 verifier on one CUDA device (or, with
-    ``device="cpu"``, on the kernels' plain PyTorch versions)."""
+    """Batched ed25519 verifier on one CUDA device or a mesh of them (or,
+    with ``device="cpu"``, on the kernels' plain PyTorch versions)."""
 
     def __init__(
         self,
@@ -201,18 +260,32 @@ class BatchVerifier:
         device_challenge_min: int | None = None,
         bigtable_min: int = BIGTABLE_MIN,
         shape_registry: ShapeRegistry | None = None,
-        devices: int = 1,
+        mesh_min_rows: int | None = None,
         device: str | torch.device | None = None,
     ):
         """min_device_batch: below this size the host verifies serially.
         device_challenge_min: big-tier batches of at least this many rows
         hash their challenges on the card (None: always on the host).
         bigtable_min: buckets at or above it use the big tier.
-        mesh / devices > 1 raise: one card only.
-        device: "cuda" (default) or "cpu"; CUDA absent raises."""
-        if mesh is not None or devices != 1:
-            raise NotImplementedError(f"sharded verification: {_ROADMAP_MESH}")
+        mesh: a ``parallel.mesh.Mesh``; rounds of at least mesh_min_rows
+        rows (None reads TM_TPU_MESH_MIN_ROWS, unset or 0 meaning
+        DEFAULT_MESH_MIN_ROWS) shard over it.
+        device: "cuda" (default) or "cpu"; CUDA absent raises. Under a
+        mesh it defaults to the mesh's first device, and another raises."""
+        if mesh is not None:
+            first = mesh.devices.flat[0]
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first, {first}")
+            device = first
         self.device = resolve(device)
+        self._mesh = mesh
+        self._nshards = 1 if mesh is None else mesh.size
+        if mesh_min_rows is None:
+            raw = os.environ.get("TM_TPU_MESH_MIN_ROWS", "")
+            mesh_min_rows = (
+                int(raw) if raw.strip() and int(raw) > 0 else DEFAULT_MESH_MIN_ROWS
+            )
+        self._mesh_min_rows = max(1, int(mesh_min_rows))
         self._min_device_batch = min_device_batch
         self._registry = shape_registry or default_shape_registry()
         self._device_challenge_min = device_challenge_min
@@ -234,6 +307,7 @@ class BatchVerifier:
             self.device,
             registry=self._registry,
             tier="build_small",
+            mesh=mesh,
         )
         self._big = _TableCache(
             threading.Lock(),
@@ -243,7 +317,24 @@ class BatchVerifier:
             self.device,
             registry=self._registry,
             tier="build_big",
+            mesh=mesh,
         )
+
+    # --- mesh topology -----------------------------------------------------
+
+    @property
+    def mesh_devices(self) -> int:
+        """Devices in the verifier's mesh (1 = meshless)."""
+        return self._nshards
+
+    def shards_for(self, n: int) -> int:
+        """Devices a batch of `n` rows shards over: the whole mesh from
+        mesh_min_rows rows on, else 1 (the round stays on one device). The
+        scheduler stamps rounds `sharded` by it; prewarm_buckets
+        enumerates the reachable variants with it."""
+        if self._nshards <= 1 or n < self._mesh_min_rows:
+            return 1
+        return self._nshards
 
     # --- table cache -------------------------------------------------------
 
@@ -271,19 +362,110 @@ class BatchVerifier:
         if bulk and not abort.is_set():
             self._big.ensure(eds, abort=abort)
 
+    def prewarm_buckets(
+        self,
+        buckets=None,
+        tiers: tuple[str, ...] = ("small", "big", "generic"),
+        abort=None,
+    ) -> list[dict]:
+        """Pay the first-use costs ahead of a (re)started node's first
+        rounds: the kernels' first build, each table store allocated on
+        each device, and one launch per (tier, bucket, devices) that
+        steady state can dispatch, on all-rejected rows (zeros, ``s_ok``
+        False). The small/big split follows ``bigtable_min``; the cached
+        tiers launch against the live stores. Under a mesh each rung
+        launches once per reachable device variant: devices=1 where a
+        batch below mesh_min_rows can land in it, devices=N where one at
+        or above it can. The big_msgs tier (device_challenge_min) is also
+        shaped by message length and is not prewarmed.
+
+        Returns one {tier, bucket, rows, devices, seconds} entry per
+        launch. `abort` (default: the shutdown flag) stops between
+        launches."""
+        if abort is None:
+            abort = self.shutdown_event
+        ladder = tuple(buckets) if buckets else self._registry.ladder
+        for cache in (self._small, self._big):
+            cache.allocate()
+        stores = {"small": self._small.stores(), "big": self._big.stores()}
+        kernels = {
+            "small": ed25519_batch.verify_prehashed_table,
+            "big": self._big_verify,
+            "generic": ed25519_batch.verify_prehashed,
+        }
+        out: list[dict] = []
+        seen: set[tuple[str, int, int]] = set()
+        rungs = sorted({int(b) for b in ladder})
+        for i, raw_b in enumerate(rungs):
+            prev_rung = rungs[i - 1] if i else 0
+            # a batch of n rows lands on this rung when prev_rung < n <=
+            # raw_b: one device is reachable iff some such n is below
+            # mesh_min_rows, the whole mesh iff some such n reaches it
+            variants = []
+            if self._nshards <= 1 or prev_rung + 1 < self._mesh_min_rows:
+                variants.append(1)
+            if self._nshards > 1 and raw_b >= self._mesh_min_rows:
+                variants.append(self._nshards)
+            for devs in variants:
+                b = self._registry.bucket_for(raw_b, multiple_of=devs)
+                zeros32 = np.zeros((b, 32), dtype=np.uint8)
+                idx = np.zeros(b, dtype=np.int32)
+                s_ok = np.zeros(b, dtype=bool)
+                bucket_tier = "big" if b >= self._bigtable_min else "small"
+                for tier in tiers:
+                    if abort.is_set():
+                        return out
+                    if tier not in kernels:
+                        raise ValueError(f"unknown prewarm tier {tier!r}")
+                    if tier != "generic" and tier != bucket_tier:
+                        continue  # steady state never runs this shape
+                    if (tier, b, devs) in seen:
+                        continue  # rungs that collapse after rounding
+                    seen.add((tier, b, devs))
+                    # the generic kernel takes pubkeys where the cached
+                    # tiers take the store and row indices
+                    generic = tier == "generic"
+                    t0 = time.perf_counter()
+                    self._dispatch(
+                        kernels[tier], tier, b, b,
+                        None if generic else stores[tier],
+                        (zeros32 if generic else idx, zeros32, zeros32, zeros32, s_ok),
+                        devices=devs,
+                    )
+                    rows = 0 if generic else _store_rows(stores[tier])
+                    out.append({
+                        "tier": tier,
+                        "bucket": int(b),
+                        "rows": rows,
+                        "devices": devs,
+                        "seconds": round(time.perf_counter() - t0, 3),
+                    })
+        return out
+
     # --- verification ------------------------------------------------------
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _dispatch(self, fn, tier: str, b: int, n: int, *args) -> np.ndarray:
-        """Run one kernel wrapper and block for the verdicts, traced as
-        ``crypto.device_execute``."""
-        rows = int(args[0].shape[0]) if tier in ("small", "big", "big_msgs") else 0
-        self._registry.record_dispatch(tier, b, rows)
+    def _dispatch(self, fn, tier: str, b: int, n: int, stores, rows,
+                  devices: int = 1) -> np.ndarray:
+        """Run one kernel wrapper over a round's `rows` (numpy operands
+        with the batch axis first) and block for the verdicts, traced as
+        ``crypto.device_execute``. `stores` (device -> (tables, valid))
+        precede the rows for the cached tiers, None for the generic one.
+        devices=1 launches on this verifier's device; devices=N shards the
+        rows over the mesh (``parallel/mesh.shard_rows``)."""
+        from ..parallel.mesh import shard_rows
+
+        table_rows = 0 if stores is None else _store_rows(stores)
+        self._registry.record_dispatch(tier, b, table_rows, devices=devices)
+        targets = list(self._mesh.devices.flat) if devices > 1 else [self.device]
         tracer = default_tracer()
         t0 = time.perf_counter()
-        out = fn(*args).cpu().numpy()  # blocks until the card is done
+        # blocks until every shard's verdicts are on the host
+        out = shard_rows(
+            fn, targets, rows, None if stores is None else stores.__getitem__
+        )
         if tracer.enabled:
             tracer.add_span(
                 "crypto.device_execute",
@@ -292,6 +474,7 @@ class BatchVerifier:
                 batch=n,
                 bucket=b,
                 tier=tier,
+                devices=devices,
             )
         return out
 
@@ -393,7 +576,10 @@ class BatchVerifier:
                 )
 
             return _PreparedBatch(n, _run_host)
-        b = self._registry.bucket_for(n)
+        # bulk rounds shard over the mesh (the bucket rounded up so the
+        # rows split evenly; the tail is verdict-inert padding)
+        devs = self.shards_for(n)
+        b = self._registry.bucket_for(n, multiple_of=devs)
         big = b >= self._bigtable_min
         device_hash = (
             big
@@ -439,8 +625,6 @@ class BatchVerifier:
 
         def _run_device() -> np.ndarray:
             cache = self._big if big else self._small
-            r_t, s_t = self._to_device(rb), self._to_device(sb)
-            ok_t = self._to_device(s_ok)
             row_pubkeys = [(i, items[i].pubkey) for i in well_formed]
             # Two attempts: a concurrent verify() can reset the store
             # between ensure() and snapshot(), evicting our rows; a second
@@ -451,26 +635,22 @@ class BatchVerifier:
                 snap = cache.snapshot(row_pubkeys, b)
                 if snap is None:
                     continue
-                tables, tvalid, idx = snap
-                idx_t = self._to_device(idx)
+                stores, idx = snap
                 if device_hash:
                     out = self._dispatch(
                         ed25519_batch.verify_msgs_bigcache, "big_msgs", b, n,
-                        tables, tvalid, idx_t, r_t, s_t,
-                        self._to_device(msg_buf), self._to_device(n_blocks),
-                        ok_t,
+                        stores, (idx, rb, sb, msg_buf, n_blocks, s_ok),
+                        devices=devs,
                     )
                 elif big:
                     out = self._dispatch(
                         self._big_verify, "big", b, n,
-                        tables, tvalid, idx_t, r_t, s_t, self._to_device(kb),
-                        ok_t,
+                        stores, (idx, rb, sb, kb, s_ok), devices=devs,
                     )
                 else:
                     out = self._dispatch(
                         ed25519_batch.verify_prehashed_table, "small", b, n,
-                        tables, tvalid, idx_t, r_t, s_t, self._to_device(kb),
-                        ok_t,
+                        stores, (idx, rb, sb, kb, s_ok), devices=devs,
                     )
                 return out[:n]
             # the store cannot hold the batch: the generic kernel, with
@@ -488,11 +668,11 @@ class BatchVerifier:
                 pub[i] = np.frombuffer(items[i].pubkey, dtype=np.uint8)
             out = self._dispatch(
                 ed25519_batch.verify_prehashed, "generic", b, n,
-                self._to_device(pub), r_t, s_t, self._to_device(gkb), ok_t,
+                None, (pub, rb, sb, gkb, s_ok), devices=devs,
             )
             return out[:n]
 
-        return _PreparedBatch(n, _run_device)
+        return _PreparedBatch(n, _run_device, devices=devs)
 
     @staticmethod
     def _verify_host_other(it: SigItem) -> bool:
@@ -512,13 +692,14 @@ _default: BatchVerifier | None = None
 
 
 def default_verifier(device: str | torch.device | None = None) -> BatchVerifier:
-    """Process-wide single-device verifier, built on first call.
+    """Process-wide verifier, built on first call.
 
     Reads the JAX package's environment knobs: TM_TPU_MIN_DEVICE_BATCH
     (host crossover), TM_TPU_DEVICE_CHALLENGE_MIN (big-tier batches of at
     least that many rows hash on the card; unset or 0 keeps host hashing),
-    and TM_TPU_{ICI,DCN}_PARALLELISM, which raise when they ask for more
-    than one device. `device` applies to the first call only."""
+    TM_TPU_{ICI,DCN}_PARALLELISM and TM_TPU_MESH_BACKEND (the mesh,
+    ``parallel.mesh_from_env``) and TM_TPU_MESH_MIN_ROWS. `device` applies
+    to the first call only."""
     global _default
     if _default is None:
         from ..parallel import mesh_from_env

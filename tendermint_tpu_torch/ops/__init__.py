@@ -1,7 +1,8 @@
 """Device plane of the port: plain PyTorch field/curve/SHA-512/BLS12-381/
 secp256k1/SHA-256 code and the hand-written CUDA kernels (``csrc/``) of
 the ed25519 verify paths, the quorum-certificate path, the secp256k1 rows
-of mixed-key commits and the merkle leaf hashes.
+of mixed-key commits, the merkle leaf hashes and the mesh-wide BLS point
+sums (``shard_reduce``).
 
 ``kernel_launches()`` reads the launch count of every kernel wrapper and
 ``reset_launches()`` zeroes them; a run that sets them to 0, drives the
@@ -10,8 +11,8 @@ main path and reads them shows which kernels the path went through.
 
 
 def _wrappers() -> dict:
-    from .bls_g1 import g1_aggregate
-    from .bls_g2 import g2_aggregate
+    from .bls_g1 import g1_add, g1_aggregate
+    from .bls_g2 import g2_add, g2_aggregate
     from .bls_pairing import final_exp, miller
     from .dbl_chain import dbl_chain
     from .ed25519_batch import (
@@ -38,6 +39,8 @@ def _wrappers() -> dict:
         "reduce_mod_l": reduce_mod_l,
         "g1_aggregate": g1_aggregate,
         "g2_aggregate": g2_aggregate,
+        "g1_add": g1_add,
+        "g2_add": g2_add,
         "miller": miller,
         "final_exp": final_exp,
         "secp_verify_prehashed": secp_verify_prehashed,

@@ -13,13 +13,17 @@ Two routes, both for sm_90a:
 Both expose the same launchers (``neg_pubkey_table``, ``verify_table``,
 ``verify_generic``, ``dbl_chain``, ``neg_pubkey_bigtable``,
 ``verify_bigcache``, ``challenge``, ``reduce_mod_l``, ``g1_aggregate``,
-``g2_aggregate``, ``miller``, ``final_exp``, ``secp_verify``,
-``sha256``), which take tensors
-and the raw CUDA stream and raise when the launch is refused. Nothing here
-runs at import: the CPU tests import every module, and ``nvcc`` is needed
-only when a kernel is first called on the card. The first build holds a
-lock, so threads that race into it (the verify scheduler's prep and
-dispatch pools) build once and share the result.
+``g2_aggregate``, ``g1_add``, ``g2_add``, ``miller``, ``final_exp``,
+``secp_verify``, ``sha256``), which take tensors and the raw CUDA stream
+and raise when the launch is refused. The wrappers call them through
+``launch``, which makes the operands' device the current one: a
+``<<<...>>>`` launch runs on the current device, and a shard on
+``cuda:1`` must not launch on ``cuda:0`` with a stream of ``cuda:1``.
+
+Nothing here runs at import: the CPU tests import every module, and
+``nvcc`` is needed only when a kernel is first called on the card. The
+first build holds a lock, so threads that race into it (the verify
+scheduler's prep and dispatch pools) build once and share the result.
 """
 
 from __future__ import annotations
@@ -79,6 +83,8 @@ class _CtypesKernels:
             "tm_reduce_mod_l": [vp, vp, i, vp],
             "tm_g1_aggregate": [vp, vp, vp, i, i, i, vp],
             "tm_g2_aggregate": [vp, vp, vp, i, i, i, vp],
+            "tm_g1_add": [vp, vp, vp, i, vp],
+            "tm_g2_add": [vp, vp, vp, i, vp],
             "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
             "tm_final_exp": [vp, vp, i, vp],
             "tm_secp_verify": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
@@ -157,6 +163,17 @@ class _CtypesKernels:
 
     def g2_aggregate(self, *args):
         self._aggregate(self._lib.tm_g2_aggregate, *args)
+
+    def _add(self, fn, p, q, out, stream):
+        self._launched(fn(
+            p.data_ptr(), q.data_ptr(), out.data_ptr(), out.shape[0], stream,
+        ))
+
+    def g1_add(self, *args):
+        self._add(self._lib.tm_g1_add, *args)
+
+    def g2_add(self, *args):
+        self._add(self._lib.tm_g2_add, *args)
 
     def miller(self, xp, yp, xq, yq, valid, scratch, out, stream):
         self._launched(self._lib.tm_miller(
@@ -267,6 +284,14 @@ def finish_ptxas_report(procs: list[subprocess.Popen]) -> str:
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on t's device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Call launcher `name` on `args` and the current stream of the device
+    of the first, a tensor, with that device current (both build
+    routes)."""
+    with torch.cuda.device(args[0].device):
+        getattr(kernels(), name)(*args, stream_of(args[0]))
 
 
 def on_cuda(t: torch.Tensor) -> bool:

@@ -13,9 +13,14 @@ Leading dimensions are independent trees: ``[T, B, 3, 48]`` sums T trees
 in one launch. Points are canonical little-endian bytes per coordinate
 (``uint8``); any 48-byte value is read mod p.
 
-The wrapper launches ``tm_g1_aggregate`` on a CUDA tensor and runs
-``g1_aggregate_plain`` on a CPU one; it counts its launches in
-``g1_aggregate.launches``.
+``g1_add`` is the complete addition of two point batches (the same
+formulas, one sum per row): the combiner of ``g1_aggregate_sharded``,
+the mesh-wide sum of ``ops/shard_reduce.py`` (local trees of
+``g1_aggregate`` and an XOR butterfly of ``g1_add``).
+
+Each wrapper launches its kernel (``tm_g1_aggregate``, ``tm_g1_add``) on
+a CUDA tensor and runs its plain version (``*_plain``) on a CPU one; it
+counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import torch
 
 from ..crypto import bls12_381 as host
 from . import bls_field as fp
-from ._build import check_operand, kernels, on_cuda, stream_of
+from . import shard_reduce
+from ._build import check_operand, launch, on_cuda
 
 
 def padded_size(b: int) -> int:
@@ -123,6 +129,11 @@ def g1_from_host(p) -> torch.Tensor:
     return torch.frombuffer(bytearray(raw), dtype=torch.uint8).reshape(3, 48)
 
 
+def g1_identity() -> torch.Tensor:
+    """The identity (0, 1, 0) as ``[3, 48]`` uint8."""
+    return g1_from_host((0, 1, 0))
+
+
 def g1_to_host(pt: torch.Tensor) -> tuple:
     """``[3, 48]`` uint8 -> host Jacobian ints."""
     rows = pt.cpu().reshape(3, 48).tolist()
@@ -152,9 +163,64 @@ def g1_aggregate(points: torch.Tensor) -> torch.Tensor:
     out = torch.empty((*lead, 3, 48), dtype=torch.uint8, device=points.device)
     if ntrees:
         scratch = torch.empty(ntrees * nb * 3 * 6, dtype=torch.int64, device=points.device)
-        kernels().g1_aggregate(points, scratch, out, ntrees, b, nb, stream_of(points))
+        launch("g1_aggregate", points, scratch, out, ntrees, b, nb)
         g1_aggregate.launches += 1
     return out
 
 
 g1_aggregate.launches = 0
+
+
+# --- g1_add and the mesh-wide sum -----------------------------------------
+
+
+def add_plain(field, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Row-wise p + q of two ``[n, 3, *field bytes]`` batches."""
+    return field.to_bytes(jac_add(field, field.from_bytes(p), field.from_bytes(q)))
+
+
+def check_pair(p: torch.Tensor, q: torch.Tensor, point_shape) -> int:
+    """Raise unless p and q are ``[n, *point_shape]`` uint8 on one device;
+    returns n."""
+    if p.dim() != 1 + len(point_shape):
+        raise ValueError(f"p must be [n, {point_shape}], got {tuple(p.shape)}")
+    n = p.shape[0]
+    check_operand(p, "p", torch.uint8, (n, *point_shape), p.device)
+    check_operand(q, "q", torch.uint8, (n, *point_shape), p.device)
+    return n
+
+
+def g1_add_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``[n, 3, 48]`` + ``[n, 3, 48]`` uint8 -> ``[n, 3, 48]`` canonical."""
+    return add_plain(fp.Fp, p, q)
+
+
+def g1_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The row-wise addition; same operands as the plain version."""
+    if not on_cuda(p):
+        return g1_add_plain(p, q)
+    n = check_pair(p, q, (3, 48))
+    out = torch.empty_like(p)
+    if n:
+        launch("g1_add", p, q, out)
+        g1_add.launches += 1
+    return out
+
+
+g1_add.launches = 0
+
+
+def g1_aggregate_sharded(points, mesh) -> torch.Tensor:
+    """``[B, 3, 48]`` -> ``[3, 48]``: the point sum over a device mesh, a
+    ``g1_aggregate`` tree per shard and an XOR butterfly of ``g1_add``
+    (``ops/shard_reduce.py``)."""
+    return shard_reduce.aggregate_sharded(
+        points, mesh, g1_aggregate, g1_add, g1_identity()
+    )
+
+
+def g1_aggregate_sharded_plain(points, mesh) -> torch.Tensor:
+    """The plain version: the same schedule on the CPU."""
+    return shard_reduce.aggregate_sharded_plain(
+        points, mesh, g1_aggregate_plain, g1_add_plain, g1_identity()
+    )

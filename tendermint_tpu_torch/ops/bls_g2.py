@@ -9,9 +9,12 @@ formulas of ``ops/bls_g1.py`` one tower level up, over
 independent trees, so one launch sums the signer keys of a whole window
 of quorum certificates.
 
-The wrapper launches ``tm_g2_aggregate`` on a CUDA tensor and runs
-``g2_aggregate_plain`` on a CPU one; it counts its launches in
-``g2_aggregate.launches``.
+``g2_add`` and ``g2_aggregate_sharded`` are the G2 twins of
+``ops/bls_g1.py``'s ``g1_add`` and ``g1_aggregate_sharded``.
+
+Each wrapper launches its kernel (``tm_g2_aggregate``, ``tm_g2_add``) on
+a CUDA tensor and runs its plain version (``*_plain``) on a CPU one; it
+counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -20,14 +23,20 @@ import torch
 
 from ..crypto import bls12_381 as host
 from . import bls_field as fp
-from ._build import check_operand, kernels, on_cuda, stream_of
-from .bls_g1 import aggregate_plain, padded_size
+from . import shard_reduce
+from ._build import check_operand, launch, on_cuda
+from .bls_g1 import add_plain, aggregate_plain, check_pair, padded_size
 
 
 def g2_from_host(p) -> torch.Tensor:
     """Host Jacobian ((x0, x1), (y0, y1), (z0, z1)) -> ``[3, 2, 48]`` uint8."""
     raw = b"".join((v % host.P).to_bytes(48, "little") for c in p for v in c)
     return torch.frombuffer(bytearray(raw), dtype=torch.uint8).reshape(3, 2, 48)
+
+
+def g2_identity() -> torch.Tensor:
+    """The identity ((0, 0), (1, 0), (0, 0)) as ``[3, 2, 48]`` uint8."""
+    return g2_from_host(((0, 0), (1, 0), (0, 0)))
 
 
 def g2_to_host(pt: torch.Tensor) -> tuple:
@@ -62,9 +71,44 @@ def g2_aggregate(points: torch.Tensor) -> torch.Tensor:
         scratch = torch.empty(
             ntrees * nb * 3 * 2 * 6, dtype=torch.int64, device=points.device
         )
-        kernels().g2_aggregate(points, scratch, out, ntrees, b, nb, stream_of(points))
+        launch("g2_aggregate", points, scratch, out, ntrees, b, nb)
         g2_aggregate.launches += 1
     return out
 
 
 g2_aggregate.launches = 0
+
+
+def g2_add_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``[n, 3, 2, 48]`` + ``[n, 3, 2, 48]`` uint8 -> canonical sums."""
+    return add_plain(fp.Fp2, p, q)
+
+
+def g2_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The row-wise addition; same operands as the plain version."""
+    if not on_cuda(p):
+        return g2_add_plain(p, q)
+    n = check_pair(p, q, (3, 2, 48))
+    out = torch.empty_like(p)
+    if n:
+        launch("g2_add", p, q, out)
+        g2_add.launches += 1
+    return out
+
+
+g2_add.launches = 0
+
+
+def g2_aggregate_sharded(points, mesh) -> torch.Tensor:
+    """``[B, 3, 2, 48]`` -> ``[3, 2, 48]``: the point sum over a device
+    mesh (``ops/shard_reduce.py``)."""
+    return shard_reduce.aggregate_sharded(
+        points, mesh, g2_aggregate, g2_add, g2_identity()
+    )
+
+
+def g2_aggregate_sharded_plain(points, mesh) -> torch.Tensor:
+    """The plain version: the same schedule on the CPU."""
+    return shard_reduce.aggregate_sharded_plain(
+        points, mesh, g2_aggregate_plain, g2_add_plain, g2_identity()
+    )

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from ..crypto import bls12_381 as host
 from . import bls_field as fp
-from ._build import DeviceCache, check_operand, kernels, on_cuda, stream_of
+from ._build import DeviceCache, check_operand, launch, on_cuda
 
 P = host.P
 X_ABS = host.X_ABS
@@ -272,7 +272,7 @@ def miller(xp, yp, xq, yq, valid) -> torch.Tensor:
     c = xp.shape[0]
     out = torch.empty((6, 2, 48), dtype=torch.uint8, device=xp.device)
     scratch = torch.empty(c * 72, dtype=torch.int64, device=xp.device)
-    kernels().miller(xp, yp, xq, yq, valid, scratch, out, stream_of(xp))
+    launch("miller", xp, yp, xq, yq, valid, scratch, out)
     miller.launches += 1
     return out
 
@@ -293,7 +293,7 @@ def final_exp(f: torch.Tensor) -> torch.Tensor:
     check_operand(f, "f", torch.uint8, (n, 6, 2, 48), f.device)
     out = torch.empty_like(f)
     if n:
-        kernels().final_exp(f, out, stream_of(f))
+        launch("final_exp", f, out)
         final_exp.launches += 1
     return out
 

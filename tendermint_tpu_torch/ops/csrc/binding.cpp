@@ -6,7 +6,8 @@
 // nvcc never sees PyTorch's headers. The Python wrappers in
 // ops/ed25519_batch.py, ops/sha512.py, ops/dbl_chain.py, ops/bls_*.py,
 // ops/secp256k1_kernel.py and ops/sha256.py check shapes and types before
-// calling in; the checks here guard the raw pointers.
+// calling in, through ops/_build.launch, which makes the operands' device
+// current for the launch; the checks here guard the raw pointers.
 #include <torch/extension.h>
 
 extern "C" {
@@ -33,6 +34,8 @@ int tm_g1_aggregate(const void* in, void* scratch, void* out, int ntrees,
                     int b, int nb, void* stream);
 int tm_g2_aggregate(const void* in, void* scratch, void* out, int ntrees,
                     int b, int nb, void* stream);
+int tm_g1_add(const void* p, const void* q, void* out, int n, void* stream);
+int tm_g2_add(const void* p, const void* q, void* out, int n, void* stream);
 int tm_miller(const void* xp, const void* yp, const void* xq, const void* yq,
               const void* valid, void* scratch, void* out, int c,
               void* stream);
@@ -170,6 +173,27 @@ void g2_aggregate(torch::Tensor in, torch::Tensor scratch, torch::Tensor out,
   aggregate(tm_g2_aggregate, in, scratch, out, ntrees, b, nb, stream);
 }
 
+using add_fn = int (*)(const void*, const void*, void*, int, void*);
+
+void add_points(add_fn fn, torch::Tensor p, torch::Tensor q,
+                torch::Tensor out, int64_t stream) {
+  check(p, "p");
+  check(q, "q");
+  check(out, "out");
+  launched(fn(p.data_ptr(), q.data_ptr(), out.data_ptr(), (int)out.size(0),
+              stream_ptr(stream)));
+}
+
+void g1_add(torch::Tensor p, torch::Tensor q, torch::Tensor out,
+            int64_t stream) {
+  add_points(tm_g1_add, p, q, out, stream);
+}
+
+void g2_add(torch::Tensor p, torch::Tensor q, torch::Tensor out,
+            int64_t stream) {
+  add_points(tm_g2_add, p, q, out, stream);
+}
+
 void miller(torch::Tensor xp, torch::Tensor yp, torch::Tensor xq,
             torch::Tensor yq, torch::Tensor valid, torch::Tensor scratch,
             torch::Tensor out, int64_t stream) {
@@ -221,6 +245,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("reduce_mod_l", &reduce_mod_l);
   m.def("g1_aggregate", &g1_aggregate);
   m.def("g2_aggregate", &g2_aggregate);
+  m.def("g1_add", &g1_add);
+  m.def("g2_add", &g2_add);
   m.def("miller", &miller);
   m.def("final_exp", &final_exp);
   m.def("secp_verify", &secp_verify);

@@ -5,6 +5,11 @@
 //                       of g1_add :267 / g1_double :248): signature sums
 //   tm_g2_aggregate  <- tendermint_tpu/ops/bls_g2.py:214 g2_aggregate
 //                       (g2_add :157 / g2_double :138): public-key sums
+//   tm_g1_add,       <- tendermint_tpu/ops/shard_reduce.py:48
+//   tm_g2_add           aggregate_sharded (via bls_g1.py:335 and
+//                       bls_g2.py:202): one round of the XOR butterfly
+//                       over the mesh, x + ppermute(x), as a batch of
+//                       complete additions of two point arrays
 //   tm_miller        <- tendermint_tpu/ops/bls_pairing.py:405 _miller
 //                       (miller_jit :476) and the chunk product :549-550
 //   tm_final_exp     <- tendermint_tpu/ops/bls_pairing.py:443-502, the final
@@ -22,7 +27,9 @@
 //   the JAX package's pairing of neighbours);
 // - Miller: one thread per 2-pair chunk, state in local memory; a second
 //   kernel (one block) multiplies the chunk values as a tree;
-// - final exponentiation: one thread per element.
+// - final exponentiation: one thread per element;
+// - the butterfly add: one thread per pair, the tree's device add; a round
+//   adds one partial per shard, so each launch has one active thread.
 // A pairing check is therefore two serial chains on two threads, and the
 // card is nearly idle; spreading an Fp12 product over a warp is later work.
 // Heavy helpers are __noinline__ to keep nvcc's time and the code small.
@@ -85,6 +92,40 @@ __global__ void g1_aggregate_kernel(const uint8_t* in, jac<fp>* scratch,
 __global__ void g2_aggregate_kernel(const uint8_t* in, jac<fp2>* scratch,
                                     uint8_t* out, int b, int nb) {
   aggregate_tree<fp2>(in, scratch, out, b, nb);
+}
+
+// o[i] = p[i] + q[i], one thread per pair (the butterfly's combiner)
+template <class F>
+__device__ void add_pairs(const uint8_t* p, const uint8_t* q, uint8_t* o,
+                          int n) {
+  constexpr int kCoord = (int)(sizeof(F) / sizeof(fp)) * 48;  // bytes
+  constexpr int kBytes = 3 * kCoord;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  jac<F> a, b, r;
+  const uint8_t* pa = p + (size_t)i * kBytes;
+  const uint8_t* qb = q + (size_t)i * kBytes;
+  fe_load(a.x, pa);
+  fe_load(a.y, pa + kCoord);
+  fe_load(a.z, pa + 2 * kCoord);
+  fe_load(b.x, qb);
+  fe_load(b.y, qb + kCoord);
+  fe_load(b.z, qb + 2 * kCoord);
+  jac_add(r, a, b);
+  uint8_t* dst = o + (size_t)i * kBytes;
+  fe_store(dst, r.x);
+  fe_store(dst + kCoord, r.y);
+  fe_store(dst + 2 * kCoord, r.z);
+}
+
+__global__ void g1_add_kernel(const uint8_t* p, const uint8_t* q, uint8_t* o,
+                              int n) {
+  add_pairs<fp>(p, q, o, n);
+}
+
+__global__ void g2_add_kernel(const uint8_t* p, const uint8_t* q, uint8_t* o,
+                              int n) {
+  add_pairs<fp2>(p, q, o, n);
 }
 
 // one thread per chunk of two (P, Q) pairs; invalid pairs fold the
@@ -178,6 +219,24 @@ int tm_g2_aggregate(const void* in, void* scratch, void* out, int ntrees,
   if (ntrees > 0)
     g2_aggregate_kernel<<<ntrees, tree_threads(nb), 0, (cudaStream_t)stream>>>(
         (const uint8_t*)in, (jac<fp2>*)scratch, (uint8_t*)out, b, nb);
+  return (int)cudaGetLastError();
+}
+
+int tm_g1_add(const void* p, const void* q, void* out, int n, void* stream) {
+  if (n > 0)
+    g1_add_kernel<<<blocks_for(n, kChunkThreads), kChunkThreads, 0,
+                    (cudaStream_t)stream>>>((const uint8_t*)p,
+                                            (const uint8_t*)q, (uint8_t*)out,
+                                            n);
+  return (int)cudaGetLastError();
+}
+
+int tm_g2_add(const void* p, const void* q, void* out, int n, void* stream) {
+  if (n > 0)
+    g2_add_kernel<<<blocks_for(n, kChunkThreads), kChunkThreads, 0,
+                    (cudaStream_t)stream>>>((const uint8_t*)p,
+                                            (const uint8_t*)q, (uint8_t*)out,
+                                            n);
   return (int)cudaGetLastError();
 }
 

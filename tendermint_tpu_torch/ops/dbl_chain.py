@@ -17,7 +17,7 @@ import torch
 
 from . import curve25519 as curve
 from . import field25519 as fe
-from ._build import kernels, stream_of
+from ._build import launch
 
 N_DBL = 256
 
@@ -49,7 +49,7 @@ def dbl_chain(points: torch.Tensor, n_dbl: int = N_DBL) -> torch.Tensor:
         raise ValueError(f"n_dbl out of range: {n_dbl}")
     out = torch.empty_like(points)
     if points.shape[0]:
-        kernels().dbl_chain(points, out, n_dbl, stream_of(points))
+        launch("dbl_chain", points, out, n_dbl)
         dbl_chain.launches += 1
     return out
 

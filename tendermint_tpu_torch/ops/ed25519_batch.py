@@ -42,7 +42,7 @@ from ..crypto import ed25519 as host
 from . import curve25519 as curve
 from . import field25519 as fe
 from . import sha512
-from ._build import DeviceCache, kernels, stream_of
+from ._build import DeviceCache, launch
 from ._build import check_operand as _check
 from ._build import on_cuda as _on_cuda
 
@@ -86,9 +86,7 @@ def neg_pubkey_table(pubkeys: torch.Tensor):
     tables = torch.empty((n, 16, 4, 32), dtype=torch.uint8, device=dev)
     valid = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        kernels().neg_pubkey_table(
-            pubkeys, tables, valid, kernel_consts(dev), stream_of(pubkeys)
-        )
+        launch("neg_pubkey_table", pubkeys, tables, valid, kernel_consts(dev))
         neg_pubkey_table.launches += 1
     return tables, valid
 
@@ -132,9 +130,9 @@ def verify_prehashed_table(
     _check(s_ok, "s_ok", torch.bool, (b,), dev)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b:
-        kernels().verify_table(
-            tables, table_valid, idx, r_bytes, s_bytes, k_bytes, s_ok,
-            curve.base_table(dev), kernel_consts(dev), out, stream_of(tables),
+        launch(
+            "verify_table", tables, table_valid, idx, r_bytes, s_bytes, k_bytes,
+            s_ok, curve.base_table(dev), kernel_consts(dev), out,
         )
         verify_prehashed_table.launches += 1
     return out
@@ -168,9 +166,9 @@ def verify_prehashed(pubkeys, r_bytes, s_bytes, k_bytes, s_ok) -> torch.Tensor:
     _check(s_ok, "s_ok", torch.bool, (b,), dev)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b:
-        kernels().verify_generic(
-            pubkeys, r_bytes, s_bytes, k_bytes, s_ok, curve.base_table(dev),
-            kernel_consts(dev), out, stream_of(pubkeys),
+        launch(
+            "verify_generic", pubkeys, r_bytes, s_bytes, k_bytes,
+            s_ok, curve.base_table(dev), kernel_consts(dev), out,
         )
         verify_prehashed.launches += 1
     return out
@@ -200,9 +198,7 @@ def neg_pubkey_bigtable(pubkeys: torch.Tensor):
     tables = torch.empty((n, 64, 16, 4, 32), dtype=torch.uint8, device=dev)
     valid = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        kernels().neg_pubkey_bigtable(
-            pubkeys, tables, valid, kernel_consts(dev), stream_of(pubkeys)
-        )
+        launch("neg_pubkey_bigtable", pubkeys, tables, valid, kernel_consts(dev))
         neg_pubkey_bigtable.launches += 1
     return tables, valid
 
@@ -259,10 +255,9 @@ def _launch_bigcache(tables_cache, table_valid, idx, r_bytes, s_bytes,
     _check(s_ok, "s_ok", torch.bool, (b,), dev)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b:
-        kernels().verify_bigcache(
-            tables_cache, table_valid, idx, r_bytes, s_bytes, k_bytes, s_ok,
-            curve.base_table(dev), kernel_consts(dev), out,
-            stream_of(tables_cache),
+        launch(
+            "verify_bigcache", tables_cache, table_valid, idx, r_bytes, s_bytes,
+            k_bytes, s_ok, curve.base_table(dev), kernel_consts(dev), out,
         )
     return out
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from . import vecfield
-from ._build import DeviceCache, check_operand, kernels, on_cuda, stream_of
+from ._build import DeviceCache, check_operand, launch, on_cuda
 
 P = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEFFFFFC2F
 N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
@@ -206,8 +206,8 @@ def verify_prehashed(qx, qy, u1, u2, r_bytes, ok_in) -> torch.Tensor:
     check_operand(ok_in, "ok_in", torch.bool, (b,), dev)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b:
-        kernels().secp_verify(qx, qy, u1, u2, r_bytes, ok_in, _G_WORDS.get(dev),
-                              out, stream_of(qx))
+        launch("secp_verify", qx, qy, u1, u2, r_bytes, ok_in,
+               _G_WORDS.get(dev), out)
         verify_prehashed.launches += 1
     return out
 

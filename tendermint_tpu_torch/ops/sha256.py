@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._build import check_operand, kernels, on_cuda, stream_of
+from ._build import check_operand, launch, on_cuda
 
 M32 = 0xFFFFFFFF
 
@@ -109,7 +109,7 @@ def sha256_batch(data: torch.Tensor, n_blocks: torch.Tensor) -> torch.Tensor:
     check_operand(n_blocks, "n_blocks", torch.int32, (b,), dev)
     out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
     if b:
-        kernels().sha256(data, n_blocks, out, stream_of(data))
+        launch("sha256", data, n_blocks, out)
         sha256_batch.launches += 1
     return out
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._build import check_operand, kernels, on_cuda, stream_of
+from ._build import check_operand, launch, on_cuda
 
 L = (1 << 252) + 27742317777372353535851937790883648493
 
@@ -275,7 +275,7 @@ def reduce_mod_l(digest: torch.Tensor) -> torch.Tensor:
     check_operand(digest, "digest", torch.uint8, (b, 64), digest.device)
     out = torch.empty((b, 32), dtype=torch.uint8, device=digest.device)
     if b:
-        kernels().reduce_mod_l(digest, out, stream_of(digest))
+        launch("reduce_mod_l", digest, out)
         reduce_mod_l.launches += 1
     return out
 
@@ -304,7 +304,7 @@ def challenge_batch(data: torch.Tensor, n_blocks: torch.Tensor) -> torch.Tensor:
     check_operand(n_blocks, "n_blocks", torch.int32, (b,), dev)
     out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
     if b:
-        kernels().challenge(data, n_blocks, out, stream_of(data))
+        launch("challenge", data, n_blocks, out)
         challenge_batch.launches += 1
     return out
 

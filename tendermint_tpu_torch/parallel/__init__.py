@@ -1,14 +1,12 @@
-"""The verify dispatch scheduler and the fn-lane engine table.
+"""The verify dispatch scheduler, the fn-lane engine table and the device
+mesh.
 
 Counterpart of ``tendermint_tpu/parallel``. The scheduler is a verbatim
-copy; the device mesh is not ported (a multi-GPU slice): ``mesh_from_env``
-returns None for one device and raises when the environment asks for more.
+copy; ``mesh`` turns the ``[tpu]`` axes into the port's ``Mesh`` of CUDA
+devices, whose batch axis a ``BatchVerifier`` row-shards.
 """
 
-from __future__ import annotations
-
-import os
-
+from .mesh import build_mesh, mesh_from_env
 from .scheduler import (
     VerifyScheduler,
     default_dispatch,
@@ -16,22 +14,8 @@ from .scheduler import (
     set_default_scheduler,
 )
 
-_ROADMAP_MESH = "ROADMAP multi-GPU slice (kernel 13)"
-
-
-def mesh_from_env():
-    """None when TM_TPU_{ICI,DCN}_PARALLELISM ask for one device (the
-    default); a request for more raises NotImplementedError."""
-    ici = int(os.environ.get("TM_TPU_ICI_PARALLELISM", "1") or 1)
-    dcn = int(os.environ.get("TM_TPU_DCN_PARALLELISM", "1") or 1)
-    if ici * dcn > 1:
-        raise NotImplementedError(
-            f"a {ici}x{dcn} device mesh: {_ROADMAP_MESH}"
-        )
-    return None
-
-
 __all__ = [
+    "build_mesh",
     "mesh_from_env",
     "VerifyScheduler",
     "default_dispatch",

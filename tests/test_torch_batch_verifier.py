@@ -7,9 +7,10 @@ on tables that JAX built and crypto/convert carried over, the snapshot
 retry, cache reset, the mixed-key partition, the big tier's switches
 (``TM_TPU_MXU_GATHER``, the bulk warm, the 2 KiB device-hash cap, the
 generic fallback with host challenges; its parity with the reference is in
-``test_torch_batch_verifier_big.py``), and the features the port does not
-have yet, which must raise NotImplementedError; secp256k1 and sr25519
-rows of a mixed batch on the host (the secp256k1 kernel route is in
+``test_torch_batch_verifier_big.py``), a mesh verifier and the mesh knobs
+of ``default_verifier`` (the mesh path in full is in
+``test_torch_mesh.py``); secp256k1 and sr25519 rows of a mixed batch on
+the host (the secp256k1 kernel route is in
 ``test_torch_secp_verify.py``). Tolerance: exact bitmap equality.
 """
 
@@ -153,13 +154,26 @@ def test_mixed_key_partition_and_malformed_rows():
     assert got.tolist() == ref.verify(_jax_items(mixed)).tolist()
 
 
-def test_unported_features_raise():
-    """A mesh and more than one device stay unported: each raises
-    NotImplementedError naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        bv.BatchVerifier(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        bv.BatchVerifier(devices=2, device="cpu")
+def test_mesh_verifier_matches_reference():
+    """BatchVerifier(mesh=...) verifies: over 8 CPU shards a round of
+    mesh_min_rows rows shards over every shard and one row fewer stays on
+    one device, both with the JAX package's (meshless) verdicts, the host
+    oracle's and the port's 1-device verifier's; a device other than the
+    mesh's first raises."""
+    from tendermint_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh(8, 1, "cpu")
+    items = _items(16, seed=30)
+    port = _port(mesh=mesh, min_device_batch=0, mesh_min_rows=16)
+    assert port.device == torch.device("cpu") and port.mesh_devices == 8
+    prep = port.prepare(items)
+    assert prep.devices == 8 and port.prepare(items[:15]).devices == 1
+    got = prep.run().tolist()
+    want = JaxVerifier(min_device_batch=0).verify(_jax_items(items)).tolist()
+    assert got == want == _oracle(items) == _port(min_device_batch=0).verify(items).tolist()
+    assert port._registry.shapes_by_tier()["small"] == ((32, 128, 8),)
+    with pytest.raises(ValueError, match="first"):
+        bv.BatchVerifier(mesh=mesh, device="meta")
 
 
 def _other_key_rows(key_type: str) -> list[bv.SigItem]:
@@ -260,7 +274,12 @@ def test_default_verifier_device_and_env(monkeypatch):
     monkeypatch.setattr(bv, "_default", None)
     monkeypatch.delenv("TM_TPU_DEVICE_CHALLENGE_MIN")
     monkeypatch.setenv("TM_TPU_ICI_PARALLELISM", "4")
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv("TM_TPU_MESH_BACKEND", "cpu")
+    v = bv.default_verifier(device="cpu")
+    assert v.mesh_devices == 4 and v._mesh.axis_names == ("batch",)
+    monkeypatch.setattr(bv, "_default", None)
+    monkeypatch.setenv("TM_TPU_ICI_PARALLELISM", "16")
+    with pytest.raises(ValueError, match="16x1"):
         bv.default_verifier(device="cpu")
 
 

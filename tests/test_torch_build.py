@@ -1,8 +1,12 @@
 """The port's kernel build and per-device caches under concurrent first
 use: the verify scheduler calls the verifier from its prep and dispatch
-threads, so two threads can race into the first build. Runs on the CPU
-with the build function replaced (no nvcc here)."""
+threads, so two threads can race into the first build; and the device
+guard of every kernel launch. Runs on the CPU with the build function and
+the CUDA device context replaced (no nvcc, no card here)."""
 
+import contextlib
+import pathlib
+import re
 import sys
 import threading
 import time
@@ -66,3 +70,51 @@ def test_device_cache_makes_once_per_device_under_threads():
     assert len(made) == 1
     assert all(t is got[0] for t in got)
     assert cache.get(torch.device("cpu")) is got[0]
+
+
+def test_launch_runs_under_the_operands_device(monkeypatch):
+    """launch() makes the first operand's device current around the
+    launcher call and passes that device's stream, on either build route
+    (the route is whatever kernels() returned)."""
+    events = []
+
+    @contextlib.contextmanager
+    def device(dev):
+        events.append(("enter", dev))
+        yield
+        events.append(("exit", dev))
+
+    class Launchers:
+        def g1_add(self, *args):
+            events.append(("launch", args))
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(_build, "kernels", Launchers)
+    monkeypatch.setattr(_build, "stream_of", lambda t: ("stream", t.device))
+    p = torch.empty(1, device="meta")
+    _build.launch("g1_add", p, "q", "out")
+    assert events == [
+        ("enter", p.device),
+        ("launch", (p, "q", "out", ("stream", p.device))),
+        ("exit", p.device),
+    ]
+
+
+def test_every_wrapper_launches_through_the_guard():
+    """No kernel wrapper calls a launcher but through _build.launch."""
+    ops = pathlib.Path(_build.__file__).parent
+    for path in sorted(ops.glob("*.py")):
+        if path.name == "_build.py":
+            continue
+        src = path.read_text()
+        assert not re.search(r"kernels\(\)\.|stream_of\(", src), path.name
+    launched = {
+        m for path in ops.glob("*.py")
+        for m in re.findall(r'launch\(\s*"(\w+)"', path.read_text())
+    }
+    assert launched == {
+        "neg_pubkey_table", "verify_table", "verify_generic", "dbl_chain",
+        "neg_pubkey_bigtable", "verify_bigcache", "challenge", "reduce_mod_l",
+        "g1_aggregate", "g2_aggregate", "g1_add", "g2_add", "miller",
+        "final_exp", "secp_verify", "sha256",
+    }

@@ -94,7 +94,8 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import tendermint_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     tendermint_tpu_torch.__path__, "tendermint_tpu_torch.")]
-for name in ("consensus.state_machine", "state.execution", "l2node.mock"):
+for name in ("consensus.state_machine", "state.execution", "l2node.mock",
+             "parallel.mesh", "ops.shard_reduce"):
     assert "tendermint_tpu_torch." + name in names, name
 for name in names:
     importlib.import_module(name)
