@@ -20,7 +20,12 @@ Phases (any failure raises and the exit code is non-zero):
    held against the host oracle), ``challenge_batch`` on 2048 ragged rows
    (and against hashlib + % L), the reduction kernel alone on adversarial
    digests, ``dbl_chain`` on 8192 points x 256 doublings (bytes and affine
-   coordinates, row 0 against 256 host ``point_double``).
+   coordinates, row 0 against 256 host ``point_double``). The four-lane
+   ``verify_prehashed_table`` also at its small-tier shapes
+   (``KERNEL3_SIZES``: b = 1, 23, 150 and 256, the last the commit path's
+   150 rows padded to its bucket), with ``idx = -1``, ``idx`` past the
+   store and padding rows inside warps of live rows, against its plain
+   version and the host oracle.
 3. Drive the main paths through their entry points, each with the launch
    counts zeroed just before and read just after:
    - commit verification: a seeded 150-validator ``ValidatorSet``
@@ -44,8 +49,10 @@ Phases (any failure raises and the exit code is non-zero):
      scheduler's ledger round are checked.
 4. Time each kernel (median of 20 launches, CUDA events) and its plain
    version (median of 3) at the main paths' shapes, ``verify_commit`` per
-   height, and the bulk window's wall time with its host and device
-   shares; work out each kernel's bound.
+   height (beside its figure with the one-thread kernel 3), and the bulk
+   window's wall time with its host and device shares; work out each
+   kernel's bound. Kernel 3 also at the buckets 8, 32, 128 and 256 (the
+   ``kernel3:`` line, with its critical path and ``ptxas`` usage).
 5. The quorum-certificate path (``qc_phase``): ``g1_aggregate`` and
    ``g2_aggregate`` on 256 points with duplicates, opposites and the
    identity and at the device route's shapes (150 signatures; 150 keys),
@@ -114,9 +121,11 @@ Phases (any failure raises and the exit code is non-zero):
    signature rounds from ``min_device_batch`` rows, at least one per
    height; mode b: ``qc_verify`` rounds), small-tier launches in mode (a)
    (big-tier ones where a round reaches 512 rows), BLS data at every
-   sealed batch point and no BLS launch in either mode. Prints the walls
-   per height, rows and buckets per round, and the device and host
-   shares; the net's launches add to the kernels line.
+   sealed batch point and no BLS launch in either mode; in mode (a) every
+   small-tier round's verdicts, as the net got them, equal the plain
+   version at the dispatched shape. Prints the walls per height, rows and
+   buckets per round, and the device and host shares; the net's launches
+   add to the kernels line.
 8. The multi-device path (``mesh_phase``) over a ``Mesh`` of
    ``MESH_SHARDS`` (8) shards, all on ``cuda:0``: every line of the
    sharded path (the row split, the table store copied per distinct
@@ -187,6 +196,10 @@ FE_VAR_MULT = 64 * (4 * 8 + 8)  # 64 windows of 4 doublings + 1 cached add
 FE_BASE_MULT = 32 * 8
 FE_FINISH = 1 + 8 + FE_INVERT + 2  # to_cached, add, compress
 FE_VERIFY_TABLE = FE_VAR_MULT + FE_BASE_MULT + FE_FINISH
+# the dependent multiplications of one row of the four-lane kernel 3: 2 a
+# point operation (64 x 5 in [k](-A), 32 in [s]B, 1 in the finish), and
+# the finish's to_cached, inversion and two products
+FE_VERIFY_TABLE_PATH = 2 * (64 * 5 + 32 + 1) + 1 + FE_INVERT + 2
 FE_DBL = 8
 # the big table of one key: decompress, to_cached(-A), 14 cached adds for
 # row 0, 63 x 4 doublings of the 16 columns, 64 x 16 to_cached (the work
@@ -214,6 +227,15 @@ NET_HEIGHTS = 3
 
 SOURCE = "tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu"
 SHA_SOURCE = "tendermint_tpu_torch/ops/csrc/sha512_kernels.cu"
+
+# kernel 3's shapes, (rows, padding rows): one row group; a partial last
+# warp with padding (a LastCommit round of the 32-validator net is 22-23
+# rows); the commit path's 150 live rows alone and padded to its 256 bucket
+KERNEL3_SIZES = ((1, 0), (23, 2), (150, 0), (256, 106))
+KERNEL3_BUCKETS = (8, 32, 128, 256)
+# verify_commit at 150 validators, ms a height after the first, with the
+# one-thread kernel 3 (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W)
+COMMIT_MS_ONE_THREAD = (5.67, 5.74)
 
 
 def max_abs_err(a, b) -> int:
@@ -321,6 +343,35 @@ def mixed_rows(host, keys, pubs, n_rows: int, n_pad: int, tag: bytes):
         for i, (p, m, s) in enumerate(items)
     ]
     return items, idx, want
+
+
+def row_tensors(torch, host, items, idx, n_pad: int, dev):
+    """R, S, K (host challenges), s_ok (False on the last n_pad rows) and
+    idx as int32 of (pubkey, msg, sig) rows, on dev."""
+    def T(rows):
+        return torch.tensor([list(r) for r in rows], dtype=torch.uint8, device=dev)
+
+    R = T([sg[:32] for _, _, sg in items])
+    S = T([sg[32:] for _, _, sg in items])
+    K = T([host.challenge(sg[:32], p, m).to_bytes(32, "little") for p, m, sg in items])
+    ok = torch.tensor([int.from_bytes(sg[32:], "little") < host.L for _, _, sg in items])
+    ok[len(items) - n_pad:] = False
+    return R, S, K, ok.to(dev), torch.tensor(idx, dtype=torch.int32, device=dev)
+
+
+def kernel3_rows(torch, host, keys, pubs, tables, tvalid, b: int, n_pad: int,
+                 tag: bytes):
+    """Kernel 3's operands for b rows of mixed_rows over a table store of
+    pubs on the card, the last n_pad padding; rows 3 and 9, where live,
+    get idx -1 and idx past the store, inside warps of live rows (a warp
+    holds 8 row groups of 4 lanes). Returns (operands, the host oracle's
+    verdicts)."""
+    items, idx, want = mixed_rows(host, keys, pubs, b, n_pad, tag)
+    for row, v in ((3, -1), (9, tables.shape[0] + 5)):
+        if row < b - n_pad:
+            idx[row], want[row] = v, False
+    R, S, K, ok, idx_t = row_tensors(torch, host, items, idx, n_pad, tables.device)
+    return (tables, tvalid, idx_t, R, S, K, ok), want
 
 
 def signed_window(host, types, vset, by_addr, chain_id, n_commits, bad_height, rng):
@@ -1465,7 +1516,7 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
     # ledger's device_s is a host clock around the whole round, GIL waits
     # behind the nodes' event loop included. The verifier's _dispatch is
     # wrapped, not the kernel wrappers, whose launch counters are their
-    # module globals. The first small-tier round's inputs and verdicts are
+    # module globals. Every small-tier round's inputs and verdicts are
     # kept (cloned) for the check against the plain version.
     from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
 
@@ -1488,9 +1539,9 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
 
         out = dispatch(evented, tier, *args, **kw)
         events.append((tier, start, end))
-        if tier == "small" and "small" not in kept:
+        if tier == "small":
             (a,) = operands  # one device: one launch
-            kept["small"] = ([t.clone() for t in a], out.copy())
+            kept.setdefault("small", []).append(([t.clone() for t in a], out.copy()))
         return out
 
     async def drive():
@@ -1539,10 +1590,10 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
     """Phase 7: the live net, legacy commits (mode a) and QC heights with
     batch-point BLS dual-signing (mode b, the pairing gate unset). Checks
     agreement, the LastCommit signatures against the host oracle, the
-    ledger's consensus rounds and the launch counts, and holds the first
+    ledger's consensus rounds and the launch counts, and holds every
     small-tier LastCommit round, at the shape it was dispatched, against
-    the plain version (as dispatched, and with one row's challenge
-    flipped); prints the walls. Returns the launches of both modes,
+    the plain version (the first also with one row's challenge flipped);
+    prints the walls. Returns the launches of both modes,
     summed per kernel, and that check's max_abs_err per kernel."""
     from tendermint_tpu_torch.ops import ed25519_batch as ed
 
@@ -1587,10 +1638,19 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
             if any(e["dispatched"] >= 512 for e in sig_rounds):
                 for name in ("neg_pubkey_bigtable", "verify_prehashed_bigcache"):
                     assert launches[name] > 0, f"{name} was not launched on the live net"
-            # the first small-tier round, as the net dispatched it, against
-            # the plain version; then row 0's challenge flipped (every
-            # signature of the net is valid, so this is the rejecting case)
-            args, seen = r["kept"]["small"]
+            # every small-tier round, as the net dispatched it, against the
+            # plain version: the verdicts the net got are the kernel's
+            rounds_err = 0
+            for k_args, k_seen in r["kept"]["small"]:
+                k_plain = ed.verify_prehashed_table_plain(*k_args)
+                rounds_err = max(rounds_err,
+                                 max_abs_err(torch.from_numpy(k_seen), k_plain))
+            assert rounds_err == 0, "a small-tier round of the net != plain"
+            n_kept = len(r["kept"]["small"])
+            # the first again, launched here, and with row 0's challenge
+            # flipped (every signature of the net is valid, so this is the
+            # rejecting case)
+            args, seen = r["kept"]["small"][0]
             n_rows = int(args[2].shape[0])
             assert seen[0], "first LastCommit round rejected its row 0"
             got = ed.verify_prehashed_table(*args)
@@ -1606,13 +1666,15 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
             assert err == 0, "verify_prehashed_table != plain on the net's round"
             assert not bool(got_bad[0]) and torch.equal(got_bad[1:].cpu(), got[1:].cpu()), \
                 "the flipped challenge was not rejected alone"
-            errs["verify_prehashed_table"] = err
-            print(f"kernel-vs-plain: verify_prehashed_table on the net's first "
-                  f"small-tier LastCommit round as dispatched ({n_rows} rows over "
-                  f"a store of {int(args[0].shape[0])} key tables; "
-                  f"{int(seen.sum())} accepted), and again with row 0's challenge "
-                  f"flipped: equal to its plain version and to the verdicts the "
-                  f"net got (tolerance: exact); the flipped row alone rejected")
+            errs["verify_prehashed_table"] = max(err, rounds_err)
+            print(f"kernel-vs-plain: verify_prehashed_table on all {n_kept} of "
+                  f"the net's small-tier LastCommit rounds as dispatched: the "
+                  f"verdicts the net got equal the plain version; the first "
+                  f"({n_rows} rows over a store of {int(args[0].shape[0])} key "
+                  f"tables; {int(seen.sum())} accepted) launched again, and with "
+                  f"row 0's challenge flipped: equal to its plain version and to "
+                  f"the verdicts the net got (tolerance: exact); the flipped row "
+                  f"alone rejected")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         marks = r["marks"]
@@ -1969,7 +2031,8 @@ def main() -> int:
     with open(os.path.join(_build.BUILD_DIR, "ptxas_report.txt"), "w") as f:
         f.write(report)
     print(f"build: route={_build.BUILD_INFO['route']} seconds={build_s:.1f} | {smi}")
-    for name, usage in ptxas_usage(report).items():
+    usages = ptxas_usage(report)
+    for name, usage in usages.items():
         print(f"ptxas: {name}: {usage}")
 
     def T(rows) -> torch.Tensor:
@@ -1999,21 +2062,10 @@ def main() -> int:
     want_valid = [host.point_decompress(p) is not None for p in pubs]
     assert tvalid.cpu().tolist() == want_valid, "neg_pubkey_table validity"
 
-    def row_tensors(items, idx, n_pad):
-        R = T([s[:32] for _, _, s in items]).to(dev)
-        S = T([s[32:] for _, _, s in items]).to(dev)
-        K = T([host.challenge(s[:32], p, m).to_bytes(32, "little")
-               for p, m, s in items]).to(dev)
-        ok = torch.tensor(
-            [int.from_bytes(s[32:], "little") < host.L for _, _, s in items]
-        )
-        ok[len(items) - n_pad:] = False
-        return R, S, K, ok.to(dev), torch.tensor(idx, dtype=torch.int32, device=dev)
-
     # 256 verify rows over these keys, the last 8 padding
     n_rows = 256
     items, idx, want = mixed_rows(host, keys, pubs, n_rows, 8, b"smoke")
-    R, S, K, s_ok, idx_t = row_tensors(items, idx, 8)
+    R, S, K, s_ok, idx_t = row_tensors(torch, host, items, idx, 8, dev)
     vt = eb.verify_prehashed_table(tables, tvalid, idx_t, R, S, K, s_ok)
     vt_plain = eb.verify_prehashed_table_plain(tables, tvalid, idx_t, R, S, K, s_ok)
     torch.cuda.synchronize()
@@ -2021,6 +2073,22 @@ def main() -> int:
     assert errs["verify_prehashed_table"] == 0, "verify_prehashed_table: kernel != plain"
     assert vt.cpu().tolist() == want, "verify_prehashed_table != host oracle"
     assert any(want) and not all(want)
+    k3_checks = []
+    for b, n_pad in KERNEL3_SIZES:
+        k3_ops, k3_want = kernel3_rows(torch, host, keys, pubs, tables, tvalid,
+                                       b, n_pad, b"k3-%d" % b)
+        got = eb.verify_prehashed_table(*k3_ops)
+        plain = eb.verify_prehashed_table_plain(*k3_ops)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        errs["verify_prehashed_table"] = max(errs["verify_prehashed_table"], err)
+        assert err == 0, f"verify_prehashed_table: kernel != plain at b={b}"
+        assert got.cpu().tolist() == k3_want, f"verify_prehashed_table != host oracle at b={b}"
+        k3_checks.append({"b": b, "padding": n_pad, "accepted": sum(k3_want)})
+    print(f"kernel-vs-plain: verify_prehashed_table (four lanes a row) at its "
+          f"small-tier shapes, idx -1 and past the store inside warps of live "
+          f"rows: equal to its plain version and the host oracle (tolerance: "
+          f"exact) {json.dumps(k3_checks)}")
     G_pub = T([p for p, _, _ in items]).to(dev)
     vg = eb.verify_prehashed(G_pub, R, S, K, s_ok)
     vg_plain = eb.verify_prehashed_plain(G_pub, R, S, K, s_ok)
@@ -2039,7 +2107,7 @@ def main() -> int:
     assert bvalid.cpu().tolist() == want_valid, "neg_pubkey_bigtable validity"
     del p_btables
     big_items, big_idx, big_want = mixed_rows(host, keys, pubs, 2048, 64, b"big")
-    bR, bS, bK, b_ok, bidx_t = row_tensors(big_items, big_idx, 64)
+    bR, bS, bK, b_ok, bidx_t = row_tensors(torch, host, big_items, big_idx, 64, dev)
     big_args = (btables, bvalid, bidx_t, bR, bS, bK, b_ok)
     for name, kern, plain in (
         ("verify_prehashed_bigcache", eb.verify_prehashed_bigcache,
@@ -2370,9 +2438,21 @@ def main() -> int:
         })
         print(f"time: {name} kernel {ms:.4f} ms plain {plain_ms:.2f} ms "
               f"bound {b_ms:.5f} ms ({b_by}) | {smi}")
+    k3_ms = {}
+    for b in KERNEL3_BUCKETS:
+        k3_b = (tables, tvalid) + tuple(t[:b] for t in (idx_t, R, S, K, s_ok))
+        k3_ms[b] = time_cuda(torch, lambda: eb.verify_prehashed_table(*k3_b), 20)
+    print(f"kernel3: verify_table_kernel, four lanes a row, median ms of 20 "
+          f"launches at buckets {json.dumps(k3_ms)} (the first b of the 256 "
+          f"mixed rows); critical path {FE_VERIFY_TABLE_PATH} dependent field "
+          f"multiplications a row (one thread a row: {FE_VERIFY_TABLE}); "
+          f"checked at b = {[b for b, _ in KERNEL3_SIZES]}; ptxas: "
+          f"{usages.get('verify_table_kernel', 'not reported')} | {smi}")
     print(f"time: verify_commit {args.validators} validators ms per height "
           f"{[round(x, 3) for x in commit_ms]} (first includes the table "
-          f"build, store rows {rows_store}) | {smi}")
+          f"build, store rows {rows_store}; with the one-thread kernel 3 "
+          f"{COMMIT_MS_ONE_THREAD[0]}-{COMMIT_MS_ONE_THREAD[1]} ms after the "
+          f"first, NVIDIA H100 80GB HBM3, 700 W) | {smi}")
     print(f"time: host hashlib + % L over the window's {n_sigs} rows "
           f"{host_hash_ms:.2f} ms (one CPU thread; tm_challenge at the same "
           f"rows is the challenge_batch line) | {smi}")

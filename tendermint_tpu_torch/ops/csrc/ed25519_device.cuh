@@ -15,9 +15,20 @@
 //
 // Constants d, 2d and sqrt(-1) are not typed in here: the wrappers pass
 // them in as bytes built from the host oracle (crypto/ed25519.py).
+//
+// The header is plain C++ over stdint types, so g++ also builds it: the
+// CPU tests run the four-lane verify (verify_table_x4) through a host
+// harness, tests/ed25519_lanes_host.cpp. Outside nvcc the device
+// qualifiers below become plain inline functions.
 #pragma once
 
 #include <stdint.h>
+
+#ifndef __CUDACC__
+#define __device__ inline
+#define __forceinline__
+#define __noinline__
+#endif
 
 namespace edev {
 
@@ -370,6 +381,142 @@ __device__ __forceinline__ bool ge_decompress(ge& p, const uint8_t* s,
   fe_1(p.Z);
   fe_mul(p.T, x, p.Y);
   return y_ok && (ok_direct || ok_flipped) && !(x_zero && sign == 1);
+}
+
+__device__ __forceinline__ int nibble(const uint8_t* k, int i) {
+  const int b = k[i >> 1];
+  return (i & 1) ? (b >> 4) : (b & 15);
+}
+
+// --- four lanes per signature ------------------------------------------
+//
+// A group of 4 lanes holds one signature, and every lane holds the whole
+// point. Each point operation is two stages of 4 independent field
+// multiplications: lane l computes the l-th product of a stage, then an
+// exchange hands every lane all four, and each lane does the cheap adds
+// itself. A point operation thus costs 2 dependent multiplications
+// instead of 8, and every value is the one-thread function's (ge_dbl,
+// ge_add_cached, ge_to_cached) limb for limb. Each lane picks its operands
+// by lane index before it multiplies, so the 4 lanes run one instruction
+// stream.
+//
+// Ex is the exchange: ex.all(o0, o1, o2, o3, mine) leaves lane j's `mine`
+// in o_j on every lane of the group. On the card it is a width-4 shuffle
+// (Shfl4 in ed25519_kernels.cu); in the host harness, a slot array the 4
+// lanes fill in lock-step.
+
+// h = (a, b, c, d)[lane], by selects rather than a branch
+__device__ __forceinline__ void fe_pick(fe& h, int lane, const fe& a,
+                                        const fe& b, const fe& c,
+                                        const fe& d) {
+#pragma unroll
+  for (int i = 0; i < 5; i++)
+    h.v[i] = lane == 0 ? a.v[i] : lane == 1 ? b.v[i]
+             : lane == 2 ? c.v[i] : d.v[i];
+}
+
+// ge_dbl: lane l squares one of (X, Y, Z, X + Y), then computes one of
+// (X3, Y3, Z3, T3); r may alias p
+template <class Ex>
+__device__ __forceinline__ void ge_dbl_x4(ge& r, const ge& p, int lane,
+                                          Ex& ex) {
+  fe t, a, b, mine, xx, yy, zz, aa, x3, y3, z3, t3;
+  fe_add(t, p.X, p.Y);
+  fe_pick(a, lane, p.X, p.Y, p.Z, t);
+  fe_sq(mine, a);
+  ex.all(xx, yy, zz, aa, mine);
+  fe_add(y3, yy, xx);
+  fe_sub(z3, yy, xx);
+  fe_sub(x3, aa, y3);
+  fe_add(t, zz, zz);
+  fe_sub(t3, t, z3);
+  fe_pick(a, lane, x3, y3, z3, x3);
+  fe_pick(b, lane, t3, z3, t3, y3);
+  fe_mul(mine, a, b);
+  ex.all(r.X, r.Y, r.Z, r.T, mine);
+}
+
+// ge_add_cached with c = the lane's own component of the cached operand
+// (YmX, YpX, T2d, Z2)[lane]: lane l computes one of (a, b, cc, d), then one
+// of (X, Y, Z, T); r may alias p
+template <class Ex>
+__device__ __forceinline__ void ge_add_cached_x4(ge& r, const ge& p,
+                                                 const fe& c, int lane,
+                                                 Ex& ex) {
+  fe t, u, a, b, cc, d, e, f, g, h, mine;
+  fe_sub(t, p.Y, p.X);
+  fe_add(u, p.Y, p.X);
+  fe_pick(a, lane, t, u, p.T, p.Z);
+  fe_mul(mine, a, c);
+  ex.all(a, b, cc, d, mine);
+  fe_sub(e, b, a);
+  fe_sub(f, d, cc);
+  fe_add(g, d, cc);
+  fe_add(h, b, a);
+  fe_pick(t, lane, e, g, f, e);
+  fe_pick(u, lane, f, h, g, h);
+  fe_mul(mine, t, u);
+  ex.all(r.X, r.Y, r.Z, r.T, mine);
+}
+
+// the lane's component of ge_to_cached(p)
+__device__ __forceinline__ void ge_to_cached_lane(fe& c, const ge& p,
+                                                  const consts& k, int lane) {
+  fe ymx, ypx, t2d, z2;
+  fe_sub(ymx, p.Y, p.X);
+  fe_add(ypx, p.Y, p.X);
+  fe_mul(t2d, p.T, k.d2);
+  fe_add(z2, p.Z, p.Z);
+  fe_pick(c, lane, ymx, ypx, t2d, z2);
+}
+
+// The small-tier verify of row i by one lane of its group, with the row
+// gather of the JAX package's _verify_cached_small:
+// encode([s]B + [k](-A)) == R, -A from the key's 16-entry cached window
+// table. A row whose verdict is already decided (idx < 0 or past the
+// store, invalid key, s >= L) returns at once; all 4 lanes share i, so
+// the group exits together. Each lane reads only its quarter of a cached
+// entry. The inversion in ge_compress runs on every lane alike.
+template <class Ex>
+__device__ __forceinline__ bool verify_table_x4(
+    int i, int lane, Ex& ex, const uint8_t* tables, const uint8_t* tvalid,
+    int rows, const int32_t* idx, const uint8_t* r, const uint8_t* s,
+    const uint8_t* k, const uint8_t* s_ok, const uint8_t* base,
+    const uint8_t* kbytes) {
+  const int row = idx[i];
+  if (row < 0 || row >= rows || !tvalid[row] || !s_ok[i]) return false;
+  consts kc;
+  load_consts(kc, kbytes);
+  const uint8_t* tab = tables + (size_t)row * 16 * 128 + lane * 32;
+  const uint8_t* ki = k + (size_t)i * 32;
+  const uint8_t* si = s + (size_t)i * 32;
+  ge acc, sb;
+  fe e;
+  // [k](-A): 64 windows of 4 doublings and a cached add, MSB first
+  ge_identity(acc);
+  for (int w = 63; w >= 0; w--) {
+    ge_dbl_x4(acc, acc, lane, ex);
+    ge_dbl_x4(acc, acc, lane, ex);
+    ge_dbl_x4(acc, acc, lane, ex);
+    ge_dbl_x4(acc, acc, lane, ex);
+    fe_frombytes(e, tab + nibble(ki, w) * 128);
+    ge_add_cached_x4(acc, acc, e, lane, ex);
+  }
+  // [s]B from the 32 x 256 byte-digit table of cached basepoint multiples
+  ge_identity(sb);
+  for (int j = 0; j < 32; j++) {
+    fe_frombytes(e, base + ((size_t)j * 256 + si[j]) * 128 + lane * 32);
+    ge_add_cached_x4(sb, sb, e, lane, ex);
+  }
+  ge q;
+  ge_to_cached_lane(e, acc, kc, lane);
+  ge_add_cached_x4(q, sb, e, lane, ex);
+  uint8_t enc[32];
+  ge_compress(enc, q);
+  const uint8_t* ri = r + (size_t)i * 32;
+  bool eq = true;
+  for (int j = 0; j < 32; j++) eq &= (enc[j] == ri[j]);
+  return eq;
 }
 
 }  // namespace edev

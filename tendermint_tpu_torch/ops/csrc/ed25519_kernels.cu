@@ -22,17 +22,33 @@
 //                              verify_prehashed_bigcache_mxu, whose one-hot
 //                              MXU product is the TPU's way to gather
 //
-// What bounds them on an H100: integer multiplies. A small-tier verify is
-// ~3.1k field multiplications of 25 64x64->128-bit products each and reads
-// ~12 KiB of table bytes, almost all from L2; a big-tier verify ~1.0k
-// multiplications and 8 KiB of gathered table; no kernel is near the memory
-// roofline. Design: one thread per signature (per point for dbl_chain, per
-// key and column for the big table), limbs in registers, no shared memory.
-// The generic kernel's 16-entry cached table (2.5 KiB per thread) lives in
-// local memory. Rows whose verdict is already decided (invalid key,
-// s >= L, padding, idx < 0 or past the store) skip the arithmetic, and no
-// row reads outside its inputs. Faster designs (cooperative rows,
-// shared-memory tables) are later work.
+// What bounds them on an H100: the latency of one long chain of dependent
+// integer multiplies per signature, not throughput and not bytes. A
+// small-tier verify is ~3.1k field multiplications of 25 64x64->128-bit
+// products each and reads ~12 KiB of table bytes, almost all from L2; a
+// big-tier verify ~1.0k multiplications and 8 KiB of gathered table; no
+// kernel is near the memory roofline, and at the main path's batches
+// (tens to hundreds of rows) few of the 132 SMs hold a warp, so nothing
+// hides each multiplication's latency.
+//
+// tm_verify_table runs four lanes per signature (verify_table_x4 in
+// ed25519_device.cuh): each doubling and cached add is split into two
+// stages of 4 independent multiplications, one per lane, joined by a
+// width-4 shuffle of the four results, so a point operation costs 2
+// dependent multiplications instead of 8. Its critical path is 974
+// multiplications (64 x 5 point operations x 2, 32 base adds x 2, and the
+// 270 of the finish, whose inversion every lane runs alike) against 3,092
+// on one thread; the shuffles and the per-lane operand selects come on
+// top. What bounds it now is still that chain's latency. Each lane reads
+// its quarter of a cached entry; the group exits together on a row whose
+// verdict is already decided; lane 0 writes the verdict.
+//
+// The other kernels run one thread per signature (per point for
+// dbl_chain, per key and column for the big table), limbs in registers,
+// no shared memory. The generic kernel's 16-entry cached table (2.5 KiB
+// per thread) lives in local memory. Rows whose verdict is already
+// decided (invalid key, s >= L, padding, idx < 0 or past the store) skip
+// the arithmetic, and no row reads outside its inputs.
 //
 // Plain C interface: no PyTorch headers here, so nvcc builds this file in
 // seconds. Launchers run on the caller's stream, allocate nothing, and
@@ -49,11 +65,6 @@ namespace {
 constexpr int kThreads = 128;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-__device__ __forceinline__ int nibble(const uint8_t* k, int i) {
-  const int b = k[i >> 1];
-  return (i & 1) ? (b >> 4) : (b & 15);
-}
 
 // [s]B from the 32 x 256 byte-digit table of cached basepoint multiples
 __device__ __forceinline__ void scalar_mult_base(ge& acc, const uint8_t* s,
@@ -105,6 +116,28 @@ neg_pubkey_table_kernel(const uint8_t* __restrict__ pub,
   }
 }
 
+// The exchange of the four-lane point operations: a width-4 shuffle under
+// the group's own 4-bit mask. Groups of one warp may leave the row loop at
+// different points and the last warp may be partial, so a full-warp mask
+// would name threads that never arrive.
+struct Shfl4 {
+  unsigned mask;
+  __device__ __forceinline__ void all(fe& o0, fe& o1, fe& o2, fe& o3,
+                                      const fe& mine) const {
+#pragma unroll
+    for (int j = 0; j < 5; j++) {
+      const unsigned long long v = mine.v[j];
+      o0.v[j] = __shfl_sync(mask, v, 0, 4);
+      o1.v[j] = __shfl_sync(mask, v, 1, 4);
+      o2.v[j] = __shfl_sync(mask, v, 2, 4);
+      o3.v[j] = __shfl_sync(mask, v, 3, 4);
+    }
+  }
+};
+
+// 4 * b threads: thread t is lane t % 4 of row t / 4. kThreads is a
+// multiple of 32, so the 4 lanes of a row sit in one warp at threadIdx.x
+// & 28; threads past 4 * b leave before any shuffle, as whole groups.
 __global__ void __launch_bounds__(kThreads)
 verify_table_kernel(const uint8_t* __restrict__ tables,
                     const uint8_t* __restrict__ tvalid, int rows,
@@ -116,31 +149,13 @@ verify_table_kernel(const uint8_t* __restrict__ tables,
                     const uint8_t* __restrict__ base,
                     const uint8_t* __restrict__ kbytes,
                     uint8_t* __restrict__ out, int b) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  const int row = idx[i];
-  if (row < 0 || row >= rows || !tvalid[row] || !s_ok[i]) {
-    out[i] = 0;
-    return;
-  }
-  consts kc;
-  load_consts(kc, kbytes);
-  const uint8_t* tab = tables + (size_t)row * 16 * 128;
-  const uint8_t* ki = k + (size_t)i * 32;
-  ge acc;
-  ge_cached e;
-  ge_identity(acc);
-  for (int w = 63; w >= 0; w--) {
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_cached_frombytes(e, tab + nibble(ki, w) * 128);
-    ge_add_cached(acc, acc, e);
-  }
-  ge sb;
-  scalar_mult_base(sb, s + (size_t)i * 32, base);
-  out[i] = finish(sb, acc, r + (size_t)i * 32, kc) ? 1 : 0;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 4 * b) return;
+  const int i = t >> 2, lane = t & 3;
+  Shfl4 ex{0xFu << (threadIdx.x & 28)};
+  const bool ok = verify_table_x4(i, lane, ex, tables, tvalid, rows, idx, r,
+                                  s, k, s_ok, base, kbytes);
+  if (lane == 0) out[i] = ok ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -309,7 +324,7 @@ int tm_verify_table(const void* tables, const void* tvalid, int rows,
                     const void* k, const void* s_ok, const void* base,
                     const void* kbytes, void* out, int b, void* stream) {
   if (b > 0)
-    verify_table_kernel<<<blocks_for(b), kThreads, 0,
+    verify_table_kernel<<<blocks_for(4 * b), kThreads, 0,
                           (cudaStream_t)stream>>>(
         (const uint8_t*)tables, (const uint8_t*)tvalid, rows,
         (const int32_t*)idx, (const uint8_t*)r, (const uint8_t*)s,
