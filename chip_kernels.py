@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""The four-lane ed25519 kernels alone on one NVIDIA GPU, each against its
+plain PyTorch version and against the same kernel of another tree of this
+repository: kernel 3 (``tm_verify_table``, the small-tier verify),
+kernel 6 (``tm_verify_bigcache``, the big-tier verify) and kernel 5
+(``tm_neg_pubkey_bigtable``, the big-tier table build).
+
+    python3 chip_kernels.py [--kernel 3 5 6] [--parent DIR] [--seed N]
+
+Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` with ``nvcc``
+into a plain shared library (no PyTorch headers) under
+``tendermint_tpu_torch/_kbuild/``, with ``-Xptxas -v`` for each kernel's
+registers, stack and spills (the whole report beside the library, as
+``chip_kernels_<tree>.ptxas.txt``); with ``--parent``, the same file of the tree
+at DIR too (e.g. the parent commit unpacked with ``git archive``), all
+nvcc runs started together. Then, for each kernel asked for (all three by
+default), every build is held against the plain version on the card and
+the host oracle, and timed (median of 20 launches between CUDA events) in
+turns parent, this tree, this tree, parent, so that both are measured on
+one card in one call:
+
+- kernel 3 at b = 1, 23, 150 and 256 rows (valid rows, wrong messages,
+  flipped signature bits, s >= L, invalid keys, ``idx = -1`` and ``idx``
+  past the store inside warps of live rows; 256 = the commit path's 150
+  live rows padded to its bucket), timed at the buckets 8, 32, 128, 256;
+- kernel 6 on a store of 256 big tables at b = 1, 23 and 2,048 rows of the
+  same kinds, and at 16,384 rows: the first 9,600 tiled from the 2,048
+  (a blocksync window's live rows), the rest padding; timed at 2,048 (one
+  mesh shard of the window) and 16,384 (the window's bucket);
+- kernel 5 on 16 and 256 keys (valid, small order, non-canonical, no
+  square root), its tables byte for byte against the plain version and
+  its validity against the host oracle; timed at both sizes.
+
+With ``--parent``, a child process per turn (``--turn-tree ROOT``)
+imports that tree's package, builds its kernels and times its main
+paths on the card as ``chip_smoke.py`` does: with kernel 3,
+``ValidatorSet.verify_commit`` of 8 commits of a seeded 150-validator
+set; with kernel 5 or 6, the 64-commit x 150-validator blocksync window
+with host-hashed challenges through a started ``VerifyScheduler``, 3
+times (the first builds the big tables), its verdicts and bitmap checked.
+Prints a ``kernelN:`` line per kernel and build, a ``commit:`` and a
+``blocksync:`` line per tree, every number again as one JSON object on a
+line of its own, the ``nvidia-smi`` name and power limit, and last the
+``{"ok": true, ...}`` object. Exits non-zero without CUDA or on any
+disagreement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "ed25519_kernels.cu")
+REPS = 20  # launches per median, as chip_smoke.py times its kernels
+COMMIT_HEIGHTS = 8  # commits a tree verifies in each commit turn
+WINDOW_REPS = 3  # blocksync windows a tree verifies in each turn
+N_VALS = 150
+# kernel 6: (rows, padding rows) checked, and the sizes timed
+K6_SIZES = ((1, 0), (23, 2), (2048, 64))
+K6_LIVE, K6_BUCKET = 9600, 16384  # the blocksync window's rows and bucket
+# kernel 5: keys checked and timed
+K5_SIZES = (16, 256)
+KERNEL_NAMES = {3: "verify_table_kernel", 5: "neg_pubkey_bigtable_kernel",
+                6: "verify_bigcache_kernel"}
+
+
+def chip_smoke():
+    """This tree's chip_smoke.py as a module (its helpers import the
+    package lazily, from whichever tree is first on sys.path)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def start_build(torch_build, src: str, tag: str):
+    """(nvcc -shared process, nvcc -cubin -Xptxas -v process, .so path)."""
+    out_dir = torch_build.BUILD_DIR
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, f"chip_kernels_{tag}.so")
+    flags = [torch_build._nvcc(), torch_build.ARCH, "-std=c++17", "-O3"]
+    shared = subprocess.Popen(
+        flags + ["-shared", "-Xcompiler", "-fPIC", "-o", so, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    cubin = subprocess.Popen(
+        flags + ["-cubin", "-Xptxas", "-v", "-o",
+                 os.path.join(out_dir, f"chip_kernels_{tag}.cubin"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    return shared, cubin, so
+
+
+class Build:
+    """One tree's ed25519_kernels.cu, loaded: the launchers of kernels 3,
+    6 and 5 on torch tensors, and each kernel's ptxas line."""
+
+    def __init__(self, shared, cubin, so: str, ptxas_usage):
+        outs = [proc.communicate()[0] for proc in (shared, cubin)]
+        for proc, out in zip((shared, cubin), outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{out}")
+        with open(so.replace(".so", ".ptxas.txt"), "w") as f:
+            f.write(outs[1])
+        usage = ptxas_usage(outs[1])
+        self.ptxas = {n: usage.get(k, "not reported") for n, k in KERNEL_NAMES.items()}
+        lib = ctypes.CDLL(so)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        for name in ("tm_verify_table", "tm_verify_bigcache"):
+            getattr(lib, name).argtypes = [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp]
+            getattr(lib, name).restype = i
+        lib.tm_neg_pubkey_bigtable.argtypes = [vp, vp, vp, vp, i, vp]
+        lib.tm_neg_pubkey_bigtable.restype = i
+        lib.tm_error_string.argtypes = [i]
+        lib.tm_error_string.restype = ctypes.c_char_p
+        self.lib = lib
+
+    def _check(self, err: int) -> None:
+        if err:
+            raise RuntimeError(f"launch failed: {self.lib.tm_error_string(err).decode()}")
+
+    def verify(self, name: str, torch, tables, tvalid, idx, r, s, k, s_ok, base, kc):
+        """tm_verify_table or tm_verify_bigcache -> [b] bool."""
+        out = torch.empty(idx.shape[0], dtype=torch.bool, device=idx.device)
+        self._check(getattr(self.lib, name)(
+            tables.data_ptr(), tvalid.data_ptr(), tables.shape[0],
+            idx.data_ptr(), r.data_ptr(), s.data_ptr(), k.data_ptr(),
+            s_ok.data_ptr(), base.data_ptr(), kc.data_ptr(), out.data_ptr(),
+            idx.shape[0], torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
+    def bigtable(self, torch, pub, kc):
+        """tm_neg_pubkey_bigtable -> (tables [n, 64, 16, 4, 32], valid [n])."""
+        n = pub.shape[0]
+        tables = torch.empty((n, 64, 16, 4, 32), dtype=torch.uint8, device=pub.device)
+        valid = torch.empty(n, dtype=torch.bool, device=pub.device)
+        self._check(self.lib.tm_neg_pubkey_bigtable(
+            pub.data_ptr(), tables.data_ptr(), valid.data_ptr(), kc.data_ptr(), n,
+            torch.cuda.current_stream().cuda_stream,
+        ))
+        return tables, valid
+
+
+def _validator_set(tree: str, seed: int):
+    """(types, host, vset, by_addr, rng) of the seeded 150-validator set,
+    by the package of the tree at `tree`."""
+    sys.path.insert(0, tree)
+    import numpy as np
+
+    from tendermint_tpu_torch import types
+    from tendermint_tpu_torch.crypto import ed25519 as host
+
+    assert types.__file__.startswith(tree), types.__file__
+    rng = np.random.default_rng(seed)
+    keys = [host.PrivKey(rng.bytes(32)) for _ in range(N_VALS)]
+    vset = types.ValidatorSet([
+        types.Validator(k.public_key(), int(p))
+        for k, p in zip(keys, rng.integers(1, 100, N_VALS).tolist())
+    ])
+    by_addr = {k.public_key().address(): k for k in keys}
+    return types, host, vset, by_addr, rng
+
+
+def commit_ms(types, vset, by_addr, rng, chain_id: str) -> list[float]:
+    """ms of each ValidatorSet.verify_commit of COMMIT_HEIGHTS commits."""
+    from tendermint_tpu_torch.crypto import batch_verifier as bv
+
+    assert bv.default_verifier().device.type == "cuda"
+    out = []
+    for h in range(1, COMMIT_HEIGHTS + 1):
+        bid = types.BlockID(
+            hash=rng.bytes(32),
+            part_set_header=types.PartSetHeader(total=1, hash=rng.bytes(32)),
+        )
+        sigs = [types.CommitSig(types.BlockIDFlag.COMMIT, v.address,
+                                1_700_000_000_000_000_000 + h * 10**9 + i)
+                for i, v in enumerate(vset.validators)]
+        commit = types.Commit(h, 0, bid, sigs)
+        for i, v in enumerate(vset.validators):
+            sigs[i].signature = by_addr[v.address].sign(commit.vote_sign_bytes(chain_id, i))
+        t0 = time.perf_counter()
+        vset.verify_commit(chain_id, bid, h, commit)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def blocksync_ms(types, host, vset, by_addr, rng, chain_id: str) -> dict:
+    """The 64-commit window through a started VerifyScheduler, host-hashed,
+    WINDOW_REPS times on a fresh BatchVerifier, checked as chip_smoke.py
+    checks it: wall ms and device-round ms per window."""
+    from tendermint_tpu_torch.crypto import batch_verifier as bv
+    from tendermint_tpu_torch.crypto.shape_registry import ShapeRegistry
+
+    cs = chip_smoke()
+    bad = 40
+    entries, tampered = cs.signed_window(host, types, vset, by_addr, chain_id,
+                                         cs.WINDOW, bad, rng)
+    os.environ.pop("TM_TPU_MXU_GATHER", None)
+    verifier = bv.BatchVerifier(shape_registry=ShapeRegistry())
+    assert verifier.device.type == "cuda"
+    verdicts, walls, _, bitmap, items, ledger = cs.run_window(
+        verifier, vset, chain_id, entries, WINDOW_REPS, "blocksync")
+    cs.check_window(host, verdicts, bitmap, items, ledger, cs.WINDOW, bad,
+                    tampered, N_VALS, rng, "blocksync")
+    return {"wall_ms": [w * 1e3 for w in walls],
+            "device_ms": [e["device_s"] * 1e3 for e in ledger[:WINDOW_REPS]]}
+
+
+def turn(tree: str, seed: int, what: list[str]) -> dict:
+    """One child's turn: the main paths of the tree at `tree`."""
+    types, host, vset, by_addr, rng = _validator_set(tree, seed)
+    out = {}
+    if "commit" in what:
+        out["commit"] = commit_ms(types, vset, by_addr, rng, "chip-kernels")
+    if "blocksync" in what:
+        out["blocksync"] = blocksync_ms(types, host, vset, by_addr, rng, "chip-kernels")
+    return out
+
+
+def tile_rows(torch, ops, want, live: int, total: int):
+    """ops (tables, tvalid, idx, R, S, K, s_ok) of b rows tiled to `live`
+    rows, then padding (idx -1, s_ok False) to `total`."""
+    tables, tvalid, *rows = ops
+    reps = -(-live // rows[0].shape[0])
+    pad = total - live
+    out = []
+    for t in rows:
+        body = t.repeat((reps,) + (1,) * (t.dim() - 1))[:live]
+        tail = torch.zeros((pad,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+        out.append(torch.cat([body, tail]))
+    out[0][live:] = -1
+    return (tables, tvalid, *out), (want * reps)[:live] + [False] * pad
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", type=int, nargs="+", choices=(3, 5, 6),
+                    default=[3, 5, 6], help="kernels to check and time")
+    ap.add_argument("--parent", default=None,
+                    help="root of another tree whose kernels are timed beside this one's")
+    ap.add_argument("--seed", type=int, default=20261017)
+    ap.add_argument("--turn-tree", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--turn", default="", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.turn_tree:
+        print(json.dumps(turn(args.turn_tree, args.seed, args.turn.split(","))))
+        return 0
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_kernels: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    cs = chip_smoke()
+    from tendermint_tpu_torch.crypto import ed25519 as host
+    from tendermint_tpu_torch.ops import _build, curve25519 as curve
+    from tendermint_tpu_torch.ops import ed25519_batch as eb
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+    smi = cs.nvidia_smi_line()
+
+    trees = {"this": ROOT}
+    if args.parent:
+        trees["parent"] = os.path.abspath(args.parent)
+    t0 = time.perf_counter()
+    procs = {tag: start_build(_build, os.path.join(root, KERNEL), tag)
+             for tag, root in trees.items()}
+    built = {tag: Build(*p, cs.ptxas_usage) for tag, p in procs.items()}
+    print(f"build: {len(built)} nvcc builds of {KERNEL} in parallel, "
+          f"{time.perf_counter() - t0:.1f} s | {smi}")
+    order = ["parent", "this", "this", "parent"] if "parent" in built else ["this"]
+
+    keys = [host.PrivKey(rng.bytes(32)) for _ in range(200)]
+    adversarial = [
+        (1).to_bytes(32, "little"),  # identity (small order)
+        bytes(32),  # y = 0: order-4 point
+        ((1 << 255) | 1).to_bytes(32, "little"),  # y = 1, x = 0, sign set
+        host.P.to_bytes(32, "little"),  # y = p, non-canonical
+        (host.P + 1).to_bytes(32, "little"),  # y = p + 1, non-canonical
+        (2**255 - 1).to_bytes(32, "little"),  # y = 2^255 - 1
+        (host.P - 1).to_bytes(32, "little"),  # y = -1: order-2 point
+    ]
+    pubs = [k.public_key().data for k in keys] + adversarial
+    while len(pubs) < 256:
+        pubs.append(rng.bytes(32))  # about half have no square root
+    pub_d = torch.tensor([list(p) for p in pubs], dtype=torch.uint8, device=dev)
+    base = curve.base_table(dev)
+    kc = eb.kernel_consts(dev)
+    result = {"device": torch.cuda.get_device_name(0), "smi": smi,
+              "ptxas": {tag: b.ptxas for tag, b in built.items()}}
+
+    def timed_turns(sizes, call):
+        """{tag: {size: [ms per turn]}}: call(build, size) timed in turns."""
+        times = {t: {n: [] for n in sizes} for t in built}
+        for tag in order:
+            for n in sizes:
+                times[tag][n].append(cs.time_cuda(torch, lambda: call(built[tag], n), REPS))
+        return times
+
+    def report(kernel: int, what: str, times, extra: str) -> None:
+        for tag in built:
+            print(f"kernel{kernel}: {tag} tree, median ms of {REPS} launches at "
+                  f"{what} {json.dumps(times[tag])} (one list entry per turn); "
+                  f"{extra}; ptxas: {built[tag].ptxas[kernel]} | {smi}")
+
+    if 3 in args.kernel:
+        tables, tvalid = eb.neg_pubkey_table_plain(pub_d)
+        tables = tables.contiguous()
+        checks = []
+        for b, n_pad in cs.KERNEL3_SIZES:
+            ops_b, want = cs.kernel3_rows(torch, host, keys, pubs, tables, tvalid,
+                                          b, n_pad, b"k3-%d" % b)
+            plain = eb.verify_prehashed_table_plain(*ops_b)
+            for tag, bld in built.items():
+                got = bld.verify("tm_verify_table", torch, *ops_b, base, kc)
+                torch.cuda.synchronize()
+                assert cs.max_abs_err(got, plain) == 0, f"{tag}: kernel 3 != plain at b={b}"
+                assert got.cpu().tolist() == want, f"{tag}: kernel 3 != host oracle at b={b}"
+            checks.append({"b": b, "padding": n_pad, "accepted": sum(want)})
+        print(f"kernel-vs-plain: kernel 3 of {sorted(built)} equal to the plain "
+              f"version and the host oracle at b = {[b for b, _ in cs.KERNEL3_SIZES]} "
+              f"(tolerance: exact) {json.dumps(checks)}")
+        ops256, _ = cs.kernel3_rows(torch, host, keys, pubs, tables, tvalid, 256, 8,
+                                    b"k3-time")
+        plain_ms = cs.time_cuda(torch, lambda: eb.verify_prehashed_table_plain(*ops256), 3)
+        times = timed_turns(cs.KERNEL3_BUCKETS, lambda bld, b: bld.verify(
+            "tm_verify_table", torch, tables, tvalid, *(t[:b] for t in ops256[2:]),
+            base, kc))
+        report(3, "buckets", times,
+               f"critical path {cs.FE_VERIFY_TABLE_PATH} (one thread: {cs.FE_VERIFY_TABLE})")
+        print(f"time: verify_prehashed_table_plain at 256 rows {plain_ms:.2f} ms | {smi}")
+        result["kernel3"] = {"checks": checks, "plain_ms_256": plain_ms, "ms": times}
+
+    if 6 in args.kernel:
+        bt, bv = eb.neg_pubkey_bigtable_plain(pub_d)
+        bt = bt.contiguous()
+        checks, ops = [], {}
+        for b, n_pad in K6_SIZES:
+            ops[b] = cs.kernel3_rows(torch, host, keys, pubs, bt, bv, b, n_pad, b"k6-%d" % b)
+        ops[K6_BUCKET] = tile_rows(torch, *ops[2048], K6_LIVE, K6_BUCKET)
+        for b, (ops_b, want) in ops.items():
+            plain = eb.verify_prehashed_bigcache_plain(*ops_b)
+            for tag, bld in built.items():
+                got = bld.verify("tm_verify_bigcache", torch, *ops_b, base, kc)
+                torch.cuda.synchronize()
+                assert cs.max_abs_err(got, plain) == 0, f"{tag}: kernel 6 != plain at b={b}"
+                assert got.cpu().tolist() == want, f"{tag}: kernel 6 != host oracle at b={b}"
+            checks.append({"b": b, "accepted": sum(want)})
+        print(f"kernel-vs-plain: kernel 6 of {sorted(built)} equal to the plain "
+              f"version and the host oracle at b = {list(ops)} (tolerance: exact) "
+              f"{json.dumps(checks)}")
+        plain_ms = cs.time_cuda(
+            torch, lambda: eb.verify_prehashed_bigcache_plain(*ops[K6_BUCKET][0]), 3)
+        times = timed_turns((2048, K6_BUCKET), lambda bld, b: bld.verify(
+            "tm_verify_bigcache", torch, *ops[b][0], base, kc))
+        report(6, "rows", times,
+               f"{K6_LIVE} rows of {K6_BUCKET} tiled from 2048 mixed rows; critical "
+               f"path {cs.FE_VERIFY_BIG_PATH} (one thread: {cs.FE_VERIFY_BIG})")
+        print(f"time: verify_prehashed_bigcache_plain at {K6_BUCKET} rows "
+              f"{plain_ms:.2f} ms | {smi}")
+        result["kernel6"] = {"checks": checks, f"plain_ms_{K6_BUCKET}": plain_ms,
+                             "ms": times}
+        del bt, ops
+
+    if 5 in args.kernel:
+        key_sets = {16: pub_d[torch.tensor(list(range(9)) + list(range(200, 207)), device=dev)],
+                    256: pub_d}
+        want_valid = [host.point_decompress(p) is not None for p in pubs]
+        want = {16: want_valid[:9] + want_valid[200:207], 256: want_valid}
+        for n, pk in key_sets.items():
+            plain_t, plain_v = eb.neg_pubkey_bigtable_plain(pk)
+            for tag, bld in built.items():
+                got_t, got_v = bld.bigtable(torch, pk, kc)
+                torch.cuda.synchronize()
+                assert torch.equal(got_t, plain_t), f"{tag}: kernel 5 != plain at {n} keys"
+                assert torch.equal(got_v, plain_v), f"{tag}: kernel 5 validity at {n} keys"
+                assert got_v.cpu().tolist() == want[n], f"{tag}: kernel 5 != host oracle"
+            del plain_t, got_t
+        print(f"kernel-vs-plain: kernel 5 of {sorted(built)} equal to the plain "
+              f"version byte for byte and its validity to the host oracle at "
+              f"{list(key_sets)} keys (tolerance: exact)")
+        plain_ms = cs.time_cuda(torch, lambda: eb.neg_pubkey_bigtable_plain(pub_d), 3)
+        times = timed_turns(K5_SIZES, lambda bld, n: bld.bigtable(torch, key_sets[n], kc))
+        report(5, "keys", times,
+               f"critical path {cs.FE_BIGTABLE_PATH} a thread (one thread a key "
+               f"and column: {cs.FE_BIGTABLE_THREAD})")
+        print(f"time: neg_pubkey_bigtable_plain at 256 keys {plain_ms:.2f} ms | {smi}")
+        result["kernel5"] = {"plain_ms_256": plain_ms, "ms": times}
+
+    if "parent" in trees:
+        what = (["commit"] if 3 in args.kernel else []) + (
+            ["blocksync"] if {5, 6} & set(args.kernel) else [])
+        turns: dict[str, list[dict]] = {t: [] for t in trees}
+        for tag in order:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--turn-tree",
+                 trees[tag], "--turn", ",".join(what), "--seed", str(args.seed)],
+                capture_output=True, text=True, timeout=900,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"turn of {tag} failed:\n{proc.stderr[-4000:]}")
+            turns[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        result["turns"] = turns
+        for tag, ts in turns.items():
+            if "commit" in what:
+                print(f"commit: {tag} tree, verify_commit at {N_VALS} validators ms a "
+                      f"height per turn {json.dumps([[round(x, 3) for x in t['commit']] for t in ts])} "
+                      f"(the first of a turn builds the key tables) | {smi}")
+            if "blocksync" in what:
+                print(f"blocksync: {tag} tree, the 64 x {N_VALS} window host-hashed, "
+                      f"wall ms per window per turn "
+                      f"{json.dumps([[round(x, 2) for x in t['blocksync']['wall_ms']] for t in ts])}, "
+                      f"device round ms "
+                      f"{json.dumps([[round(x, 2) for x in t['blocksync']['device_ms']] for t in ts])} "
+                      f"(the first of a turn builds the big tables) | {smi}")
+    print(json.dumps({"chip_kernels": result}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

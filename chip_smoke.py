@@ -17,7 +17,9 @@ Phases (any failure raises and the exit code is non-zero):
    x = 0 with the sign bit), ``verify_prehashed_table`` and
    ``verify_prehashed`` on 256 mixed valid/invalid rows,
    ``verify_prehashed_bigcache`` and ``_mxu`` on 2048 such rows (each also
-   held against the host oracle), ``challenge_batch`` on 2048 ragged rows
+   held against the host oracle; in phase 4 also at the bulk window's
+   16,384 rows, the tampered commit included, against the plain versions
+   and the window's bitmap), ``challenge_batch`` on 2048 ragged rows
    (and against hashlib + % L), the reduction kernel alone on adversarial
    digests, ``dbl_chain`` on 8192 points x 256 doublings (bytes and affine
    coordinates, row 0 against 256 host ``point_double``). The four-lane
@@ -52,7 +54,10 @@ Phases (any failure raises and the exit code is non-zero):
    height (beside its figure with the one-thread kernel 3), and the bulk
    window's wall time with its host and device shares; work out each
    kernel's bound. Kernel 3 also at the buckets 8, 32, 128 and 256 (the
-   ``kernel3:`` line, with its critical path and ``ptxas`` usage).
+   ``kernel3:`` line), kernel 6 at 2,048 rows and the window's 16,384
+   (``kernel6:``) and kernel 5 at 256 adversarial keys and the window's
+   build (``kernel5:``), each line with the four-lane critical path and
+   ``ptxas`` usage.
 5. The quorum-certificate path (``qc_phase``): ``g1_aggregate`` and
    ``g2_aggregate`` on 256 points with duplicates, opposites and the
    identity and at the device route's shapes (150 signatures; 150 keys),
@@ -207,6 +212,15 @@ FE_DBL = 8
 # repeat row 0's adds up to their column)
 FE_BIGTABLE = FE_DECOMPRESS + 1 + 14 * 8 + 63 * 4 * 16 * FE_DBL + 64 * 16
 FE_VERIFY_BIG = 64 * 8 + FE_BASE_MULT + FE_FINISH  # 64 cached adds, [s]B
+# the dependent multiplications of one row of the four-lane kernel 6: the
+# 32 base adds ride in one pass with the first 32 window adds, so 64 point
+# operations of 2, then the finish (to_cached, one add, inversion, two)
+FE_VERIFY_BIG_PATH = 2 * 64 + 1 + 2 + FE_INVERT + 2
+# the chain of one (key, column) of the big table: on one thread,
+# decompress, to_cached(-A), 14 cached adds (column 15), 64 to_cached and
+# 63 x 4 doublings; with four lanes, 2 a point operation and 1 a to_cached
+FE_BIGTABLE_THREAD = FE_DECOMPRESS + 1 + 14 * 8 + 64 + 63 * 4 * FE_DBL
+FE_BIGTABLE_PATH = FE_DECOMPRESS + 14 * 2 + 64 + 63 * 4 * 2
 # SHA-512, per 128-byte block, from ops/csrc/sha512_kernels.cu: 80 rounds
 # of ~25 64-bit operations and 64 schedule steps of ~13, each 64-bit
 # operation two 32-bit instructions
@@ -252,16 +266,19 @@ def nvidia_smi_line() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """The `*_kernel` identifier inside a mangled name: the one whose
-    length prefix reads exactly its characters (an anonymous namespace
-    puts the file's name before it)."""
+    """The `*_kernel` identifier inside a mangled name: the shortest one
+    whose length prefix reads exactly its characters (an anonymous
+    namespace puts the file's name and a hash before it, and a run of the
+    hash's digits can read as the length of a longer span that also ends
+    in `_kernel`)."""
+    names = []
     for m in re.finditer(r"\d+", mangled):
         for k in range(len(m.group())):
             n = int(m.group()[k:])
             name = mangled[m.end() : m.end() + n]
             if len(name) == n and re.fullmatch(r"[a-z]\w*_kernel", name):
-                return name
-    return mangled
+                names.append(name)
+    return min(names, key=len) if names else mangled
 
 
 def ptxas_usage(report: str) -> dict[str, str]:
@@ -2354,6 +2371,26 @@ def main() -> int:
               D(w_k), D(w_ok))
     w_buf_d, w_cnt_d = D(w_buf), D(w_cnt)
     live_big = int((w_ok & (w_idx >= 0)).sum())  # every window key is valid
+    # kernel 6 (four lanes a row) at the window's shape too, the tampered
+    # commit's rows included: equal to its plain version and the bitmap
+    for name, kern, plain in (
+        ("verify_prehashed_bigcache", eb.verify_prehashed_bigcache,
+         eb.verify_prehashed_bigcache_plain),
+        ("verify_prehashed_bigcache_mxu", eb.verify_prehashed_bigcache_mxu,
+         eb.verify_prehashed_bigcache_mxu_plain),
+    ):
+        got = kern(*w_args)
+        got_plain = plain(*w_args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, got_plain)
+        errs[name] = max(errs[name], err)
+        assert err == 0, f"{name}: kernel != plain at the window's {b_win} rows"
+        got = got.cpu().tolist()
+        assert got[:n_sigs] == bulk["host_hash"]["bitmap"] and not any(got[n_sigs:]), name
+    print(f"kernel-vs-plain: verify_prehashed_bigcache and _mxu (four lanes a "
+          f"row) at the window's {b_win} rows ({n_sigs} live, commit "
+          f"{bad_height} tampered): equal to the plain versions and the "
+          f"window's bitmap (tolerance: exact)")
     used_keys = len(big_store._idx)
     # the table build at the path's shape: 150 keys padded to the bucket
     n_build = v_host._registry.bucket_for(len(vset.validators))
@@ -2448,6 +2485,24 @@ def main() -> int:
           f"multiplications a row (one thread a row: {FE_VERIFY_TABLE}); "
           f"checked at b = {[b for b, _ in KERNEL3_SIZES]}; ptxas: "
           f"{usages.get('verify_table_kernel', 'not reported')} | {smi}")
+    k6_2048 = time_cuda(torch, lambda: eb.verify_prehashed_bigcache(*big_args), 20)
+    k6_win = next(r["ms"] for r in rows if r["name"] == "verify_prehashed_bigcache")
+    print(f"kernel6: verify_bigcache_kernel, four lanes a row, median ms of 20 "
+          f"launches at {len(big_idx)} mixed rows {k6_2048:.4f} and the window's "
+          f"{b_win} rows ({live_big} live) {k6_win:.4f}; critical path "
+          f"{FE_VERIFY_BIG_PATH} dependent field multiplications a row (one "
+          f"thread a row: {FE_VERIFY_BIG}); checked at {len(big_idx)} and "
+          f"{b_win} rows; ptxas: "
+          f"{usages.get('verify_bigcache_kernel', 'not reported')} | {smi}")
+    k5_256 = time_cuda(torch, lambda: eb.neg_pubkey_bigtable(pub_d), 20)
+    k5_win = next(r["ms"] for r in rows if r["name"] == "neg_pubkey_bigtable")
+    print(f"kernel5: neg_pubkey_bigtable_kernel, four lanes a key and column, "
+          f"median ms of 20 launches at {n_keys} keys (adversarial included) "
+          f"{k5_256:.4f} and the window's build ({len(vset.validators)} keys in "
+          f"the {n_build} bucket) {k5_win:.4f}; critical path {FE_BIGTABLE_PATH} "
+          f"dependent field multiplications a thread (one thread a key and "
+          f"column: {FE_BIGTABLE_THREAD}); checked at {n_keys} keys; ptxas: "
+          f"{usages.get('neg_pubkey_bigtable_kernel', 'not reported')} | {smi}")
     print(f"time: verify_commit {args.validators} validators ms per height "
           f"{[round(x, 3) for x in commit_ms]} (first includes the table "
           f"build, store rows {rows_store}; with the one-thread kernel 3 "

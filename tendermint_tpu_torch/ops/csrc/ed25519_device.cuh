@@ -17,9 +17,10 @@
 // them in as bytes built from the host oracle (crypto/ed25519.py).
 //
 // The header is plain C++ over stdint types, so g++ also builds it: the
-// CPU tests run the four-lane verify (verify_table_x4) through a host
-// harness, tests/ed25519_lanes_host.cpp. Outside nvcc the device
-// qualifiers below become plain inline functions.
+// CPU tests run the four-lane row code (verify_table_x4,
+// verify_bigcache_x4, neg_pubkey_bigtable_x4) through a host harness,
+// tests/ed25519_lanes_host.cpp. Outside nvcc the device qualifiers below
+// become plain inline functions.
 #pragma once
 
 #include <stdint.h>
@@ -517,6 +518,142 @@ __device__ __forceinline__ bool verify_table_x4(
   bool eq = true;
   for (int j = 0; j < 32; j++) eq &= (enc[j] == ri[j]);
   return eq;
+}
+
+// Two independent ge_add_cached_x4 in one pass: p += c and q += d, each
+// stage's two multiplications issued together before its exchanges, so a
+// lane holds two independent products in flight. Each result is the
+// one-thread ge_add_cached's limb for limb.
+template <class Ex>
+__device__ __forceinline__ void ge_add_cached_x4_2(ge& p, const fe& c, ge& q,
+                                                   const fe& d, int lane,
+                                                   Ex& ex) {
+  fe t, u, a1, a2, m1, m2, a, b, cc, dd, e1, f1, g1, h1, e2, f2, g2, h2;
+  fe_sub(t, p.Y, p.X);
+  fe_add(u, p.Y, p.X);
+  fe_pick(a1, lane, t, u, p.T, p.Z);
+  fe_sub(t, q.Y, q.X);
+  fe_add(u, q.Y, q.X);
+  fe_pick(a2, lane, t, u, q.T, q.Z);
+  fe_mul(m1, a1, c);
+  fe_mul(m2, a2, d);
+  ex.all(a, b, cc, dd, m1);
+  fe_sub(e1, b, a);
+  fe_sub(f1, dd, cc);
+  fe_add(g1, dd, cc);
+  fe_add(h1, b, a);
+  ex.all(a, b, cc, dd, m2);
+  fe_sub(e2, b, a);
+  fe_sub(f2, dd, cc);
+  fe_add(g2, dd, cc);
+  fe_add(h2, b, a);
+  fe_pick(t, lane, e1, g1, f1, e1);
+  fe_pick(u, lane, f1, h1, g1, h1);
+  fe_mul(m1, t, u);
+  fe_pick(t, lane, e2, g2, f2, e2);
+  fe_pick(u, lane, f2, h2, g2, h2);
+  fe_mul(m2, t, u);
+  ex.all(p.X, p.Y, p.Z, p.T, m1);
+  ex.all(q.X, q.Y, q.Z, q.T, m2);
+}
+
+// The points of one big-tier row by one lane of its group:
+// acc = sum_w T[row, w, k_w] (64 cached adds, window w = nibble w of k,
+// LSB first, no doublings), sb = [s]B (32 cached adds over the byte-digit
+// base table), and q = sb + acc. tab is the row's table plus lane * 32, so
+// a lane reads its quarter of each 128-byte entry and a group one whole
+// entry. The two sums are independent chains: the first 32 windows of acc
+// go in one pass with the 32 adds of sb (ge_add_cached_x4_2), the last 32
+// alone, so the path is 64 adds of acc, not 96. Each sum takes the same
+// adds in the same order as the one-thread kernel, so acc, sb and q are
+// its values limb for limb.
+template <class Ex>
+__device__ __forceinline__ void bigcache_points_x4(
+    ge& acc, ge& sb, ge& q, const uint8_t* tab, const uint8_t* ki,
+    const uint8_t* si, const uint8_t* base, const consts& kc, int lane,
+    Ex& ex) {
+  fe e, eb;
+  ge_identity(acc);
+  ge_identity(sb);
+  for (int w = 0; w < 32; w++) {
+    fe_frombytes(e, tab + ((size_t)w * 16 + nibble(ki, w)) * 128);
+    fe_frombytes(eb, base + ((size_t)w * 256 + si[w]) * 128 + lane * 32);
+    ge_add_cached_x4_2(acc, e, sb, eb, lane, ex);
+  }
+  for (int w = 32; w < 64; w++) {
+    fe_frombytes(e, tab + ((size_t)w * 16 + nibble(ki, w)) * 128);
+    ge_add_cached_x4(acc, acc, e, lane, ex);
+  }
+  ge_to_cached_lane(e, acc, kc, lane);
+  ge_add_cached_x4(q, sb, e, lane, ex);
+}
+
+// The big-tier verify of row i by one lane of its group, with the masking
+// of the JAX package's _verify_cached_big: encode([s]B + sum_w T[idx, w,
+// k_w]) == R against the store of 64 x 16 fixed-window tables. A row
+// whose verdict is already decided (idx < 0 or past the store, invalid
+// key, s >= L) returns at once; all 4 lanes share i, so the group exits
+// together. The inversion in ge_compress runs on every lane alike.
+template <class Ex>
+__device__ __forceinline__ bool verify_bigcache_x4(
+    int i, int lane, Ex& ex, const uint8_t* tables, const uint8_t* tvalid,
+    int rows, const int32_t* idx, const uint8_t* r, const uint8_t* s,
+    const uint8_t* k, const uint8_t* s_ok, const uint8_t* base,
+    const uint8_t* kbytes) {
+  const int row = idx[i];
+  if (row < 0 || row >= rows || !tvalid[row] || !s_ok[i]) return false;
+  consts kc;
+  load_consts(kc, kbytes);
+  ge acc, sb, q;
+  bigcache_points_x4(acc, sb, q, tables + (size_t)row * 64 * 16 * 128 + lane * 32,
+                     k + (size_t)i * 32, s + (size_t)i * 32, base, kc, lane,
+                     ex);
+  uint8_t enc[32];
+  ge_compress(enc, q);
+  const uint8_t* ri = r + (size_t)i * 32;
+  bool eq = true;
+  for (int j = 0; j < 32; j++) eq &= (enc[j] == ri[j]);
+  return eq;
+}
+
+// The big-tier table of one key, column j, by one lane of its group:
+// T[i, j] = cached([j * 16^i](-A)) for the 64 rows i, as 128 canonical
+// bytes at tables + ((key * 64 + i) * 16 + j) * 128. Every lane
+// decompresses A alike; row 0's entry is the JAX package's (0, -A, then
+// j - 1 adds of cached(-A)); each row is emitted before its four
+// doublings, the last after the 63rd step. Lane l writes only component
+// l of each entry (YmX, YpX, T2d, Z2). An invalid key gets the table the
+// formulas give (ge_decompress's contract), with no early exit; lane 0 of
+// column 0 writes valid[key].
+template <class Ex>
+__device__ __forceinline__ void neg_pubkey_bigtable_x4(
+    int key, int j, int lane, Ex& ex, const uint8_t* pub, uint8_t* tables,
+    uint8_t* valid, const uint8_t* kbytes) {
+  consts kc;
+  load_consts(kc, kbytes);
+  ge cur;
+  const bool ok = ge_decompress(cur, pub + (size_t)key * 32, kc);
+  if (j == 0 && lane == 0) valid[key] = ok ? 1 : 0;
+  ge_neg(cur);
+  fe c;
+  if (j == 0) {
+    ge_identity(cur);
+  } else if (j > 1) {
+    fe ac;
+    ge_to_cached_lane(ac, cur, kc, lane);
+    for (int m = 1; m < j; m++) ge_add_cached_x4(cur, cur, ac, lane, ex);
+  }
+  uint8_t* out = tables + ((size_t)key * 64 * 16 + j) * 128 + lane * 32;
+  for (int i = 0; i < 64; i++) {
+    ge_to_cached_lane(c, cur, kc, lane);
+    fe_tobytes(out + (size_t)i * 16 * 128, c);
+    if (i < 63) {
+      ge_dbl_x4(cur, cur, lane, ex);
+      ge_dbl_x4(cur, cur, lane, ex);
+      ge_dbl_x4(cur, cur, lane, ex);
+      ge_dbl_x4(cur, cur, lane, ex);
+    }
+  }
 }
 
 }  // namespace edev

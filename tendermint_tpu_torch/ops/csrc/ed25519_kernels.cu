@@ -43,12 +43,22 @@
 // its quarter of a cached entry; the group exits together on a row whose
 // verdict is already decided; lane 0 writes the verdict.
 //
+// The big tier runs the same four lanes. tm_verify_bigcache
+// (verify_bigcache_x4) is four lanes per row: its 64 window adds and the
+// 32 adds of [s]B are two independent chains, so the first 32 windows go
+// in one pass with the base adds; its critical path is 398
+// multiplications (64 adds x 2, then the finish) against 1,044 on one
+// thread. tm_neg_pubkey_bigtable (neg_pubkey_bigtable_x4) is four lanes
+// per key and column: 275 (decompress) + 28 (row 0's adds) + 64
+// (to_cached) + 504 (63 x 4 doublings) = ~870 against ~2,470; each lane
+// writes its quarter of every entry.
+//
 // The other kernels run one thread per signature (per point for
-// dbl_chain, per key and column for the big table), limbs in registers,
-// no shared memory. The generic kernel's 16-entry cached table (2.5 KiB
-// per thread) lives in local memory. Rows whose verdict is already
-// decided (invalid key, s >= L, padding, idx < 0 or past the store) skip
-// the arithmetic, and no row reads outside its inputs.
+// dbl_chain), limbs in registers, no shared memory. The generic kernel's
+// 16-entry cached table (2.5 KiB per thread) lives in local memory. Rows
+// whose verdict is already decided (invalid key, s >= L, padding, idx < 0
+// or past the store) skip the arithmetic, and no row reads outside its
+// inputs.
 //
 // Plain C interface: no PyTorch headers here, so nvcc builds this file in
 // seconds. Launchers run on the caller's stream, allocate nothing, and
@@ -224,53 +234,29 @@ dbl_chain_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 }
 
 // Big-tier table: T[i, j] = cached([j * 16^i](-A)), 64 rows x 16 columns
-// of 128 canonical bytes (128 KiB per key). One thread per (key, column
-// j): the 16 columns are independent chains of 63 x 4 doublings. Thread j
-// forms row 0's entry j as the JAX package does (0, -A, then j - 1 adds
-// of cached(-A)), repeating the adds of the columns before it, which is
-// deterministic and gives the same projective values; each row is emitted
-// as to_cached before its four doublings, the last after the 63rd step.
+// of 128 canonical bytes (128 KiB per key). 64 threads per key: thread t
+// is lane t % 4 of column (t / 4) % 16 of key t / 64
+// (neg_pubkey_bigtable_x4 in ed25519_device.cuh), so a key is two whole
+// warps and a group's lanes sit at threadIdx.x & 28. The 16 columns are
+// independent chains of 63 x 4 doublings; each lane writes its own
+// quarter of every entry of its column. Threads past 64 * n leave before
+// any shuffle, as whole groups.
 __global__ void __launch_bounds__(kThreads)
 neg_pubkey_bigtable_kernel(const uint8_t* __restrict__ pub,
                            uint8_t* __restrict__ tables,
                            uint8_t* __restrict__ valid,
                            const uint8_t* __restrict__ kbytes, int n) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * 16) return;
-  const int key = t >> 4, j = t & 15;
-  consts kc;
-  load_consts(kc, kbytes);
-  ge a;
-  const bool ok = ge_decompress(a, pub + (size_t)key * 32, kc);
-  if (j == 0) valid[key] = ok ? 1 : 0;
-  ge_neg(a);
-  ge cur;
-  if (j == 0) {
-    ge_identity(cur);
-  } else {
-    cur = a;
-    if (j > 1) {
-      ge_cached ac;
-      ge_to_cached(ac, a, kc);
-      for (int m = 1; m < j; m++) ge_add_cached(cur, cur, ac);
-    }
-  }
-  uint8_t* out = tables + (size_t)key * 64 * 16 * 128 + (size_t)j * 128;
-  ge_cached c;
-  for (int i = 0; i < 64; i++) {
-    ge_to_cached(c, cur, kc);
-    ge_cached_tobytes(out + (size_t)i * 16 * 128, c);
-    if (i < 63) {
-      ge_dbl(cur, cur);
-      ge_dbl(cur, cur);
-      ge_dbl(cur, cur);
-      ge_dbl(cur, cur);
-    }
-  }
+  if (t >= n * 64) return;
+  Shfl4 ex{0xFu << (threadIdx.x & 28)};
+  neg_pubkey_bigtable_x4(t >> 6, (t >> 2) & 15, t & 3, ex, pub, tables,
+                         valid, kbytes);
 }
 
 // Big-tier verify: [s]B + sum_i T[idx, i, k_i] with k's radix-16 digits
-// LSB first (window i is nibble i), 64 cached adds and no doublings.
+// LSB first (window i is nibble i), 64 cached adds and no doublings, by
+// 4 x b threads: thread t is lane t % 4 of row t / 4 (verify_bigcache_x4
+// in ed25519_device.cuh), grouped as in verify_table_kernel.
 __global__ void __launch_bounds__(kThreads)
 verify_bigcache_kernel(const uint8_t* __restrict__ tables,
                        const uint8_t* __restrict__ tvalid, int rows,
@@ -282,27 +268,13 @@ verify_bigcache_kernel(const uint8_t* __restrict__ tables,
                        const uint8_t* __restrict__ base,
                        const uint8_t* __restrict__ kbytes,
                        uint8_t* __restrict__ out, int b) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  const int row = idx[i];
-  if (row < 0 || row >= rows || !tvalid[row] || !s_ok[i]) {
-    out[i] = 0;
-    return;
-  }
-  consts kc;
-  load_consts(kc, kbytes);
-  const uint8_t* tab = tables + (size_t)row * 64 * 16 * 128;
-  const uint8_t* ki = k + (size_t)i * 32;
-  ge acc;
-  ge_cached e;
-  ge_identity(acc);
-  for (int w = 0; w < 64; w++) {
-    ge_cached_frombytes(e, tab + ((size_t)w * 16 + nibble(ki, w)) * 128);
-    ge_add_cached(acc, acc, e);
-  }
-  ge sb;
-  scalar_mult_base(sb, s + (size_t)i * 32, base);
-  out[i] = finish(sb, acc, r + (size_t)i * 32, kc) ? 1 : 0;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 4 * b) return;
+  const int i = t >> 2, lane = t & 3;
+  Shfl4 ex{0xFu << (threadIdx.x & 28)};
+  const bool ok = verify_bigcache_x4(i, lane, ex, tables, tvalid, rows, idx,
+                                     r, s, k, s_ok, base, kbytes);
+  if (lane == 0) out[i] = ok ? 1 : 0;
 }
 
 }  // namespace
@@ -355,7 +327,7 @@ int tm_dbl_chain(const void* in, void* out, int b, int n_dbl, void* stream) {
 int tm_neg_pubkey_bigtable(const void* pub, void* tables, void* valid,
                            const void* kbytes, int n, void* stream) {
   if (n > 0)
-    neg_pubkey_bigtable_kernel<<<blocks_for(n * 16), kThreads, 0,
+    neg_pubkey_bigtable_kernel<<<blocks_for(n * 64), kThreads, 0,
                                  (cudaStream_t)stream>>>(
         (const uint8_t*)pub, (uint8_t*)tables, (uint8_t*)valid,
         (const uint8_t*)kbytes, n);
@@ -367,7 +339,7 @@ int tm_verify_bigcache(const void* tables, const void* tvalid, int rows,
                        const void* k, const void* s_ok, const void* base,
                        const void* kbytes, void* out, int b, void* stream) {
   if (b > 0)
-    verify_bigcache_kernel<<<blocks_for(b), kThreads, 0,
+    verify_bigcache_kernel<<<blocks_for(4 * b), kThreads, 0,
                              (cudaStream_t)stream>>>(
         (const uint8_t*)tables, (const uint8_t*)tvalid, rows,
         (const int32_t*)idx, (const uint8_t*)r, (const uint8_t*)s,

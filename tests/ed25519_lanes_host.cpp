@@ -1,14 +1,18 @@
-// Host harness of the four-lane small-tier verify (kernel 3), for the CPU
-// tests (tests/test_torch_ed25519_lanes.py builds it with g++).
+// Host harness of the four-lane ed25519 kernels, for the CPU tests
+// (tests/test_torch_ed25519_lanes.py and test_torch_ed25519_big_lanes.py
+// build it with g++): the small-tier verify (kernel 3), the big-tier
+// verify (kernel 6) and the big-tier table build (kernel 5).
 //
-// It runs the same source as the card: verify_table_x4 and the _x4 point
-// operations of ed25519_device.cuh. Four host threads play the 4 lanes of
-// a group and walk the rows in order, as a group of the kernel does; the
-// exchange is a slot array the 4 lanes fill, with a barrier on each side,
-// so the lanes run in lock-step. Each exchange also carries the row and
-// the lane's count of exchanges in that row: lanes that disagree (one lane
-// left a row early, or called a different number of stages) fail the call
-// instead of reading another lane's stale slot.
+// It runs the same source as the card: verify_table_x4,
+// verify_bigcache_x4, neg_pubkey_bigtable_x4 and the _x4 point operations
+// of ed25519_device.cuh. Four host threads play the 4 lanes of a group and
+// walk the groups (rows, or key columns) in order, as a group of the
+// kernel does; the exchange is a slot array the 4 lanes fill, with a
+// barrier on each side, so the lanes run in lock-step. Each exchange also
+// carries the group and the lane's count of exchanges in that group:
+// lanes that disagree (one lane left a group early, or called a different
+// number of stages) fail the call instead of reading another lane's stale
+// slot.
 #include <stdint.h>
 #include <string.h>
 
@@ -73,41 +77,124 @@ struct HostX4 {
   }
 };
 
-}  // namespace
-
-extern "C" {
-
-// tm_verify_table's operands on host memory, lane 0's verdicts in out (as
-// the kernel writes them); 0, -1 if the lanes fell out of lock-step, -2 if
-// a row's 4 lanes reached different verdicts
-int tm_host_verify_table(const uint8_t* tables, const uint8_t* tvalid,
-                         int rows, const int32_t* idx, const uint8_t* r,
-                         const uint8_t* s, const uint8_t* k,
-                         const uint8_t* s_ok, const uint8_t* base,
-                         const uint8_t* kbytes, uint8_t* out, int b) {
+// fn(g, lane, ex) for the groups g = 0 .. n - 1 on 4 lanes in lock-step;
+// with out, lane 0's results in out (as the kernels write them). 0, -1 if
+// the lanes fell out of lock-step, -2 if a group's 4 lanes returned
+// different results.
+template <class F>
+int run_groups(int n, uint8_t* out, F fn) {
   Lockstep ls;
-  std::vector<uint8_t> verdicts(4 * (size_t)b);
+  std::vector<uint8_t> res(4 * (size_t)n);
   std::thread lanes[4];
   for (int lane = 0; lane < 4; lane++) {
     lanes[lane] = std::thread([&, lane] {
       HostX4 ex{&ls, lane};
-      for (int i = 0; i < b; i++) {
-        ex.row = i;
+      for (int g = 0; g < n; g++) {
+        ex.row = g;
         ex.seq = 0;
-        verdicts[4 * (size_t)i + lane] =
-            verify_table_x4(i, lane, ex, tables, tvalid, rows, idx, r, s, k,
-                            s_ok, base, kbytes) ? 1 : 0;
+        res[4 * (size_t)g + lane] = fn(g, lane, ex);
       }
     });
   }
   for (auto& t : lanes) t.join();
   if (ls.failed) return -1;
-  for (int i = 0; i < b; i++) {
-    out[i] = verdicts[4 * (size_t)i];
+  for (int g = 0; g < n; g++) {
     for (int lane = 1; lane < 4; lane++)
-      if (verdicts[4 * (size_t)i + lane] != out[i]) return -2;
+      if (res[4 * (size_t)g + lane] != res[4 * (size_t)g]) return -2;
+    if (out) out[g] = res[4 * (size_t)g];
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// tm_verify_table's operands on host memory, lane 0's verdicts in out;
+// run_groups' return codes
+int tm_host_verify_table(const uint8_t* tables, const uint8_t* tvalid,
+                         int rows, const int32_t* idx, const uint8_t* r,
+                         const uint8_t* s, const uint8_t* k,
+                         const uint8_t* s_ok, const uint8_t* base,
+                         const uint8_t* kbytes, uint8_t* out, int b) {
+  return run_groups(b, out, [&](int i, int lane, HostX4& ex) {
+    return verify_table_x4(i, lane, ex, tables, tvalid, rows, idx, r, s, k,
+                           s_ok, base, kbytes) ? 1 : 0;
+  });
+}
+
+// tm_verify_bigcache's operands on host memory, likewise
+int tm_host_verify_bigcache(const uint8_t* tables, const uint8_t* tvalid,
+                            int rows, const int32_t* idx, const uint8_t* r,
+                            const uint8_t* s, const uint8_t* k,
+                            const uint8_t* s_ok, const uint8_t* base,
+                            const uint8_t* kbytes, uint8_t* out, int b) {
+  return run_groups(b, out, [&](int i, int lane, HostX4& ex) {
+    return verify_bigcache_x4(i, lane, ex, tables, tvalid, rows, idx, r, s,
+                              k, s_ok, base, kbytes) ? 1 : 0;
+  });
+}
+
+// tm_neg_pubkey_bigtable's operands on host memory: the 16 groups of key
+// g / 16 are its columns g % 16, in order; run_groups' return codes
+int tm_host_neg_pubkey_bigtable(const uint8_t* pub, uint8_t* tables,
+                                uint8_t* valid, const uint8_t* kbytes,
+                                int n) {
+  return run_groups(16 * n, nullptr, [&](int g, int lane, HostX4& ex) {
+    neg_pubkey_bigtable_x4(g >> 4, g & 15, lane, ex, pub, tables, valid,
+                           kbytes);
+    return 0;
+  });
+}
+
+// For b rows whose idx lies in the store, out[b][15][20] uint64 limbs:
+// slots 0-2 acc, sb and q by the one-thread ge_add_cached and
+// ge_to_cached in the one-thread kernel's order (64 window adds, 32 base
+// adds, to_cached(acc) added to sb), slots 3 + 3l .. 5 + 3l lane l's acc,
+// sb and q of bigcache_points_x4. 0, or -1 if the lanes fell out of
+// lock-step.
+int tm_host_bigcache_points(const uint8_t* tables, const int32_t* idx,
+                            const uint8_t* s, const uint8_t* k,
+                            const uint8_t* base, const uint8_t* kbytes,
+                            uint64_t* out, int b) {
+  consts kc;
+  load_consts(kc, kbytes);
+  const size_t stride = 15 * 20;
+  for (int i = 0; i < b; i++) {
+    const uint8_t* tab = tables + (size_t)idx[i] * 64 * 16 * 128;
+    const uint8_t* ki = k + (size_t)i * 32;
+    const uint8_t* si = s + (size_t)i * 32;
+    ge acc, sb, q;
+    ge_cached e;
+    ge_identity(acc);
+    for (int w = 0; w < 64; w++) {
+      ge_cached_frombytes(e, tab + ((size_t)w * 16 + nibble(ki, w)) * 128);
+      ge_add_cached(acc, acc, e);
+    }
+    ge_identity(sb);
+    for (int j = 0; j < 32; j++) {
+      ge_cached_frombytes(e, base + ((size_t)j * 256 + si[j]) * 128);
+      ge_add_cached(sb, sb, e);
+    }
+    ge_to_cached(e, acc, kc);
+    ge_add_cached(q, sb, e);
+    uint64_t* o = out + i * stride;
+    memcpy(o, &acc, sizeof acc);
+    memcpy(o + 20, &sb, sizeof sb);
+    memcpy(o + 40, &q, sizeof q);
+  }
+  return run_groups(b, nullptr, [&](int i, int lane, HostX4& ex) {
+    ge acc, sb, q;
+    bigcache_points_x4(acc, sb, q,
+                       tables + (size_t)idx[i] * 64 * 16 * 128 + lane * 32,
+                       k + (size_t)i * 32, s + (size_t)i * 32, base, kc,
+                       lane, ex);
+    uint64_t* o = out + i * stride + (3 + 3 * lane) * 20;
+    memcpy(o, &acc, sizeof acc);
+    memcpy(o + 20, &sb, sizeof sb);
+    memcpy(o + 40, &q, sizeof q);
+    return 0;
+  });
 }
 
 // For n extended points p (X, Y, Z, T as 32 bytes each) and cached

@@ -12,7 +12,8 @@ verdicts are held byte for byte against the port's plain version
 ``verify_prehashed_table`` with ``_verify_cached_small``'s gather, and the
 host oracle; its point operations limb for limb against the one-thread
 ``ge_dbl``, ``ge_add_cached`` and ``ge_to_cached`` of the same header.
-Tolerance: exact.
+Tolerance: exact. The big tier's four-lane kernels 5 and 6 run over the
+same harness in ``test_torch_ed25519_big_lanes.py``.
 """
 
 import ctypes
@@ -59,10 +60,15 @@ def lib():
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tm_host_verify_table.argtypes = [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i]
-    lib.tm_host_verify_table.restype = i
-    lib.tm_host_point_ops.argtypes = [vp, vp, vp, vp, i]
-    lib.tm_host_point_ops.restype = i
+    for name, args in (
+        ("tm_host_verify_table", [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i]),
+        ("tm_host_verify_bigcache", [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i]),
+        ("tm_host_neg_pubkey_bigtable", [vp, vp, vp, vp, i]),
+        ("tm_host_bigcache_points", [vp, vp, vp, vp, vp, vp, vp, i]),
+        ("tm_host_point_ops", [vp, vp, vp, vp, i]),
+    ):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
     return lib
 
 
@@ -75,14 +81,17 @@ def _kbytes() -> np.ndarray:
     return eb.kernel_consts(torch.device("cpu")).numpy()
 
 
-def host_verify_table(lib, tables, tvalid, idx, r, s, k, s_ok) -> list[bool]:
-    """The harness on numpy operands shaped as the wrapper's."""
+def host_verify_table(lib, tables, tvalid, idx, r, s, k, s_ok,
+                      entry: str = "tm_host_verify_table") -> list[bool]:
+    """The harness's `entry` (kernel 3's row code, or kernel 6's:
+    ``tm_host_verify_bigcache``) on numpy operands shaped as the
+    wrapper's."""
     args = [np.ascontiguousarray(a) for a in (tables, tvalid, idx, r, s, k, s_ok)]
     tables, tvalid, idx, r, s, k, s_ok = args
     base = curve.base_table_bytes()
     kb = _kbytes()
     out = np.full(idx.shape[0], 7, dtype=np.uint8)
-    rc = lib.tm_host_verify_table(
+    rc = getattr(lib, entry)(
         _ptr(tables), _ptr(tvalid), tables.shape[0], _ptr(idx), _ptr(r),
         _ptr(s), _ptr(k), _ptr(s_ok), _ptr(base), _ptr(kb), _ptr(out),
         idx.shape[0],

@@ -1,5 +1,5 @@
 """The port stands alone: neither it nor ``chip_smoke.py`` and
-``chip_kernel3.py`` import JAX or the JAX package, and its verbatim copies
+``chip_kernels.py`` import JAX or the JAX package, and its verbatim copies
 match their originals modulo the import root (and the few comment lines
 listed in REWORDED and PATHLESS)."""
 
@@ -181,7 +181,7 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path",
-    [ROOT / "chip_smoke.py", ROOT / "chip_kernel3.py"] + sorted(PORT.rglob("*.py")),
+    [ROOT / "chip_smoke.py", ROOT / "chip_kernels.py"] + sorted(PORT.rglob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_reference_import_statements(path):
