@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""The four-lane ed25519 kernels alone on one NVIDIA GPU, each against its
-plain PyTorch version and against the same kernel of another tree of this
-repository: kernel 3 (``tm_verify_table``, the small-tier verify),
-kernel 6 (``tm_verify_bigcache``, the big-tier verify) and kernel 5
-(``tm_neg_pubkey_bigtable``, the big-tier table build).
+"""The redesigned kernels alone on one NVIDIA GPU, each against its plain
+PyTorch version and against the same kernel of another tree of this
+repository: the four-lane ed25519 kernels 3 (``tm_verify_table``, the
+small-tier verify), 6 (``tm_verify_bigcache``, the big-tier verify) and 5
+(``tm_neg_pubkey_bigtable``, the big-tier table build), and the warp-wide
+BLS12-381 pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``).
 
-    python3 chip_kernels.py [--kernel 3 5 6] [--parent DIR] [--seed N]
+    python3 chip_kernels.py [--kernel 3 5 6 12] [--parent DIR] [--seed N]
 
-Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` with ``nvcc``
-into a plain shared library (no PyTorch headers) under
-``tendermint_tpu_torch/_kbuild/``, with ``-Xptxas -v`` for each kernel's
-registers, stack and spills (the whole report beside the library, as
-``chip_kernels_<tree>.ptxas.txt``); with ``--parent``, the same file of the tree
-at DIR too (e.g. the parent commit unpacked with ``git archive``), all
-nvcc runs started together. Then, for each kernel asked for (all three by
-default), every build is held against the plain version on the card and
-the host oracle, and timed (median of 20 launches between CUDA events) in
-turns parent, this tree, this tree, parent, so that both are measured on
-one card in one call:
+Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 3, 5,
+6) and ``bls_kernels.cu`` (kernel 12) with ``nvcc`` into plain shared
+libraries (no PyTorch headers) under ``tendermint_tpu_torch/_kbuild/``,
+with ``-Xptxas -v`` for each kernel's registers, stack and spills (the
+whole report beside the library, as ``chip_kernels_<tree>.ptxas.txt`` and
+``chip_kernels_bls_<tree>.ptxas.txt``); with ``--parent``, the same files
+of the tree at DIR too (e.g. the parent commit unpacked with ``git
+archive``), all nvcc runs started together. Then, for each kernel asked
+for (all four by default), every build is held against the plain version
+on the card and the host oracle, and timed (median of 20 launches between
+CUDA events) in turns parent, this tree, this tree, parent, so that both
+are measured on one card in one call:
 
 - kernel 3 at b = 1, 23, 150 and 256 rows (valid rows, wrong messages,
   flipped signature bits, s >= L, invalid keys, ``idx = -1`` and ``idx``
@@ -29,7 +31,17 @@ one card in one call:
   mesh shard of the window) and 16,384 (the window's bucket);
 - kernel 5 on 16 and 256 keys (valid, small order, non-canonical, no
   square root), its tables byte for byte against the plain version and
-  its validity against the host oracle; timed at both sizes.
+  its validity against the host oracle; timed at both sizes;
+- kernel 12: ``tm_miller`` at the 2-pair verify shape (one chunk) and the
+  65-pair RLC shape (64 chunks), ``tm_final_exp`` on one element, each
+  byte for byte against its plain version, the products against the host
+  oracle (both shapes' pairing products are one), and on
+  ``chip_smoke.pairing_operands``' adversarial operands; timed at those
+  shapes. Where its time goes: this tree's ``bls_kernels.cu`` is also
+  built with the product stages, the addition stages or the inversion of
+  ``run_program`` emptied (``SPLITS``), and each variant's time at the
+  verify shape and of ``tm_final_exp`` is printed beside the full build's
+  (the ``kernel12 split:`` line).
 
 With ``--parent``, a child process per turn (``--turn-tree ROOT``)
 imports that tree's package, builds its kernels and times its main
@@ -37,9 +49,15 @@ paths on the card as ``chip_smoke.py`` does: with kernel 3,
 ``ValidatorSet.verify_commit`` of 8 commits of a seeded 150-validator
 set; with kernel 5 or 6, the 64-commit x 150-validator blocksync window
 with host-hashed challenges through a started ``VerifyScheduler``, 3
-times (the first builds the big tables), its verdicts and bitmap checked.
-Prints a ``kernelN:`` line per kernel and build, a ``commit:`` and a
-``blocksync:`` line per tree, every number again as one JSON object on a
+times (the first builds the big tables), its verdicts and bitmap checked;
+with kernel 12, ``check_pairs`` at 2 pairs on the card (median of 5)
+beside the native host library's ``pairing_check`` on the same pairs, and
+the 64-QC window over the 150 validators on the device route
+(``TM_TPU_BLS_PAIRING_DEVICE=1``) through a started ``VerifyScheduler``,
+twice, its verdicts checked (without ``--parent``, one turn of this
+tree). Prints a ``kernelN:`` line per kernel and build, a ``commit:``, a
+``blocksync:`` and a ``pairing:`` line per tree, every number again as one
+JSON object on a
 line of its own, the ``nvidia-smi`` name and power limit, and last the
 ``{"ok": true, ...}`` object. Exits non-zero without CUDA or on any
 disagreement.
@@ -67,8 +85,24 @@ K6_SIZES = ((1, 0), (23, 2), (2048, 64))
 K6_LIVE, K6_BUCKET = 9600, 16384  # the blocksync window's rows and bucket
 # kernel 5: keys checked and timed
 K5_SIZES = (16, 256)
-KERNEL_NAMES = {3: "verify_table_kernel", 5: "neg_pubkey_bigtable_kernel",
-                6: "verify_bigcache_kernel"}
+BLS_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "bls_kernels.cu")
+KERNEL_NAMES = {3: ("verify_table_kernel",), 5: ("neg_pubkey_bigtable_kernel",),
+                6: ("verify_bigcache_kernel",),
+                12: ("miller_kernel", "chunk_product_kernel", "final_exp_kernel")}
+PAIRING_REPS = 5  # check_pairs and native pairing_check calls per turn
+# kernel 12's time split: builds of this tree's bls_kernels.cu with one part
+# of run_program (bls12_381_device.cuh) emptied, timed beside the full one
+# (their values are wrong; only their times are read)
+SPLITS = {
+    "product stages emptied": [
+        ("        fq_mul_n<2>(r, a, b);", "        r[0] = a[0];\n        r[1] = a[1];"),
+        ("        fq_mul(r, a, b);", "        r = a;")],
+    "addition stages emptied": [
+        ("      if (l < nj) alu_job(w, j0, flags);\n"
+         "      if (l + 32 < nj) alu_job(w, j1, flags);", "")],
+    "inversion emptied": [
+        ("      fq_inv(r, w.ld(job_a(j0)));", "      r = w.ld(job_a(j0));")],
+}
 
 
 def chip_smoke():
@@ -99,11 +133,40 @@ def start_build(torch_build, src: str, tag: str):
     return shared, cubin, so
 
 
-class Build:
-    """One tree's ed25519_kernels.cu, loaded: the launchers of kernels 3,
-    6 and 5 on torch tensors, and each kernel's ptxas line."""
+def start_split_builds(torch_build) -> dict:
+    """{variant: (nvcc process, .so path)}: this tree's bls_kernels.cu with
+    the SPLITS patches, each in a directory of its own under _kbuild."""
+    csrc = os.path.join(ROOT, os.path.dirname(BLS_KERNEL))
+    procs = {}
+    for i, (name, patches) in enumerate(SPLITS.items()):
+        d = os.path.join(torch_build.BUILD_DIR, f"chip_kernels_split{i}")
+        os.makedirs(d, exist_ok=True)
+        for f in os.listdir(csrc):
+            if f.endswith((".cu", ".cuh")):
+                with open(os.path.join(csrc, f)) as src, open(os.path.join(d, f), "w") as dst:
+                    dst.write(src.read())
+        header = os.path.join(d, "bls12_381_device.cuh")
+        with open(header) as f:
+            text = f.read()
+        for old, new in patches:
+            assert text.count(old) == 1, f"split {name!r}: {old!r} not found once"
+            text = text.replace(old, new)
+        with open(header, "w") as f:
+            f.write(text)
+        so = os.path.join(d, "split.so")
+        procs[name] = (subprocess.Popen(
+            [torch_build._nvcc(), torch_build.ARCH, "-std=c++17", "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-o", so, os.path.join(d, "bls_kernels.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    return procs
 
-    def __init__(self, shared, cubin, so: str, ptxas_usage):
+
+class Build:
+    """One tree's build of ed25519_kernels.cu (kernels 3, 6, 5) or
+    bls_kernels.cu (kernel 12), loaded: its launchers on torch tensors,
+    and each kernel's ptxas line."""
+
+    def __init__(self, shared, cubin, so: str, ptxas_usage, kernels):
         outs = [proc.communicate()[0] for proc in (shared, cubin)]
         for proc, out in zip((shared, cubin), outs):
             if proc.returncode != 0:
@@ -111,21 +174,31 @@ class Build:
         with open(so.replace(".so", ".ptxas.txt"), "w") as f:
             f.write(outs[1])
         usage = ptxas_usage(outs[1])
-        self.ptxas = {n: usage.get(k, "not reported") for n, k in KERNEL_NAMES.items()}
+        self.ptxas = {n: "; ".join(f"{name}: {usage.get(name, 'not reported')}"
+                                   for name in KERNEL_NAMES[n]) for n in kernels}
         lib = ctypes.CDLL(so)
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("tm_verify_table", "tm_verify_bigcache"):
-            getattr(lib, name).argtypes = [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp]
-            getattr(lib, name).restype = i
-        lib.tm_neg_pubkey_bigtable.argtypes = [vp, vp, vp, vp, i, vp]
-        lib.tm_neg_pubkey_bigtable.restype = i
-        lib.tm_error_string.argtypes = [i]
-        lib.tm_error_string.restype = ctypes.c_char_p
+        sigs = {
+            "tm_verify_table": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+            "tm_verify_bigcache": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+            "tm_neg_pubkey_bigtable": [vp, vp, vp, vp, i, vp],
+            "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
+            "tm_final_exp": [vp, vp, i, vp],
+        }
+        for name, args in sigs.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = i
+        if hasattr(lib, "tm_error_string"):
+            lib.tm_error_string.argtypes = [i]
+            lib.tm_error_string.restype = ctypes.c_char_p
         self.lib = lib
 
     def _check(self, err: int) -> None:
         if err:
-            raise RuntimeError(f"launch failed: {self.lib.tm_error_string(err).decode()}")
+            msg = (self.lib.tm_error_string(err).decode()
+                   if hasattr(self.lib, "tm_error_string") else f"CUDA error {err}")
+            raise RuntimeError(f"launch failed: {msg}")
 
     def verify(self, name: str, torch, tables, tvalid, idx, r, s, k, s_ok, base, kc):
         """tm_verify_table or tm_verify_bigcache -> [b] bool."""
@@ -148,6 +221,43 @@ class Build:
             torch.cuda.current_stream().cuda_stream,
         ))
         return tables, valid
+
+    def miller(self, torch, xp, yp, xq, yq, valid):
+        """tm_miller on chunk tensors (ops/bls_pairing.miller's operands) ->
+        the product of the chunks' Miller values, [6, 2, 48] bytes."""
+        c = xp.shape[0]
+        out = torch.empty((6, 2, 48), dtype=torch.uint8, device=xp.device)
+        scratch = torch.empty(c * 72, dtype=torch.int64, device=xp.device)
+        self._check(self.lib.tm_miller(
+            xp.data_ptr(), yp.data_ptr(), xq.data_ptr(), yq.data_ptr(),
+            valid.data_ptr(), scratch.data_ptr(), out.data_ptr(), c,
+            torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
+    def final_exp(self, torch, f):
+        """tm_final_exp on [N, 6, 2, 48] bytes."""
+        out = torch.empty_like(f)
+        self._check(self.lib.tm_final_exp(
+            f.data_ptr(), out.data_ptr(), f.shape[0],
+            torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
+
+class SplitBuild(Build):
+    """A SPLITS variant of bls_kernels.cu, loaded: Build's tm_miller and
+    tm_final_exp launchers."""
+
+    def __init__(self, proc, so: str):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{out}")
+        lib = ctypes.CDLL(so)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.tm_miller.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, vp]
+        lib.tm_final_exp.argtypes = [vp, vp, i, vp]
+        self.lib = lib
 
 
 def _validator_set(tree: str, seed: int):
@@ -215,6 +325,62 @@ def blocksync_ms(types, host, vset, by_addr, rng, chain_id: str) -> dict:
             "device_ms": [e["device_s"] * 1e3 for e in ledger[:WINDOW_REPS]]}
 
 
+def pairing_turn(types, host, vset, by_addr, rng, chain_id: str) -> dict:
+    """check_pairs at 2 pairs on the card beside the native library's
+    pairing_check on the same pairs (ms, PAIRING_REPS calls each), then the
+    64-QC window on the device route (chip_smoke.qc_route, twice, its
+    verdicts checked): wall ms per window and the pairing checks' ms."""
+    import torch
+
+    from tendermint_tpu_torch import ops
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+    from tendermint_tpu_torch.crypto import bls_native
+    from tendermint_tpu_torch.crypto import bls_signatures as bls
+    from tendermint_tpu_torch.ops import bls_pairing as bp
+    from tendermint_tpu_torch.types import quorum_cert as qcm
+
+    cs = chip_smoke()
+    dev = torch.device("cuda")
+
+    def scalar() -> int:
+        return int.from_bytes(rng.bytes(32), "big") % (c.R - 1) + 1
+
+    def g2(k):
+        return bls._g2_mul_point(c.G2_GEN, k)
+
+    k = scalar()
+    pairs = [(bls._g1_mul_point(c.G1_GEN, k), c.G2_GEN),
+             (c.g1_neg(c.G1_GEN), g2(k))]
+    g1b = b"".join(bls.g1_to_bytes(p) for p, _ in pairs)
+    g2b = b"".join(bls.g2_to_bytes(q) for _, q in pairs)
+    assert bls_native.pairing_check(g1b, g2b, len(pairs))
+    assert bp.check_pairs(pairs, dev)  # the first call builds the kernels
+    native, card = [], []
+    for _ in range(PAIRING_REPS):
+        t0 = time.perf_counter()
+        assert bls_native.pairing_check(g1b, g2b, len(pairs))
+        native.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        assert bp.check_pairs(pairs, dev)
+        card.append((time.perf_counter() - t0) * 1e3)
+    entries, _ = cs.signed_window(host, types, vset, by_addr, chain_id, cs.WINDOW,
+                                  0, rng)
+    qset, vals, privs, _ = cs.qc_keys(types, bls, qcm, vset, chain_id, entries,
+                                      scalar, g2)
+    os.environ[cs.BLS_GATE] = "1"
+    try:
+        r = cs.qc_route(torch, ops, bls, qcm, qset, vals, privs, chain_id, entries,
+                        ("_pairing_is_one",), True)
+    finally:
+        os.environ.pop(cs.BLS_GATE, None)
+    want = [h != cs.QC_BAD for h in range(1, cs.WINDOW + 1)]
+    assert all(v == want for v in r["verdicts"]), "qc window verdicts"
+    return {"check_pairs_ms": card, "native_ms": native,
+            "qc_wall_ms": [w * 1e3 for w in r["walls"]],
+            "qc_pairing_ms": [a.get("_pairing_is_one", 0.0) * 1e3 for a in r["splits"]],
+            "qc_checks": r["win_launches"]["final_exp"] // 2}
+
+
 def turn(tree: str, seed: int, what: list[str]) -> dict:
     """One child's turn: the main paths of the tree at `tree`."""
     types, host, vset, by_addr, rng = _validator_set(tree, seed)
@@ -223,6 +389,8 @@ def turn(tree: str, seed: int, what: list[str]) -> dict:
         out["commit"] = commit_ms(types, vset, by_addr, rng, "chip-kernels")
     if "blocksync" in what:
         out["blocksync"] = blocksync_ms(types, host, vset, by_addr, rng, "chip-kernels")
+    if "pairing" in what:
+        out["pairing"] = pairing_turn(types, host, vset, by_addr, rng, "chip-kernels")
     return out
 
 
@@ -243,8 +411,8 @@ def tile_rows(torch, ops, want, live: int, total: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", type=int, nargs="+", choices=(3, 5, 6),
-                    default=[3, 5, 6], help="kernels to check and time")
+    ap.add_argument("--kernel", type=int, nargs="+", choices=(3, 5, 6, 12),
+                    default=[3, 5, 6, 12], help="kernels to check and time")
     ap.add_argument("--parent", default=None,
                     help="root of another tree whose kernels are timed beside this one's")
     ap.add_argument("--seed", type=int, default=20261017)
@@ -275,12 +443,25 @@ def main() -> int:
     if args.parent:
         trees["parent"] = os.path.abspath(args.parent)
     t0 = time.perf_counter()
-    procs = {tag: start_build(_build, os.path.join(root, KERNEL), tag)
-             for tag, root in trees.items()}
-    built = {tag: Build(*p, cs.ptxas_usage) for tag, p in procs.items()}
-    print(f"build: {len(built)} nvcc builds of {KERNEL} in parallel, "
-          f"{time.perf_counter() - t0:.1f} s | {smi}")
-    order = ["parent", "this", "this", "parent"] if "parent" in built else ["this"]
+    ed_kernels = [k for k in args.kernel if k != 12]
+    procs = {}
+    if ed_kernels:
+        procs.update({tag: start_build(_build, os.path.join(root, KERNEL), tag)
+                      for tag, root in trees.items()})
+    if 12 in args.kernel:
+        procs.update({"bls_" + tag: start_build(_build, os.path.join(root, BLS_KERNEL),
+                                                "bls_" + tag)
+                      for tag, root in trees.items()})
+    splits = start_split_builds(_build) if 12 in args.kernel else {}
+    builds = {tag: Build(*p, cs.ptxas_usage, [12] if tag.startswith("bls_") else ed_kernels)
+              for tag, p in procs.items()}
+    splits = {name: SplitBuild(*p) for name, p in splits.items()}
+    built = {tag: b for tag, b in builds.items() if not tag.startswith("bls_")}
+    bls_built = {tag[4:]: b for tag, b in builds.items() if tag.startswith("bls_")}
+    print(f"build: {len(builds) + len(splits)} nvcc builds of "
+          f"{' and '.join(src for src, on in ((KERNEL, ed_kernels), (BLS_KERNEL, bls_built)) if on)}"
+          f" in parallel, {time.perf_counter() - t0:.1f} s | {smi}")
+    order = ["parent", "this", "this", "parent"] if "parent" in trees else ["this"]
 
     keys = [host.PrivKey(rng.bytes(32)) for _ in range(200)]
     adversarial = [
@@ -299,21 +480,21 @@ def main() -> int:
     base = curve.base_table(dev)
     kc = eb.kernel_consts(dev)
     result = {"device": torch.cuda.get_device_name(0), "smi": smi,
-              "ptxas": {tag: b.ptxas for tag, b in built.items()}}
+              "ptxas": {tag: b.ptxas for tag, b in builds.items()}}
 
-    def timed_turns(sizes, call):
+    def timed_turns(sizes, call, builds=built):
         """{tag: {size: [ms per turn]}}: call(build, size) timed in turns."""
-        times = {t: {n: [] for n in sizes} for t in built}
+        times = {t: {n: [] for n in sizes} for t in builds}
         for tag in order:
             for n in sizes:
-                times[tag][n].append(cs.time_cuda(torch, lambda: call(built[tag], n), REPS))
+                times[tag][n].append(cs.time_cuda(torch, lambda: call(builds[tag], n), REPS))
         return times
 
-    def report(kernel: int, what: str, times, extra: str) -> None:
-        for tag in built:
+    def report(kernel: int, what: str, times, extra: str, builds=built) -> None:
+        for tag in builds:
             print(f"kernel{kernel}: {tag} tree, median ms of {REPS} launches at "
                   f"{what} {json.dumps(times[tag])} (one list entry per turn); "
-                  f"{extra}; ptxas: {built[tag].ptxas[kernel]} | {smi}")
+                  f"{extra}; ptxas: {builds[tag].ptxas[kernel]} | {smi}")
 
     if 3 in args.kernel:
         tables, tvalid = eb.neg_pubkey_table_plain(pub_d)
@@ -399,9 +580,79 @@ def main() -> int:
         print(f"time: neg_pubkey_bigtable_plain at 256 keys {plain_ms:.2f} ms | {smi}")
         result["kernel5"] = {"plain_ms_256": plain_ms, "ms": times}
 
-    if "parent" in trees:
-        what = (["commit"] if 3 in args.kernel else []) + (
-            ["blocksync"] if {5, 6} & set(args.kernel) else [])
+    if 12 in args.kernel:
+        from tendermint_tpu_torch.crypto import bls12_381 as c
+        from tendermint_tpu_torch.crypto import bls_signatures as bls
+        from tendermint_tpu_torch.ops import bls_pairing as bp
+
+        def scalar() -> int:
+            return int.from_bytes(rng.bytes(32), "big") % (c.R - 1) + 1
+
+        def g1(k):
+            return bls._g1_mul_point(c.G1_GEN, k)
+
+        def g2(k):
+            return bls._g2_mul_point(c.G2_GEN, k)
+
+        a, b = [scalar() for _ in range(64)], [scalar() for _ in range(64)]
+        rlc_pairs = [(g1(x), g2(y)) for x, y in zip(a, b)]
+        rlc_pairs.append((g1(-sum(x * y for x, y in zip(a, b)) % c.R), c.G2_GEN))
+        k = scalar()
+        shapes = {"verify": [(g1(k), c.G2_GEN), (c.g1_neg(g1(1)), g2(k))],
+                  "rlc": rlc_pairs}
+        chunks = {name: bp.prepare_pairs(pairs, dev) for name, pairs in shapes.items()}
+        adv_miller, adv_f12 = cs.pairing_operands(torch, rng, dev)
+        mill = {}
+        for name, ch in list(chunks.items()) + [(f"adversarial {i}", ch)
+                                                 for i, ch in enumerate(adv_miller)]:
+            plain = bp.miller_plain(*ch)
+            for tag, bld in bls_built.items():
+                got = bld.miller(torch, *ch)
+                torch.cuda.synchronize()
+                assert cs.max_abs_err(got, plain) == 0, f"{tag}: tm_miller != plain ({name})"
+            mill[name] = plain
+        for f in [mill["verify"].unsqueeze(0), mill["rlc"].unsqueeze(0), adv_f12]:
+            plain = bp.final_exp_plain(f)
+            for tag, bld in bls_built.items():
+                got = bld.final_exp(torch, f)
+                torch.cuda.synchronize()
+                assert cs.max_abs_err(got, plain) == 0, f"{tag}: tm_final_exp != plain"
+            if f.shape[0] == 1:
+                assert bp.f12_to_host(plain[0]) == c.F12_ONE, "a pairing product is not one"
+        print(f"kernel-vs-plain: kernel 12 of {sorted(bls_built)}: tm_miller at the "
+              f"verify shape ({chunks['verify'][0].shape[0]} chunk), the RLC shape "
+              f"({chunks['rlc'][0].shape[0]} chunks) and the adversarial operands, "
+              f"tm_final_exp on their products and the adversarial elements, equal "
+              f"their plain versions byte for byte; both products' pairings are one")
+        f_one = mill["rlc"].unsqueeze(0).contiguous()
+        plain_ms = {"miller": cs.time_cuda(torch, lambda: bp.miller_plain(*chunks["rlc"]), 1),
+                    "final_exp": cs.time_cuda(torch, lambda: bp.final_exp_plain(f_one), 1)}
+        times = timed_turns(("miller_verify", "miller_rlc", "final_exp"), lambda bld, n: (
+            bld.final_exp(torch, f_one) if n == "final_exp"
+            else bld.miller(torch, *chunks[n.split("_")[1]])), bls_built)
+        report(12, "shapes", times,
+               f"critical paths miller {cs.FP_MILLER_PATH} (+1 a chunk-product level; "
+               f"one thread: {cs.FP_MILLER_THREAD}), final_exp {cs.FP_FINAL_EXP_PATH} "
+               f"(one thread: {cs.FP_FINAL_EXP})", bls_built)
+        print(f"time: miller_plain at the RLC shape {plain_ms['miller']:.2f} ms, "
+              f"final_exp_plain {plain_ms['final_exp']:.2f} ms (one call) | {smi}")
+        split = {"full": bls_built["this"], **splits}
+        split_ms = {name: {
+            "miller_verify": cs.time_cuda(torch, lambda: bld.miller(torch, *chunks["verify"]), REPS),
+            "final_exp": cs.time_cuda(torch, lambda: bld.final_exp(torch, f_one), REPS),
+        } for name, bld in split.items()}
+        print("kernel12 split: this tree, median ms of 20 launches of tm_miller at "
+              "the verify shape / tm_final_exp, the full build and builds with one "
+              "part of run_program emptied (their values wrong; each difference "
+              "from the full build is that part's time): " + "; ".join(
+                  f"{name} {t['miller_verify']:.4f} / {t['final_exp']:.4f}"
+                  for name, t in split_ms.items()) + f" | {smi}")
+        result["kernel12"] = {"plain_ms": plain_ms, "ms": times, "split_ms": split_ms}
+
+    if "parent" in trees or 12 in args.kernel:
+        what = (["commit"] if 3 in args.kernel and "parent" in trees else []) + (
+            ["blocksync"] if {5, 6} & set(args.kernel) and "parent" in trees else []) + (
+            ["pairing"] if 12 in args.kernel else [])
         turns: dict[str, list[dict]] = {t: [] for t in trees}
         for tag in order:
             proc = subprocess.run(
@@ -418,6 +669,17 @@ def main() -> int:
                 print(f"commit: {tag} tree, verify_commit at {N_VALS} validators ms a "
                       f"height per turn {json.dumps([[round(x, 3) for x in t['commit']] for t in ts])} "
                       f"(the first of a turn builds the key tables) | {smi}")
+            if "pairing" in what:
+                pr = [t["pairing"] for t in ts]
+                print(f"pairing: {tag} tree, check_pairs at 2 pairs on the card ms per "
+                      f"turn {json.dumps([[round(x, 3) for x in t['check_pairs_ms']] for t in pr])}, "
+                      f"the native host library's pairing_check on the same pairs (one "
+                      f"CPU thread) {json.dumps([[round(x, 3) for x in t['native_ms']] for t in pr])}; "
+                      f"the 64-QC window on the device route, wall ms "
+                      f"{json.dumps([[round(x, 2) for x in t['qc_wall_ms']] for t in pr])}, "
+                      f"of which pairing checks "
+                      f"{json.dumps([[round(x, 2) for x in t['qc_pairing_ms']] for t in pr])} "
+                      f"({pr[0]['qc_checks']} checks a window) | {smi}")
             if "blocksync" in what:
                 print(f"blocksync: {tag} tree, the 64 x {N_VALS} window host-hashed, "
                       f"wall ms per window per turn "

@@ -61,10 +61,13 @@ Phases (any failure raises and the exit code is non-zero):
 5. The quorum-certificate path (``qc_phase``): ``g1_aggregate`` and
    ``g2_aggregate`` on 256 points with duplicates, opposites and the
    identity and at the device route's shapes (150 signatures; 150 keys),
-   ``miller`` and ``final_exp`` on the 2-pair
-   verify shape and a 65-pair random-linear-combination shape, each
-   against its plain version on the card and the host oracle, and bilinearity of
-   ``pairing_value``; then BLS keys for the 150 validators (4 through
+   ``miller`` and ``final_exp`` (one warp a 2-pair chunk, one warp an
+   element) on the 2-pair verify shape, a 65-pair
+   random-linear-combination shape and ``pairing_operands``' adversarial
+   operands (limbs 0, 1, p - 1 and >= p, off-curve points, invalid and
+   all-invalid chunks, the zero element), each against its plain version
+   on the card byte for byte, the products against the host oracle, and
+   bilinearity of ``pairing_value``; then BLS keys for the 150 validators (4 through
    ``pubkey_from_priv``, whose proof of possession is a native pairing; the
    rest trusted keys, as set-up), QC shares on the bulk window's 64
    commits, then both BLS routes of the JAX package's order, each with
@@ -84,7 +87,9 @@ Phases (any failure raises and the exit code is non-zero):
    ``check_pairs`` on the card against the native host library's
    ``pairing_check`` on the same pairs, each route's assembly per QC and
    its window walls split into signature and key parse, hash-to-G1,
-   scalar multiplications and pairing checks.
+   scalar multiplications and pairing checks; the ``kernel12:`` line gives
+   ``tm_miller`` at both shapes, ``tm_final_exp``, their critical paths
+   (``FP_MILLER_PATH``, ``FP_FINAL_EXP_PATH``) and ``ptxas`` usage.
 6. The mixed-key path and the L2 block's merkle leaves (``mixed_phase``):
    ``secp_verify_prehashed`` on 64 crafted rows (valid, flipped s, wrong
    message, cross key, ``ok_in`` False, Q = G with u1 = u2, R at infinity,
@@ -532,6 +537,28 @@ FP_FINAL_EXP = (2 * FP_F12_MUL + FP_F12_INV + 2 * FP_FROB  # easy part
                 + 12 + 12 + 12)  # loads, stores, the gamma table
 MILLER_BITS = 63  # bits of |x| after the leading one
 MILLER_ADDS = 5  # set bits of |x| after the leading one
+# the dependent Fp multiplications of one 2-pair chunk on one thread (the
+# parent's miller_kernel): per bit an f12 squaring and each pair's doubling
+# step and line product, per set bit each pair's addition step and line
+# product, the loads and the store
+FP_MILLER_THREAD = (MILLER_BITS * (FP_F12_SQR + 2 * (FP_MILLER_DBL + FP_LINE))
+                    + MILLER_ADDS * 2 * (FP_MILLER_ADD + FP_LINE) + 12 + 12)
+# the critical paths of the warp kernels, in dependent Fp multiplications:
+# the longest path of each stage program (python -m
+# tendermint_tpu_torch.ops.bls_warp_gen prints them), a load and a store of
+# one multiplication each. Miller: a doubling bit is 5 (the doubling step's
+# 3 product levels, the two lines' product, f^2 times it; f's squaring
+# runs beside the steps), an addition bit 8; the chunk product adds one a
+# level. Final exponentiation: the easy part 12 (its inversion, a binary
+# extended Euclid on one lane, counts its one multiplication; its
+# halvings and subtractions are not multiplications), a^x 64 cyclotomic
+# squarings and 6 products of 1, the glue between the five a^x 1, 1, 2, 0
+# and 5.
+FP_MILLER_DBL_PATH, FP_MILLER_ADD_PATH = 5, 8
+FP_MILLER_PATH = (1 + (MILLER_BITS - MILLER_ADDS) * FP_MILLER_DBL_PATH
+                  + MILLER_ADDS * FP_MILLER_ADD_PATH + 1)
+FP_EASY_PATH, FP_EXP_X_PATH, FP_GLUE_PATH = 12, 64 + 6, 1 + 1 + 2 + 0 + 5
+FP_FINAL_EXP_PATH = 1 + FP_EASY_PATH + 5 * FP_EXP_X_PATH + FP_GLUE_PATH + 1
 QC_BAD = 40  # the forged certificate's height in the 64-QC window
 
 
@@ -683,12 +710,81 @@ def qc_route(torch, ops, bls, qcm, qset, vals, privs, chain_id, entries,
     }
 
 
+def qc_keys(types, bls, qcm, vset, chain_id, entries, scalar, g2):
+    """BLS keys for the validators of vset and QC signature shares on every
+    commit of the window: four keys through pubkey_from_priv (proof of
+    possession, one native pairing each), the rest trusted keys, as a
+    genesis file carries them. Returns (qset, vals, privs, pubs)."""
+    vals = vset.validators
+    privs = {v.address: scalar() for v in vals}
+    pubs = {}
+    for i, v in enumerate(vals):
+        k = privs[v.address]
+        pubs[v.address] = (bls.pubkey_from_priv(k) if i < 4 else
+                           bls.new_trusted_public_key(g2(k))).key
+    qset = types.ValidatorSet([
+        types.Validator(v.pub_key, v.voting_power, bls_pub_key=bls.g2_to_bytes(pubs[v.address]))
+        for v in vals
+    ])
+    assert [v.address for v in qset.validators] == [v.address for v in vals]
+    for h, (bid, _, commit) in enumerate(entries, start=1):
+        hm = bls.hash_to_g1(qcm.qc_sign_bytes(chain_id, h, 0, bid))
+        for cs, v in zip(commit.signatures, vals):
+            cs.qc_signature = bls.g1_to_bytes(bls._g1_mul_point(hm, privs[v.address]))
+    return qset, vals, privs, pubs
+
+
+def pairing_operands(torch, rng, dev):
+    """Adversarial operands of miller and final_exp, which the plain
+    versions must match byte for byte: coordinates and Fp12 limbs that are
+    0, 1, p - 1, p, p + 1, 2^384 - 1, random values >= p (all read mod p)
+    and random values below p, so no point is on its curve. Miller: 4
+    chunks (both pairs valid; pair 1 invalid; both invalid; both valid with
+    every coordinate 0), then one all-invalid chunk alone. final_exp: the
+    zero element, one, every limb p - 1, every limb 2^384 - 1, and two of
+    mixed special and random limbs. Returns ([chunk tuples], [N, 6, 2, 48])."""
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+
+    special = [0, 1, c.P - 1, c.P, c.P + 1, (1 << 384) - 1]
+
+    def value() -> int:
+        k = int(rng.integers(0, len(special) + 2))
+        if k < len(special):
+            return special[k]
+        if k == len(special):
+            return c.P + int.from_bytes(rng.bytes(48), "little") % ((1 << 384) - c.P)
+        return int.from_bytes(rng.bytes(48), "little") % c.P
+
+    def t(vals, *shape):
+        raw = [list(v.to_bytes(48, "little")) for v in vals]
+        return torch.tensor(raw, dtype=torch.uint8).reshape(*shape, 48).to(dev)
+
+    def chunks(valid, zero=()):
+        n = len(valid)
+        coords = [[0 if k in zero else value() for _ in range(12)] for k in range(n)]
+        xp = t([v for cc in coords for v in cc[0:2]], n, 2)
+        yp = t([v for cc in coords for v in cc[2:4]], n, 2)
+        xq = t([v for cc in coords for v in cc[4:8]], n, 2, 2)
+        yq = t([v for cc in coords for v in cc[8:12]], n, 2, 2)
+        return xp, yp, xq, yq, torch.tensor(valid, dtype=torch.bool).to(dev)
+
+    miller_ops = [
+        chunks([[True, True], [True, False], [False, False], [True, True]], zero=(3,)),
+        chunks([[False, False]]),
+    ]
+    rows = [[0] * 12, [1] + [0] * 11, [c.P - 1] * 12, [(1 << 384) - 1] * 12,
+            [value() for _ in range(12)], [value() for _ in range(12)]]
+    f12 = t([v for r in rows for v in r], len(rows), 6, 2)
+    return miller_ops, f12
+
+
 def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     """Phase 5: BLS kernels against their plain versions and the oracle,
     then a 64-QC window over the 150-validator set: proposer-side assembly
     (assemble_qc) and verify_commits_qc through a started VerifyScheduler's
-    qc_verify lane, twice. Returns the four kernels' rows and, for the mesh
-    phase, the point sets {"g1"|"g2": [(label, points, host points)]}."""
+    qc_verify lane, twice. Returns the four kernels' rows, for the mesh
+    phase the point sets {"g1"|"g2": [(label, points, host points)]}, and
+    the pairing kernels' ms {"miller_verify", "miller_rlc", "final_exp"}."""
     from tendermint_tpu_torch.crypto import bls12_381 as c
     from tendermint_tpu_torch.crypto import bls_native
     from tendermint_tpu_torch.crypto import bls_signatures as bls
@@ -757,6 +853,18 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
         assert bp.f12_to_host(fe_got[0]) == c.F12_ONE, f"{k} product is not one"
         assert c.multi_pairing_is_one(shapes[k]), k
         mill[k] = got
+    # adversarial operands: limbs 0, 1, p - 1 and >= p, off-curve points,
+    # invalid and all-invalid chunks; kernel and plain version byte for byte
+    adv_miller, adv_f12 = pairing_operands(torch, rng, dev)
+    for ch in adv_miller:
+        got, want = bp.miller(*ch), bp.miller_plain(*ch)
+        torch.cuda.synchronize()
+        errs["miller"] = max(errs["miller"], max_abs_err(got, want))
+        assert errs["miller"] == 0, f"tm_miller != plain (adversarial, {ch[0].shape[0]} chunks)"
+    got, want = bp.final_exp(adv_f12), bp.final_exp_plain(adv_f12)
+    torch.cuda.synchronize()
+    errs["final_exp"] = max(errs["final_exp"], max_abs_err(got, want))
+    assert errs["final_exp"] == 0, "tm_final_exp != plain (adversarial)"
     # bilinearity: e(aP, bQ) == e(P, Q)^(ab)
     x, y = scalar(), scalar()
     P0, Q0 = g1(scalar()), g2(scalar())
@@ -766,31 +874,17 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     assert e_1 == c.pairing(P0, Q0), "pairing_value != host oracle"
     print("kernel-vs-plain: g1_aggregate, g2_aggregate (256 points with "
           "duplicates, opposites, identity), miller and final_exp (2-pair "
-          "verify shape, 65-pair RLC shape) equal their plain versions "
-          "(tolerance: exact) and the host oracle; e(aP, bQ) = e(P, Q)^(ab)")
+          "verify shape, 65-pair RLC shape; adversarial operands: limbs 0, 1, "
+          "p - 1 and >= p, off-curve points, invalid and all-invalid chunks, "
+          "the zero element) equal their plain versions (tolerance: exact) "
+          "and the host oracle; e(aP, bQ) = e(P, Q)^(ab)")
 
-    # --- the window: BLS keys for the 150 validators. Four go through
-    # pubkey_from_priv (proof of possession, one native pairing each); the
-    # rest are trusted keys, as a genesis file carries them (set-up).
+    # --- the window: BLS keys for the 150 validators, QC shares on every
+    # commit (set-up)
     t0 = time.perf_counter()
-    vals = vset.validators
-    privs = {v.address: scalar() for v in vals}
-    pubs = {}
-    for i, v in enumerate(vals):
-        k = privs[v.address]
-        pubs[v.address] = (bls.pubkey_from_priv(k) if i < 4 else
-                           bls.new_trusted_public_key(g2(k))).key
-    qset = types.ValidatorSet([
-        types.Validator(v.pub_key, v.voting_power, bls_pub_key=bls.g2_to_bytes(pubs[v.address]))
-        for v in vals
-    ])
-    assert [v.address for v in qset.validators] == [v.address for v in vals]
-    n_win = len(entries)
-    for h, (bid, _, commit) in enumerate(entries, start=1):
-        hm = bls.hash_to_g1(qcm.qc_sign_bytes(chain_id, h, 0, bid))
-        for cs, v in zip(commit.signatures, vals):
-            cs.qc_signature = bls.g1_to_bytes(bls._g1_mul_point(hm, privs[v.address]))
+    qset, vals, privs, pubs = qc_keys(types, bls, qcm, vset, chain_id, entries, scalar, g2)
     keys_s = time.perf_counter() - t0
+    n_win = len(entries)
 
     # the two routes of the JAX package's order: by default native pairing
     # and MSM on the host (no BLS kernel may launch); under
@@ -939,6 +1033,8 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     mv = time_cuda(torch, lambda: bp.miller(*vchunks), 20)
     print(f"time: miller at the 2-pair verify shape {mv:.4f} ms (1 chunk); "
           f"at the 65-pair RLC shape ({n_rlc_chunks} chunks) the miller row | {smi}")
+    timings = {"miller_verify": mv, "miller_rlc": next(r["ms"] for r in rows if r["name"] == "miller"),
+               "final_exp": next(r["ms"] for r in rows if r["name"] == "final_exp")}
     for k, pairs in shapes.items():
         g1b = b"".join(bls.g1_to_bytes(p) for p, _ in pairs)
         g2b = b"".join(bls.g2_to_bytes(q) for _, q in pairs)
@@ -981,7 +1077,7 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
                 [pubs[v.address] for v in vals]),
                ("256 adversarial points", p2, g2s)],
     }
-    return rows, point_sets
+    return rows, point_sets, timings
 
 
 # --- the mixed-key path (secp256k1) and the L2 block's merkle leaves --------
@@ -2533,9 +2629,20 @@ def main() -> int:
                   f"{gc_s * 1e3:.2f} ms | {smi}")
 
     # --- 5. the quorum-certificate path -------------------------------------
-    qc_rows, point_sets = qc_phase(torch, rng, dev, smi, ops, types, vset,
-                                   chain_id, entries)
+    qc_rows, point_sets, k12 = qc_phase(torch, rng, dev, smi, ops, types, vset,
+                                        chain_id, entries)
     rows += qc_rows
+    print(f"kernel12: tm_miller (miller_kernel, one warp a 2-pair chunk, then "
+          f"chunk_product_kernel), median ms of 20 launches at the 2-pair verify "
+          f"shape {k12['miller_verify']:.4f} and the 65-pair RLC shape "
+          f"{k12['miller_rlc']:.4f}; tm_final_exp (final_exp_kernel, one warp an "
+          f"element) {k12['final_exp']:.4f}; critical paths {FP_MILLER_PATH} (+1 a "
+          f"chunk-product level; one thread: {FP_MILLER_THREAD}) and "
+          f"{FP_FINAL_EXP_PATH} (one thread: {FP_FINAL_EXP}) dependent Fp "
+          f"multiplications; ptxas: " + "; ".join(
+              f"{k}: {usages.get(k, 'not reported')}"
+              for k in ("miller_kernel", "chunk_product_kernel", "final_exp_kernel"))
+          + f" | {smi}")
 
     # --- 6. the mixed-key path and the L2 block's merkle leaves ----------
     mix_rows, secp_arrays = mixed_phase(torch, np, rng, dev, smi, ops, types,

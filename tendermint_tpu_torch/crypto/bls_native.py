@@ -9,10 +9,14 @@ pairing on this box.
 
 All entry points return None when the library is unavailable (no
 compiler); callers fall back to the pure-Python path. In the port this
-library serves host-only work: subgroup checks, the field inversion and
-square root of hash-to-G1, and the random-coefficient scalar
-multiplications; pairings and plain aggregation sums run on the port's
-device (ops/bls_*).
+library takes the JAX package's host routes: pairing checks
+(crypto/bls_signatures._pairing_is_one calls pairing_check unless
+TM_TPU_BLS_PAIRING_DEVICE=1 sends them to the port's Miller-loop and
+final-exponentiation kernels), the aggregation sums of two or more points
+(aggregate_signatures, aggregate_public_keys; the named *_device sums, and
+every sum without this library, run on the port's device, ops/bls_g1 and
+ops/bls_g2), subgroup checks, the field inversion and square root of
+hash-to-G1, and the random-coefficient scalar multiplications.
 """
 
 from __future__ import annotations

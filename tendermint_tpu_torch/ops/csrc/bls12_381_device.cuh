@@ -1,7 +1,12 @@
 // BLS12-381 device arithmetic for the aggregation and pairing kernels.
 //
 //   Fp     6 x 64-bit limbs, Montgomery form (R = 2^384), CIOS multiply
-//          through unsigned __int128 products
+//          through unsigned __int128 products (the aggregation and mesh
+//          kernels, and the pairing's one-thread reference)
+//   fq     the pairing kernels' Fp: 12 x 32-bit limbs, the same Montgomery
+//          form (R = 2^384), so a value is the same integer in both; CIOS
+//          over 32 x 32 -> 64-bit products, the products nvcc issues as
+//          IMAD.WIDE.U32 (Hopper has no 64-bit multiply), in registers
 //   Fp2    c0 + c1 u, u^2 = -1
 //   Fp12   the flat sextic Fp2[w]/(w^6 - xi), xi = 1 + u: the tower of the
 //          host oracle (crypto/bls12_381.py) and of native/bls12_381.cpp,
@@ -15,16 +20,34 @@
 //          Z lambda (tendermint_tpu/ops/bls_pairing.py _dbl_step/_add_step)
 //
 // The Fp2/Fp12 code follows native/bls12_381.cpp, the repo's C++ version of
-// the same construction. Inversion is Fermat (a^(p-2)), which is constant
-// time and maps 0 to 0 as the plain versions do.
+// the same construction. The one-thread inversion is Fermat (a^(p-2)),
+// constant time; the warp kernels' fq_inv is a binary extended Euclid with
+// the same value. Both map 0 to 0, as the plain versions do.
+//
+// The pairing kernels run on a warp (the end of this file): their Fp12
+// operations are stage programs (bls12_381_programs.cuh, generated by
+// ops/bls_warp_gen.py from these one-thread formulas) that run_program
+// interprets, a stage of independent fq products or additions at a time,
+// two jobs a lane, over Fp values in shared memory.
 //
 // Values cross the boundary as canonical little-endian bytes: 48 per Fp
 // element; any 48-byte input is read mod p. Built by nvcc for sm_90a; the
-// code is plain C++ over stdint types, so g++ builds it too with the CUDA
-// qualifiers defined away (how the kernels are checked without a card).
+// code is plain C++ over stdint types, so g++ builds it too: the CPU tests
+// run the warp functions through a host harness,
+// tests/bls_pairing_host.cpp. Outside nvcc the device qualifiers below
+// become plain (inline) C++.
 #pragma once
 
 #include <stdint.h>
+
+#ifndef __CUDACC__
+#define __device__ inline
+#define __forceinline__
+#define __noinline__
+#define __constant__ static
+#endif
+
+#include "bls12_381_programs.cuh"
 
 namespace bdev {
 
@@ -823,6 +846,475 @@ __device__ __noinline__ void jac_add(jac<F>& o, const jac<F>& p, const jac<F>& q
   o.x = x3;
   o.y = y3;
   o.z = z3;
+}
+
+// --- the warp-wide pairing: fq and the stage programs ----------------------
+//
+// tm_miller gives one warp to a chunk of two pairs and tm_final_exp one warp
+// to an element. Their Fp12 arithmetic is the one-thread formulas above,
+// unrolled into stage programs (bls12_381_programs.cuh): a stage is up to 64
+// independent jobs of one kind, Fp products, or additions, subtractions and
+// selects, or the one inversion; lane l runs jobs l and l + 32, and the lanes
+// meet at the warp's sync between stages. The operands live in slots of
+// shared memory, one fq each; no stage reads a slot that another lane of it
+// writes (the generator's rule, which the CPU harness checks), so the order
+// of the lanes inside a stage cannot change a value, and every value is the
+// exact field element the one-thread code computes, in canonical limbs.
+// The doubling and addition steps of the two pairs do not depend on f, so
+// their products share stages with f's squaring.
+//
+// W is the warp: w.lane, w.ld(slot), w.st(slot, v), w.sync(). On the card it
+// is shared memory and __syncwarp (bls_kernels.cu); in the CPU harness,
+// 32 host threads in lock-step that check each stage's slot accesses.
+
+struct alignas(16) fq {
+  uint32_t l[12];
+};
+
+static constexpr uint32_t FQ_N0 = 0xfffcfffdu;  // -p^-1 mod 2^32
+
+// the 32-bit limbs of p, as immediates once a loop is unrolled
+__device__ __forceinline__ uint32_t fq_p(int i) {
+  switch (i) {
+    case 0: return 0xffffaaabu;
+    case 1: return 0xb9feffffu;
+    case 2: return 0xb153ffffu;
+    case 3: return 0x1eabfffeu;
+    case 4: return 0xf6b0f624u;
+    case 5: return 0x6730d2a0u;
+    case 6: return 0xf38512bfu;
+    case 7: return 0x64774b84u;
+    case 8: return 0x434bacd7u;
+    case 9: return 0x4b1ba7b6u;
+    case 10: return 0x397fe69au;
+    default: return 0x1a0111eau;
+  }
+}
+
+// r + top 2^384 < 2p -> the representative in [0, p)
+__device__ __forceinline__ void fq_reduce_once(fq& r, uint32_t top) {
+  uint32_t d[12];
+  uint32_t brw = 0;
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    const uint64_t x = (uint64_t)r.l[i] - fq_p(i) - brw;
+    d[i] = (uint32_t)x;
+    brw = (uint32_t)(x >> 63);
+  }
+  const bool take = top != 0 || brw == 0;
+#pragma unroll
+  for (int i = 0; i < 12; i++) r.l[i] = take ? d[i] : r.l[i];
+}
+
+// N independent Montgomery products o[k] = a[k] b[k] R^-1 mod p (a[k] <
+// 2^384, b[k] < p, o[k] < p), CIOS over 32-bit words with their rows
+// interleaved, so a lane has N chains in flight. The reduction factor M =
+// -a b p^-1 mod 2^384 is unique, so the result is fp_mul's limb for limb.
+template <int N>
+__device__ __forceinline__ void fq_mul_n(fq* o, const fq* a, const fq* b) {
+  uint32_t t[N][13];
+#pragma unroll
+  for (int k = 0; k < N; k++)
+#pragma unroll
+    for (int j = 0; j < 13; j++) t[k][j] = 0;
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      const uint32_t bi = b[k].l[i];
+      uint64_t c = 0;
+#pragma unroll
+      for (int j = 0; j < 12; j++) {
+        c += (uint64_t)a[k].l[j] * bi + t[k][j];
+        t[k][j] = (uint32_t)c;
+        c >>= 32;
+      }
+      c += t[k][12];
+      t[k][12] = (uint32_t)c;
+      const uint32_t hi = (uint32_t)(c >> 32);
+      const uint32_t m = t[k][0] * FQ_N0;
+      c = ((uint64_t)m * fq_p(0) + t[k][0]) >> 32;
+#pragma unroll
+      for (int j = 1; j < 12; j++) {
+        c += (uint64_t)m * fq_p(j) + t[k][j];
+        t[k][j - 1] = (uint32_t)c;
+        c >>= 32;
+      }
+      c += t[k][12];
+      t[k][11] = (uint32_t)c;
+      t[k][12] = hi + (uint32_t)(c >> 32);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; k++) {
+    fq r;
+#pragma unroll
+    for (int j = 0; j < 12; j++) r.l[j] = t[k][j];
+    fq_reduce_once(r, t[k][12]);
+    o[k] = r;
+  }
+}
+
+__device__ __forceinline__ void fq_mul(fq& o, const fq& a, const fq& b) {
+  fq_mul_n<1>(&o, &a, &b);
+}
+
+__device__ __forceinline__ void fq_from64(fq& o, const uint64_t* v) {
+  for (int i = 0; i < 6; i++) {
+    o.l[2 * i] = (uint32_t)v[i];
+    o.l[2 * i + 1] = (uint32_t)(v[i] >> 32);
+  }
+}
+
+// a + b, or a - b when neg (a, b < p), by one path of two carry chains:
+// s = a + b, or a + ~b + 1 = a - b mod 2^384 (carry c1: a >= b); then
+// t = s - p (carry c2: s >= p), or s + p; the one of s and t in [0, p)
+__device__ __forceinline__ void fq_add_sub(fq& o, const fq& a, const fq& b,
+                                           bool neg) {
+  const uint32_t m = 0u - (uint32_t)neg;
+  fq s, t;
+  uint64_t c = neg ? 1u : 0u;
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    c += (uint64_t)a.l[i] + (b.l[i] ^ m);
+    s.l[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  uint64_t d = neg ? 0u : 1u;  // + (2^384 - p) = + ~p + 1, or + p
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    d += (uint64_t)s.l[i] + (fq_p(i) ^ ~m);
+    t.l[i] = (uint32_t)d;
+    d >>= 32;
+  }
+  const bool take = neg ? c == 0 : d != 0;
+#pragma unroll
+  for (int i = 0; i < 12; i++) o.l[i] = take ? t.l[i] : s.l[i];
+}
+
+// R^3 mod p: the Montgomery product of a plain inverse with it is the
+// Montgomery form of the inverse
+__constant__ uint32_t FQ_R3[12] = {
+    0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
+    0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
+
+__device__ __forceinline__ bool fq_is_zero(const fq& a) {
+  uint32_t z = 0;
+  for (int i = 0; i < 12; i++) z |= a.l[i];
+  return z == 0;
+}
+
+__device__ __forceinline__ bool fq_is_one_plain(const fq& a) {
+  uint32_t z = a.l[0] ^ 1u;
+  for (int i = 1; i < 12; i++) z |= a.l[i];
+  return z == 0;
+}
+
+// a >= b, as integers
+__device__ __forceinline__ bool fq_geq(const fq& a, const fq& b) {
+  uint32_t brw = 0;
+  for (int i = 0; i < 12; i++) {
+    const uint64_t x = (uint64_t)a.l[i] - b.l[i] - brw;
+    brw = (uint32_t)(x >> 63);
+  }
+  return brw == 0;
+}
+
+// a -= b, as integers (a >= b)
+__device__ __forceinline__ void fq_sub_int(fq& a, const fq& b) {
+  uint32_t brw = 0;
+  for (int i = 0; i < 12; i++) {
+    const uint64_t x = (uint64_t)a.l[i] - b.l[i] - brw;
+    a.l[i] = (uint32_t)x;
+    brw = (uint32_t)(x >> 63);
+  }
+}
+
+// a / 2 mod p, for a < p: a >> 1, or (a + p) >> 1 when a is odd
+__device__ __forceinline__ void fq_half(fq& a) {
+  const uint32_t mask = 0u - (a.l[0] & 1u);
+  uint64_t c = 0;
+  for (int i = 0; i < 12; i++) {
+    c += (uint64_t)a.l[i] + (fq_p(i) & mask);
+    a.l[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  for (int i = 0; i < 11; i++) a.l[i] = (a.l[i] >> 1) | (a.l[i + 1] << 31);
+  a.l[11] = (a.l[11] >> 1) | ((uint32_t)c << 31);
+}
+
+// the inverse in Montgomery form (fp_inv's value: 0 for 0), by the binary
+// extended Euclidean algorithm on the limbs A of a: u = A, v = p with
+// x1 A = u and x2 A = v mod p, halving and subtracting until u or v is 1.
+// Its time depends on a; the pairing's operands are public. A^-1 R^3 R^-1
+// = R^2 / A is the Montgomery form of (A / R)^-1.
+__device__ __noinline__ void fq_inv(fq& o, const fq& a) {
+  if (fq_is_zero(a)) {
+    o = a;
+    return;
+  }
+  fq u = a, v, x1, x2;
+  for (int i = 0; i < 12; i++) {
+    v.l[i] = fq_p(i);
+    x1.l[i] = 0;
+    x2.l[i] = 0;
+  }
+  x1.l[0] = 1;
+  while (!fq_is_one_plain(u) && !fq_is_one_plain(v)) {
+    while ((u.l[0] & 1u) == 0) {
+      for (int i = 0; i < 11; i++) u.l[i] = (u.l[i] >> 1) | (u.l[i + 1] << 31);
+      u.l[11] >>= 1;
+      fq_half(x1);
+    }
+    while ((v.l[0] & 1u) == 0) {
+      for (int i = 0; i < 11; i++) v.l[i] = (v.l[i] >> 1) | (v.l[i + 1] << 31);
+      v.l[11] >>= 1;
+      fq_half(x2);
+    }
+    if (fq_geq(u, v)) {
+      fq_sub_int(u, v);
+      fq_add_sub(x1, x1, x2, true);
+    } else {
+      fq_sub_int(v, u);
+      fq_add_sub(x2, x2, x1, true);
+    }
+  }
+  fq r3;
+  for (int i = 0; i < 12; i++) r3.l[i] = FQ_R3[i];
+  fq_mul(o, fq_is_one_plain(u) ? x1 : x2, r3);
+}
+
+// 48 little-endian bytes (any value < 2^384) -> Montgomery form mod p
+__device__ __forceinline__ void fq_load(fq& o, const uint8_t* b) {
+  fq n, r2;
+  for (int i = 0; i < 12; i++)
+    n.l[i] = (uint32_t)b[4 * i] | (uint32_t)b[4 * i + 1] << 8 |
+             (uint32_t)b[4 * i + 2] << 16 | (uint32_t)b[4 * i + 3] << 24;
+  fq_from64(r2, FP_R2);
+  fq_mul(o, n, r2);
+}
+
+// Montgomery -> canonical 48 little-endian bytes
+__device__ __forceinline__ void fq_store(uint8_t* b, const fq& a) {
+  fq one, n;
+  for (int i = 0; i < 12; i++) one.l[i] = 0;
+  one.l[0] = 1;
+  fq_mul(n, a, one);
+  for (int i = 0; i < 12; i++)
+    for (int j = 0; j < 4; j++) b[4 * i + j] = (uint8_t)(n.l[i] >> (8 * j));
+}
+
+// --- the interpreter --------------------------------------------------------
+
+constexpr int K_MUL = 0, K_ALU = 1, K_INV = 2;
+constexpr int OP_MUL = 0, OP_ADD = 1, OP_SUB = 2, OP_SEL0 = 3, OP_SEL1 = 4,
+              OP_INV = 5;
+
+__device__ __forceinline__ int job_dst(uint32_t j) { return (j >> 3) & 511; }
+__device__ __forceinline__ int job_a(uint32_t j) { return (j >> 12) & 1023; }
+__device__ __forceinline__ int job_b(uint32_t j) { return (j >> 22) & 1023; }
+
+// an addition, subtraction or select; flags bit k: pair k is valid
+template <class W>
+__device__ __forceinline__ void alu_job(W& w, uint32_t j, unsigned flags) {
+  const int op = j & 7;
+  const fq a = w.ld(job_a(j)), b = w.ld(job_b(j));
+  fq r;
+  if (op <= OP_SUB)
+    fq_add_sub(r, a, b, op == OP_SUB);
+  else
+    r = ((flags >> (op - OP_SEL0)) & 1) ? a : b;
+  w.st(job_dst(j), r);
+}
+
+// job i of stage word st, or 0 past its jobs
+__device__ __forceinline__ uint32_t stage_job(uint32_t st, int i) {
+  return i < (int)((st >> 2) & 127) ? prog::JOBS[(st >> 9) + i] : 0u;
+}
+
+// the stages first .. first + n - 1 of prog::STAGES, then the warp's sync
+// after each; every lane runs every stage (lanes without a job idle), so
+// the warp stays converged at its syncs. A stage's jobs are loaded while
+// the stage before it runs.
+template <class W>
+__device__ __forceinline__ void run_program(W& w, int first, int n,
+                                            unsigned flags) {
+  const int l = w.lane;
+  uint32_t st = prog::STAGES[first];
+  uint32_t j0 = stage_job(st, l), j1 = stage_job(st, l + 32);
+  for (int s = first; s < first + n; s++) {
+    const uint32_t st_next = s + 1 < first + n ? prog::STAGES[s + 1] : 0u;
+    const uint32_t n0 = stage_job(st_next, l), n1 = stage_job(st_next, l + 32);
+    const int kind = st & 3, nj = (st >> 2) & 127;
+    if (kind == K_MUL) {
+      if (nj > 32) {
+        // two products a lane; a lane with one reads slot 0 for the other
+        // and discards it
+        const bool two = l + 32 < nj;
+        fq a[2] = {w.ld(job_a(j0)), w.ld(job_a(j1))};
+        fq b[2] = {w.ld(job_b(j0)), w.ld(job_b(j1))};
+        fq r[2];
+        fq_mul_n<2>(r, a, b);
+        w.st(job_dst(j0), r[0]);
+        if (two) w.st(job_dst(j1), r[1]);
+      } else if (l < nj) {
+        const fq a = w.ld(job_a(j0)), b = w.ld(job_b(j0));
+        fq r;
+        fq_mul(r, a, b);
+        w.st(job_dst(j0), r);
+      }
+    } else if (kind == K_ALU) {
+      if (l < nj) alu_job(w, j0, flags);
+      if (l + 32 < nj) alu_job(w, j1, flags);
+    } else if (l < nj) {
+      fq r;
+      fq_inv(r, w.ld(job_a(j0)));
+      w.st(job_dst(j0), r);
+    }
+    w.sync();
+    st = st_next;
+    j0 = n0;
+    j1 = n1;
+  }
+}
+
+#define TM_RUN(w, P, flags) run_program(w, prog::P##_FIRST, prog::P##_N, flags)
+
+// slots 0 .. NCONST - 1: zero, one and gamma's coefficients
+template <class W>
+__device__ __forceinline__ void warp_consts(W& w) {
+  if (w.lane < prog::NCONST) {
+    fq c;
+    for (int i = 0; i < 12; i++) c.l[i] = prog::CONSTS[w.lane][i];
+    w.st(w.lane, c);
+  }
+  w.sync();
+}
+
+// the Miller value of chunk k (pairs 2k, 2k + 1), conjugated, into out as
+// 144 Montgomery words (an fp12's memory layout): lanes 0-11 load the
+// coordinates (P to M_P, Q to M_Q), then f = 1 and T = Q, then a program
+// per bit of |x| after the leading one (M_ADD where the bit is set), then
+// f = conj(f). Invalid pairs run their T chain and fold the identity line.
+template <class W>
+__device__ __forceinline__ void miller_chunk_w(W& w, const uint8_t* xp,
+                                               const uint8_t* yp,
+                                               const uint8_t* xq,
+                                               const uint8_t* yq,
+                                               const bool* valid, int k,
+                                               uint32_t* out) {
+  warp_consts(w);
+  const int l = w.lane;
+  if (l < 12) {
+    const uint8_t* src;
+    if (l < 4) {
+      src = ((l & 1) ? yp : xp) + 48 * (2 * k + (l >> 1));
+    } else {
+      const int q = l - 4;  // pair q / 4, x or y, component
+      src = (((q >> 1) & 1) ? yq : xq) + 96 * (2 * k + (q >> 2)) + 48 * (q & 1);
+    }
+    fq v;
+    fq_load(v, src);
+    w.st(l < 4 ? prog::M_P + l : prog::M_Q + l - 4, v);
+  }
+  w.sync();
+  const unsigned flags = (valid[2 * k] ? 1u : 0u) | (valid[2 * k + 1] ? 2u : 0u);
+  TM_RUN(w, M_INIT, flags);
+  for (int bit = 62; bit >= 0; bit--) {
+    if ((X_ABS >> bit) & 1)
+      TM_RUN(w, M_ADD, flags);
+    else
+      TM_RUN(w, M_DBL, flags);
+  }
+  TM_RUN(w, M_FINAL, flags);
+  if (l < 12) {
+    const fq v = w.ld(prog::M_F + l);
+    for (int i = 0; i < 12; i++) out[12 * l + i] = v.l[i];
+  }
+  w.sync();
+}
+
+// s[dst] = s[x] s[y], fp12s of 144 Montgomery words (the chunk product);
+// the warp's constants must be loaded
+template <class W>
+__device__ __forceinline__ void chunk_mul_w(W& w, uint32_t* s, int dst, int x,
+                                            int y) {
+  const int l = w.lane;
+  if (l < 24) {
+    const uint32_t* src = s + 144 * (l < 12 ? x : y) + 12 * (l % 12);
+    fq v;
+    for (int i = 0; i < 12; i++) v.l[i] = src[i];
+    w.st(prog::C_X + l, v);  // C_Y = C_X + 12
+  }
+  w.sync();
+  TM_RUN(w, MUL12, 0u);
+  if (l < 12) {
+    const fq v = w.ld(prog::C_Z + l);
+    for (int i = 0; i < 12; i++) s[144 * dst + 12 * l + i] = v.l[i];
+  }
+  w.sync();
+}
+
+// the product of the c (a power of two) chunk values in s, as a tree
+// (level `step` multiplies chunk 2 i step + step into 2 i step), products
+// of a level spread over nwarps warps, block_sync between levels; warp 0
+// writes the canonical bytes
+template <class W, class Sync>
+__device__ __forceinline__ void chunk_product_w(W& w, int warp, int nwarps,
+                                                uint32_t* s, int c,
+                                                uint8_t* out,
+                                                Sync block_sync) {
+  warp_consts(w);
+  for (int step = 1; step < c; step <<= 1) {
+    for (int i = warp; 2 * i * step < c; i += nwarps)
+      chunk_mul_w(w, s, 2 * i * step, 2 * i * step, 2 * i * step + step);
+    block_sync();
+  }
+  if (warp == 0 && w.lane < 12) {
+    fq v;
+    for (int i = 0; i < 12; i++) v.l[i] = s[12 * w.lane + i];
+    fq_store(out + 48 * w.lane, v);
+  }
+}
+
+// a^|x| into R from X (the input of a^x; its conj is taken by the next
+// program)
+template <class W>
+__device__ __forceinline__ void exp_xabs_w(W& w) {
+  TM_RUN(w, FE_RONE, 0u);
+  for (int i = 63; i >= 0; i--) {
+    TM_RUN(w, FE_CYC, 0u);
+    if ((X_ABS >> i) & 1) TM_RUN(w, FE_MULX, 0u);
+  }
+}
+
+// f^((p^12 - 1)/r * 3) of the element at in (576 bytes) into out:
+// final_exponentiation's easy part and hard-part chain, each a^x a run of
+// 64 cyclotomic squarings and 6 products
+template <class W>
+__device__ __forceinline__ void final_exp_w(W& w, const uint8_t* in,
+                                            uint8_t* out) {
+  warp_consts(w);
+  const int l = w.lane;
+  if (l < 12) {
+    fq v;
+    fq_load(v, in + 48 * l);
+    w.st(prog::E_F + l, v);
+  }
+  w.sync();
+  TM_RUN(w, FE_EASY, 0u);  // F = easy(f), X = F
+  exp_xabs_w(w);
+  TM_RUN(w, FE_G1, 0u);  // A = f^x conj(f), X = A
+  exp_xabs_w(w);
+  TM_RUN(w, FE_G2, 0u);  // A = a^x conj(a), X = A
+  exp_xabs_w(w);
+  TM_RUN(w, FE_G3, 0u);  // B = a^x frob(a), X = B
+  exp_xabs_w(w);
+  TM_RUN(w, FE_G4, 0u);  // X = b^x
+  exp_xabs_w(w);
+  TM_RUN(w, FE_G5, 0u);  // O = (b^x)^x frob^2(b) conj(b) f^2 f
+  if (l < 12) fq_store(out + 48 * l, w.ld(prog::E_O + l));
+  w.sync();
 }
 
 }  // namespace bdev

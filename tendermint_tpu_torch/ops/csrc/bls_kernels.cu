@@ -17,22 +17,33 @@
 //                       cube_jit), driven by pairing_value :541 and
 //                       check_pairs :554
 //
-// What bounds them on an H100: integer multiplies. An Fp multiplication is
-// 72 64x64->128-bit products; a 2-pair Miller loop is ~14k Fp
-// multiplications, a final exponentiation ~9k, a G2 addition 43. Inputs are a few KiB, so no
-// kernel is near the memory roofline. Design, simple first:
+// What bounds them on an H100: integer multiplies, and for the pairing the
+// length of one dependent chain. An Fp multiplication is 72 64x64->128-bit
+// products (144 32x32->64-bit ones and as many for the reduction); a 2-pair
+// Miller loop is ~14k Fp multiplications, a final exponentiation ~9k, a G2
+// addition 43. Inputs are a few KiB, so no kernel is near the memory
+// roofline. Design:
 // - aggregation: one block per tree, the leaves in a global-memory scratch
 //   in Montgomery form, one thread per addition of a level and
 //   __syncthreads between levels (level s adds element 2is + s into 2is,
 //   the JAX package's pairing of neighbours);
-// - Miller: one thread per 2-pair chunk, state in local memory; a second
-//   kernel (one block) multiplies the chunk values as a tree;
-// - final exponentiation: one thread per element;
 // - the butterfly add: one thread per pair, the tree's device add; a round
-//   adds one partial per shard, so each launch has one active thread.
-// A pairing check is therefore two serial chains on two threads, and the
-// card is nearly idle; spreading an Fp12 product over a warp is later work.
-// Heavy helpers are __noinline__ to keep nvcc's time and the code small.
+//   adds one partial per shard, so each launch has one active thread;
+// - the pairing (tm_miller, tm_final_exp): a check is one chain, so it is
+//   spread over a warp. One warp per 2-pair chunk (miller_kernel) and per
+//   element (final_exp_kernel) runs the stage programs of
+//   bls12_381_device.cuh (run_program): each Fp12 operation is a stage of up
+//   to 64 independent fq products, two a lane, and stages of additions,
+//   with __syncwarp between them, over 32-bit-limb values in shared memory;
+//   the two pairs' doubling and addition steps share stages with f's
+//   squaring, and a bit's lines multiply together before they meet f. The
+//   chunk product (chunk_product_kernel) is a tree of warp-wide products,
+//   the products of a level on the block's four warps. Critical paths, in
+//   dependent Fp multiplications: Miller 13,972 on one thread -> 332 (the
+//   M_* programs: 5 a doubling bit, 8 an addition bit), final
+//   exponentiation 8,765 -> 373 (its inversion a binary extended Euclid on
+//   one lane, data-dependent halvings and subtractions, where the one
+//   thread ran 610 multiplications of Fermat's).
 //
 // Plain C interface: no PyTorch headers here. Launchers run on the caller's
 // stream, allocate nothing (the wrappers pass the scratch), and return
@@ -48,6 +59,7 @@ namespace {
 
 constexpr int kTreeThreads = 128;
 constexpr int kChunkThreads = 32;
+constexpr int kProdWarps = 4;
 
 template <class F>
 __device__ void aggregate_tree(const uint8_t* in, jac<F>* scratch,
@@ -128,72 +140,42 @@ __global__ void g2_add_kernel(const uint8_t* p, const uint8_t* q, uint8_t* o,
   add_pairs<fp2>(p, q, o, n);
 }
 
-// one thread per chunk of two (P, Q) pairs; invalid pairs fold the
-// identity line (skipped)
-__global__ void miller_kernel(const uint8_t* xp, const uint8_t* yp,
-                              const uint8_t* xq, const uint8_t* yq,
-                              const bool* valid, fp12* scratch, int c) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= c) return;
-  fp px[2], py[2];
-  fp2 qx[2], qy[2], tx[2], ty[2], tz[2];
-  bool v[2];
-  for (int i = 0; i < 2; i++) {
-    const int r = 2 * k + i;
-    fp_load(px[i], xp + 48 * r);
-    fp_load(py[i], yp + 48 * r);
-    f2_load(qx[i], xq + 96 * r);
-    f2_load(qy[i], yq + 96 * r);
-    v[i] = valid[r];
-    tx[i] = qx[i];
-    ty[i] = qy[i];
-    fp_one(tz[i].c0);
-    fp_zero(tz[i].c1);
-  }
-  fp12 f;
-  f12_one(f);
-  for (int bit = 62; bit >= 0; bit--) {
-    f12_sqr(f, f);
-    for (int i = 0; i < 2; i++) {
-      fp2 l0, l2, l3;
-      miller_dbl_step(l0, l2, l3, tx[i], ty[i], tz[i], px[i], py[i]);
-      if (v[i]) f12_mul_line(f, f, l0, l2, l3);
-    }
-    if ((X_ABS >> bit) & 1) {
-      for (int i = 0; i < 2; i++) {
-        fp2 l0, l2, l3;
-        miller_add_step(l0, l2, l3, tx[i], ty[i], tz[i], qx[i], qy[i], px[i],
-                        py[i]);
-        if (v[i]) f12_mul_line(f, f, l0, l2, l3);
-      }
-    }
-  }
-  f12_conj(scratch[k], f);
+// the warp: shared-memory slots and __syncwarp
+struct DevWarp {
+  fq* sm;
+  int lane;
+  __device__ __forceinline__ fq ld(int s) const { return sm[s]; }
+  __device__ __forceinline__ void st(int s, const fq& v) { sm[s] = v; }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+// one warp per chunk of two (P, Q) pairs: its Miller value, conjugated, in
+// Montgomery words into scratch
+__global__ void __launch_bounds__(32)
+    miller_kernel(const uint8_t* xp, const uint8_t* yp, const uint8_t* xq,
+                  const uint8_t* yq, const bool* valid, uint32_t* scratch) {
+  __shared__ fq sm[prog::M_SLOTS];
+  DevWarp w{sm, (int)threadIdx.x};
+  miller_chunk_w(w, xp, yp, xq, yq, valid, blockIdx.x,
+                 scratch + 144 * (size_t)blockIdx.x);
 }
 
-// product of the c (a power of two) chunk values, as a tree, in one block
-__global__ void chunk_product_kernel(fp12* s, int c, uint8_t* out) {
-  for (int step = 1; step < c; step <<= 1) {
-    for (int i = threadIdx.x; 2 * i * step < c; i += blockDim.x) {
-      const int k = 2 * i * step;
-      fp12 r;
-      f12_mul(r, s[k], s[k + step]);
-      s[k] = r;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) f12_store(out, s[0]);
+// product of the c (a power of two) chunk values, as a tree of warp-wide
+// products on kProdWarps warps of one block
+__global__ void __launch_bounds__(32 * kProdWarps)
+    chunk_product_kernel(uint32_t* s, int c, uint8_t* out) {
+  __shared__ fq sm[kProdWarps][prog::C_SLOTS];
+  const int warp = threadIdx.x >> 5;
+  DevWarp w{sm[warp], (int)(threadIdx.x & 31)};
+  chunk_product_w(w, warp, kProdWarps, s, c, out, [] { __syncthreads(); });
 }
 
-__global__ void final_exp_kernel(const uint8_t* in, uint8_t* out, int n) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  fp2 gamma[6];
-  fp12_gamma(gamma);
-  fp12 f, r;
-  f12_load(f, in + 576 * k);
-  final_exponentiation(r, f, gamma);
-  f12_store(out + 576 * k, r);
+// one warp per element
+__global__ void __launch_bounds__(32)
+    final_exp_kernel(const uint8_t* in, uint8_t* out) {
+  __shared__ fq sm[prog::FE_SLOTS];
+  DevWarp w{sm, (int)threadIdx.x};
+  final_exp_w(w, in + 576 * (size_t)blockIdx.x, out + 576 * (size_t)blockIdx.x);
 }
 
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
@@ -244,23 +226,20 @@ int tm_miller(const void* xp, const void* yp, const void* xq, const void* yq,
               const void* valid, void* scratch, void* out, int c,
               void* stream) {
   if (c <= 0) return (int)cudaGetLastError();
-  miller_kernel<<<blocks_for(c, kChunkThreads), kChunkThreads, 0,
-                  (cudaStream_t)stream>>>(
+  miller_kernel<<<c, 32, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)xp, (const uint8_t*)yp, (const uint8_t*)xq,
-      (const uint8_t*)yq, (const bool*)valid, (fp12*)scratch, c);
+      (const uint8_t*)yq, (const bool*)valid, (uint32_t*)scratch);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  chunk_product_kernel<<<1, tree_threads(c > 1 ? c : 2), 0,
-                       (cudaStream_t)stream>>>((fp12*)scratch, c,
-                                               (uint8_t*)out);
+  chunk_product_kernel<<<1, 32 * kProdWarps, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)scratch, c, (uint8_t*)out);
   return (int)cudaGetLastError();
 }
 
 int tm_final_exp(const void* in, void* out, int n, void* stream) {
   if (n > 0)
-    final_exp_kernel<<<blocks_for(n, kChunkThreads), kChunkThreads, 0,
-                       (cudaStream_t)stream>>>((const uint8_t*)in,
-                                               (uint8_t*)out, n);
+    final_exp_kernel<<<n, 32, 0, (cudaStream_t)stream>>>((const uint8_t*)in,
+                                                         (uint8_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,430 @@
+// Host harness of the warp-wide BLS12-381 pairing kernels, for the CPU tests
+// (tests/test_torch_bls_pairing_lanes.py builds it with g++).
+//
+// It runs the same source as the card: the fq core, run_program and the
+// stage programs, miller_chunk_w, chunk_product_w and final_exp_w of
+// ops/csrc/bls12_381_device.cuh, with 32 host threads playing the lanes of a
+// warp over one shared slot array. The warp's sync is a barrier of the 32
+// threads, so the lanes run in lock-step, a stage at a time. At each sync
+// the harness checks the stage that ends there:
+// - every lane arrives with the same tag (the call and the lane's count of
+//   syncs in it): a lane that ran a different number of stages, or left
+//   early, fails the call;
+// - no slot was written by two lanes, or written by one lane and read by
+//   another, in the stage: on the card, such a read could see either value.
+// It also exports the one-thread functions of the same header (fp_mul,
+// f12_mul, f12_sqr, ..., the Miller steps), which the tests hold the warp
+// functions against.
+#include <stdint.h>
+#include <string.h>
+
+#include <atomic>
+#include <thread>
+#include <vector>
+
+#include "../tendermint_tpu_torch/ops/csrc/bls12_381_device.cuh"
+
+using namespace bdev;
+
+namespace {
+
+constexpr int kLanes = 32;
+constexpr long kDone = -1;  // the tag of a lane that has returned
+
+struct Warp {
+  std::atomic<int> arrived{0};
+  std::atomic<unsigned> gen{0};
+  std::atomic<bool> failed{false};
+  std::vector<fq> sm;
+  std::vector<int> rd[kLanes], wr[kLanes];
+  long tag[kLanes];
+  std::vector<int> writer;
+
+  explicit Warp(int nslots) : sm(nslots), writer(nslots, -1) {
+    memset(sm.data(), 0xA5, sizeof(fq) * nslots);  // no slot starts as zero
+  }
+
+  // the stage's accesses, by the last lane to arrive
+  void check_stage() {
+    for (int l = 1; l < kLanes; l++)
+      if (tag[l] != tag[0]) failed = true;
+    for (int l = 0; l < kLanes; l++)
+      for (int s : wr[l]) {
+        if (writer[s] != -1 && writer[s] != l) failed = true;
+        writer[s] = l;
+      }
+    for (int l = 0; l < kLanes; l++)
+      for (int s : rd[l])
+        if (writer[s] != -1 && writer[s] != l) failed = true;
+    for (int l = 0; l < kLanes; l++) {
+      for (int s : wr[l]) writer[s] = -1;
+      rd[l].clear();
+      wr[l].clear();
+    }
+  }
+
+  // a barrier of the 32 lanes, which sleep on the generation word; the
+  // last to arrive checks the stage and wakes them. After a failure it no
+  // longer waits, so every lane runs to its end.
+  void barrier(int lane, long t) {
+    tag[lane] = t;
+    if (failed) return;
+    const unsigned g = gen.load(std::memory_order_acquire);
+    if (arrived.fetch_add(1, std::memory_order_acq_rel) == kLanes - 1) {
+      check_stage();
+      arrived.store(0, std::memory_order_relaxed);
+      gen.store(g + 1, std::memory_order_release);
+      gen.notify_all();
+      return;
+    }
+    gen.wait(g, std::memory_order_acquire);
+  }
+};
+
+struct HostWarp {
+  Warp* wp;
+  int lane;
+  long call = 0, seq = 0;
+
+  fq ld(int s) {
+    wp->rd[lane].push_back(s);
+    return wp->sm[s];
+  }
+  void st(int s, const fq& v) {
+    wp->wr[lane].push_back(s);
+    wp->sm[s] = v;
+  }
+  void sync() { wp->barrier(lane, (call << 32) | ++seq); }
+};
+
+// fn(w) on 32 lanes in lock-step, then a last barrier with the tag kDone;
+// 0, or -1 if the lanes fell out of lock-step or a stage's accesses clashed
+template <class F>
+int run_warp(int nslots, F fn) {
+  Warp wp(nslots);
+  std::thread lanes[kLanes];
+  for (int lane = 0; lane < kLanes; lane++) {
+    lanes[lane] = std::thread([&, lane] {
+      HostWarp w{&wp, lane};
+      fn(w);
+      wp.barrier(lane, kDone);
+    });
+  }
+  for (auto& t : lanes) t.join();
+  return wp.failed ? -1 : 0;
+}
+
+void words_of(uint32_t* o, const fp& a) {
+  for (int i = 0; i < 6; i++) {
+    o[2 * i] = (uint32_t)a.l[i];
+    o[2 * i + 1] = (uint32_t)(a.l[i] >> 32);
+  }
+}
+
+void f12_words(uint32_t* o, const fp12& a) {
+  for (int i = 0; i < 6; i++) {
+    words_of(o + 24 * i, a.c[i].c0);
+    words_of(o + 24 * i + 12, a.c[i].c1);
+  }
+}
+
+void raw48(fp& a, const uint8_t* b) {
+  for (int i = 0; i < 6; i++) {
+    uint64_t v = 0;
+    for (int j = 7; j >= 0; j--) v = (v << 8) | b[8 * i + j];
+    a.l[i] = v;
+  }
+}
+
+void fq_raw48(fq& a, const uint8_t* b) {
+  for (int i = 0; i < 12; i++)
+    a.l[i] = (uint32_t)b[4 * i] | (uint32_t)b[4 * i + 1] << 8 |
+             (uint32_t)b[4 * i + 2] << 16 | (uint32_t)b[4 * i + 3] << 24;
+}
+
+// a test program Z = op(X, Y) on one warp, X and Y loaded from bytes (Y
+// may be null); Z's Montgomery words into out[144]
+int run_test_program(int first, int n, const uint8_t* x, const uint8_t* y,
+                     uint32_t* out) {
+  return run_warp(prog::C_SLOTS, [&](HostWarp& w) {
+    warp_consts(w);
+    const int l = w.lane;
+    if (l < 12 || (y && l < 24)) {
+      fq v;
+      fq_load(v, l < 12 ? x + 48 * l : y + 48 * (l - 12));
+      w.st(prog::C_X + l, v);
+    }
+    w.sync();
+    run_program(w, first, n, 0u);
+    if (l < 12) {
+      const fq v = w.ld(prog::C_Z + l);
+      memcpy(out + 12 * l, v.l, 48);
+    }
+    w.sync();
+  });
+}
+
+}  // namespace
+
+extern "C" {
+
+// For n pairs of raw 48-byte integers (a < 2^384 any, b < p), out[n][12][12]
+// words: fp_mul(a, b) and fq_mul(a, b) of the raw limbs; fp_add and
+// fq_add_sub's sum, fp_sub and its difference (of a mod p, b); fp_load(a)
+// and fq_load(a); fp_inv(b) (Fermat) and fq_inv(b) (binary extended
+// Euclid); the canonical bytes of fp_store(b) and fq_store(b) as words
+int tm_host_fq_ops(const uint8_t* a, const uint8_t* b, int n, uint32_t* out) {
+  for (int i = 0; i < n; i++) {
+    fp pa, pb, r, am;
+    fq qa, qb, q;
+    raw48(pa, a + 48 * i);
+    raw48(pb, b + 48 * i);
+    fq_raw48(qa, a + 48 * i);
+    fq_raw48(qb, b + 48 * i);
+    uint32_t* o = out + 144 * i;
+    fp_mul(r, pa, pb);
+    words_of(o, r);
+    fq_mul(q, qa, qb);
+    memcpy(o + 12, q.l, 48);
+    // a mod p, for the additions (their operands are canonical)
+    fp one;
+    fp_zero(one);
+    one.l[0] = 1;
+    fp r2;
+    fp_set(r2, FP_R2);
+    fp_mul(am, pa, r2);
+    fp_mul(am, am, one);
+    fq qam;
+    fq_raw48(qam, (const uint8_t*)am.l);
+    fp_add(r, am, pb);
+    words_of(o + 24, r);
+    fq_add_sub(q, qam, qb, false);
+    memcpy(o + 36, q.l, 48);
+    fp_sub(r, am, pb);
+    words_of(o + 48, r);
+    fq_add_sub(q, qam, qb, true);
+    memcpy(o + 60, q.l, 48);
+    fp_load(r, a + 48 * i);
+    words_of(o + 72, r);
+    fq_load(q, a + 48 * i);
+    memcpy(o + 84, q.l, 48);
+    fp_inv(r, pb);
+    words_of(o + 96, r);
+    fq_inv(q, qb);
+    memcpy(o + 108, q.l, 48);
+    fp_store((uint8_t*)(o + 120), pb);
+    fq_store((uint8_t*)(o + 132), qb);
+  }
+  return 0;
+}
+
+// For n pairs of fp12s x, y (canonical bytes [6][2][48]; of y the line
+// (l0, l2, l3) is its coefficients 0-2), out[n][2][6][144] words: the
+// one-thread f12_mul(x, y), f12_sqr(x), f12_mul_line(x, l0, l2, l3),
+// f12_cyclo_sqr(x), f12_frob(x), f12_inv(x), then the warp programs MUL12,
+// T_SQR, T_LINE, T_CYC, T_FROB, T_INV on the same operands. 0, or -1 if a
+// warp run failed its checks.
+int tm_host_f12_ops(const uint8_t* x, const uint8_t* y, int n, uint32_t* out) {
+  fp2 gamma[6];
+  fp12_gamma(gamma);
+  for (int i = 0; i < n; i++) {
+    const uint8_t* xi = x + 576 * i;
+    const uint8_t* yi = y + 576 * i;
+    uint32_t* o = out + 2 * 6 * 144 * i;
+    fp12 a, b, r;
+    f12_load(a, xi);
+    f12_load(b, yi);
+    f12_mul(r, a, b);
+    f12_words(o, r);
+    f12_sqr(r, a);
+    f12_words(o + 144, r);
+    f12_mul_line(r, a, b.c[0], b.c[1], b.c[2]);
+    f12_words(o + 288, r);
+    f12_cyclo_sqr(r, a);
+    f12_words(o + 432, r);
+    f12_frob(r, a, gamma);
+    f12_words(o + 576, r);
+    f12_inv(r, a);
+    f12_words(o + 720, r);
+    uint32_t* q = o + 864;
+    const int progs[6][2] = {
+        {prog::MUL12_FIRST, prog::MUL12_N}, {prog::T_SQR_FIRST, prog::T_SQR_N},
+        {prog::T_LINE_FIRST, prog::T_LINE_N}, {prog::T_CYC_FIRST, prog::T_CYC_N},
+        {prog::T_FROB_FIRST, prog::T_FROB_N}, {prog::T_INV_FIRST, prog::T_INV_N}};
+    for (int k = 0; k < 6; k++) {
+      const bool two = k == 0 || k == 2;
+      if (run_test_program(progs[k][0], progs[k][1], xi, two ? yi : nullptr,
+                           q + 144 * k) != 0)
+        return -1;
+    }
+  }
+  return 0;
+}
+
+// One Miller bit on both sides for n states. state[n] = f (576 bytes), then
+// for pairs k = 0, 1: T_k = X, Y, Z (3 x 96 bytes), P_k = xp, yp (2 x 48),
+// Q_k = xq, yq (2 x 96): 576 + 2 * 576 = 1728 bytes. flags[n]: bit k pair
+// k valid; with_add: the bit of |x| is set. out[n][2][(12 + 12) 12] words:
+// f and T_0, T_1 (X, Y, Z) by the one-thread code (f12_sqr, then each
+// pair's miller_dbl_step and, if valid, f12_mul_line; then the same with
+// miller_add_step), then by the warp program M_DBL or M_ADD. 0, or -1.
+int tm_host_miller_bit(const uint8_t* state, const uint8_t* flags, int n,
+                       int with_add, uint32_t* out) {
+  for (int i = 0; i < n; i++) {
+    const uint8_t* s = state + 1728 * i;
+    uint32_t* o = out + 2 * 288 * i;
+    fp12 f;
+    f12_load(f, s);
+    fp2 X[2], Y[2], Z[2], xq[2], yq[2];
+    fp xp[2], yp[2];
+    for (int k = 0; k < 2; k++) {
+      const uint8_t* b = s + 576 + 576 * k;
+      f2_load(X[k], b);
+      f2_load(Y[k], b + 96);
+      f2_load(Z[k], b + 192);
+      fp_load(xp[k], b + 288);
+      fp_load(yp[k], b + 336);
+      f2_load(xq[k], b + 384);
+      f2_load(yq[k], b + 480);
+    }
+    f12_sqr(f, f);
+    for (int k = 0; k < 2; k++) {
+      fp2 l0, l2, l3;
+      miller_dbl_step(l0, l2, l3, X[k], Y[k], Z[k], xp[k], yp[k]);
+      if ((flags[i] >> k) & 1) f12_mul_line(f, f, l0, l2, l3);
+    }
+    if (with_add) {
+      for (int k = 0; k < 2; k++) {
+        fp2 l0, l2, l3;
+        miller_add_step(l0, l2, l3, X[k], Y[k], Z[k], xq[k], yq[k], xp[k], yp[k]);
+        if ((flags[i] >> k) & 1) f12_mul_line(f, f, l0, l2, l3);
+      }
+    }
+    f12_words(o, f);
+    for (int k = 0; k < 2; k++) {
+      words_of(o + 144 + 72 * k, X[k].c0);
+      words_of(o + 144 + 72 * k + 12, X[k].c1);
+      words_of(o + 144 + 72 * k + 24, Y[k].c0);
+      words_of(o + 144 + 72 * k + 36, Y[k].c1);
+      words_of(o + 144 + 72 * k + 48, Z[k].c0);
+      words_of(o + 144 + 72 * k + 60, Z[k].c1);
+    }
+    uint32_t* q = o + 288;
+    const int rc = run_warp(prog::M_SLOTS, [&](HostWarp& w) {
+      warp_consts(w);
+      const int l = w.lane;
+      // f (12), T (12), P (4), Q (8)
+      if (l < 32) {
+        int slot;
+        const uint8_t* src;
+        if (l < 12) {
+          slot = prog::M_F + l;
+          src = s + 48 * l;
+        } else if (l < 24) {
+          const int k = (l - 12) / 6, c = (l - 12) % 6;
+          slot = prog::M_T + 6 * k + c;
+          src = s + 576 + 576 * k + 48 * c;
+        } else if (l < 28) {
+          const int k = (l - 24) >> 1;
+          slot = prog::M_P + (l - 24);
+          src = s + 576 + 576 * k + 288 + 48 * ((l - 24) & 1);
+        } else {
+          // 4 lanes left for 8 Q slots: two each
+          slot = -1;
+          src = nullptr;
+        }
+        if (slot >= 0) {
+          fq v;
+          fq_load(v, src);
+          w.st(slot, v);
+        } else {
+          for (int h = 0; h < 2; h++) {
+            const int qi = 2 * (l - 28) + h;  // pair qi / 4, x or y, component
+            const int k = qi >> 2;
+            fq v;
+            fq_load(v, s + 576 + 576 * k + 384 + 96 * ((qi >> 1) & 1) + 48 * (qi & 1));
+            w.st(prog::M_Q + qi, v);
+          }
+        }
+      }
+      w.sync();
+      if (with_add)
+        TM_RUN(w, M_ADD, flags[i]);
+      else
+        TM_RUN(w, M_DBL, flags[i]);
+      if (l < 24) {
+        const fq v = w.ld(l < 12 ? prog::M_F + l : prog::M_T + l - 12);
+        memcpy(q + 12 * l, v.l, 48);
+      }
+      w.sync();
+    });
+    if (rc != 0) return -1;
+  }
+  return 0;
+}
+
+// tm_miller's operands on host memory (c chunks): each chunk's
+// miller_chunk_w on one warp, then chunk_product_w on one warp; the
+// canonical product into out (576 bytes) and the chunk values' words into
+// scratch[c][144]. 0, or -1.
+int tm_host_miller(const uint8_t* xp, const uint8_t* yp, const uint8_t* xq,
+                   const uint8_t* yq, const uint8_t* valid, uint32_t* scratch,
+                   uint8_t* out, int c) {
+  for (int k = 0; k < c; k++) {
+    if (run_warp(prog::M_SLOTS, [&](HostWarp& w) {
+          miller_chunk_w(w, xp, yp, xq, yq, (const bool*)valid, k,
+                         scratch + 144 * k);
+        }) != 0)
+      return -1;
+  }
+  std::vector<uint32_t> s(scratch, scratch + 144 * (size_t)c);
+  return run_warp(prog::C_SLOTS, [&](HostWarp& w) {
+    chunk_product_w(w, 0, 1, s.data(), c, out, [] {});
+  });
+}
+
+// tm_final_exp's operands on host memory: each element on one warp. 0, or -1.
+int tm_host_final_exp(const uint8_t* in, uint8_t* out, int n) {
+  for (int k = 0; k < n; k++) {
+    if (run_warp(prog::FE_SLOTS, [&](HostWarp& w) {
+          final_exp_w(w, in + 576 * k, out + 576 * k);
+        }) != 0)
+      return -1;
+  }
+  return 0;
+}
+
+// The one-thread final exponentiation (final_exponentiation) of n elements,
+// for the tests' comparison of the two.
+int tm_host_final_exp_one_thread(const uint8_t* in, uint8_t* out, int n) {
+  fp2 gamma[6];
+  fp12_gamma(gamma);
+  for (int k = 0; k < n; k++) {
+    fp12 f, r;
+    f12_load(f, in + 576 * k);
+    final_exponentiation(r, f, gamma);
+    f12_store(out + 576 * k, r);
+  }
+  return 0;
+}
+
+// The harness's own checks on a toy run of two stages: fault 0 none; 1
+// lane 5 syncs once more than the others; 2 lane 3 reads the slot lane 4
+// writes in the same stage; 3 lanes 6 and 7 both write slot 6. 0, or -1
+// when the run failed its checks.
+int tm_host_lockstep_selftest(int fault) {
+  return run_warp(64, [&](HostWarp& w) {
+    const int l = w.lane;
+    fq v;
+    for (int i = 0; i < 12; i++) v.l[i] = (uint32_t)l;
+    w.st(l, v);
+    if (fault == 2 && l == 3) (void)w.ld(4);
+    if (fault == 3 && l == 7) w.st(6, v);
+    w.sync();
+    w.st(32 + l, w.ld((l + 1) % 32));  // a neighbour's slot, after the sync
+    w.sync();
+    if (fault == 1 && l == 5) w.sync();
+  });
+}
+
+}  // extern "C"
