@@ -4,19 +4,21 @@ PyTorch version and against the same kernel of another tree of this
 repository: the four-lane ed25519 kernels 3 (``tm_verify_table``, the
 small-tier verify), 6 (``tm_verify_bigcache``, the big-tier verify) and 5
 (``tm_neg_pubkey_bigtable``, the big-tier table build), and the warp-wide
-BLS12-381 pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``).
+BLS12-381 kernels: the G2 key sums, kernel 11 (``tm_g2_aggregate``, row
+11b) and kernel 13's G2 half (``tm_g2_add`` and the sharded sum), and the
+pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``).
 
-    python3 chip_kernels.py [--kernel 3 5 6 12] [--parent DIR] [--seed N]
+    python3 chip_kernels.py [--kernel 3 5 6 11 12 13] [--parent DIR] [--seed N]
 
 Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 3, 5,
-6) and ``bls_kernels.cu`` (kernel 12) with ``nvcc`` into plain shared
+6) and ``bls_kernels.cu`` (kernels 11, 12, 13) with ``nvcc`` into plain shared
 libraries (no PyTorch headers) under ``tendermint_tpu_torch/_kbuild/``,
 with ``-Xptxas -v`` for each kernel's registers, stack and spills (the
 whole report beside the library, as ``chip_kernels_<tree>.ptxas.txt`` and
 ``chip_kernels_bls_<tree>.ptxas.txt``); with ``--parent``, the same files
 of the tree at DIR too (e.g. the parent commit unpacked with ``git
 archive``), all nvcc runs started together. Then, for each kernel asked
-for (all four by default), every build is held against the plain version
+for (all six by default), every build is held against the plain version
 on the card and the host oracle, and timed (median of 20 launches between
 CUDA events) in turns parent, this tree, this tree, parent, so that both
 are measured on one card in one call:
@@ -42,6 +44,25 @@ are measured on one card in one call:
   ``run_program`` emptied (``SPLITS``), and each variant's time at the
   verify shape and of ``tm_final_exp`` is printed beside the full build's
   (the ``kernel12 split:`` line).
+- kernel 11: ``tm_g2_aggregate`` at (1, 150) (one QC's 150 signer keys,
+  the device route's assembly), the (64, 150) forest (the no-library QC
+  engine's launch, each tree the keys rotated) and 256 adversarial points
+  (duplicates, opposites, identities), byte for byte against the plain
+  version and the sums against the host oracle; timed at (1, 150) and
+  (64, 150). This tree's ``bls_kernels.cu`` is also built with
+  ``kG2TreeWarps`` at each of ``TREE_WARPS`` (the ``kernel11 warps:``
+  line: each build checked at the three shapes and timed beside the
+  full one).
+- kernel 13: ``g2_aggregate_sharded``'s schedule (``ops/shard_reduce.py``
+  of this tree) over ``chip_smoke.MESH_SHARDS`` (8) shards on the card
+  with each build's ``tm_g2_aggregate`` and ``tm_g2_add``, at the 150
+  keys, the 256 adversarial points and 5 points, against the plain
+  schedule on the CPU byte for byte and the host sum; ``tm_g2_add`` in
+  one launch of ``chip_smoke.BRANCH_PAIRS`` (a pair for each branch: p or
+  q at infinity, p = q in two representations, p = -q, y = 0), against
+  ``g2_add_plain``: this tree must agree, another tree's pairs that
+  differ are printed. Timed: the sharded sum at 150 keys and
+  ``tm_g2_add`` at one pair.
 
 With ``--parent``, a child process per turn (``--turn-tree ROOT``)
 imports that tree's package, builds its kernels and times its main
@@ -50,12 +71,13 @@ paths on the card as ``chip_smoke.py`` does: with kernel 3,
 set; with kernel 5 or 6, the 64-commit x 150-validator blocksync window
 with host-hashed challenges through a started ``VerifyScheduler``, 3
 times (the first builds the big tables), its verdicts and bitmap checked;
-with kernel 12, ``check_pairs`` at 2 pairs on the card (median of 5)
-beside the native host library's ``pairing_check`` on the same pairs, and
-the 64-QC window over the 150 validators on the device route
-(``TM_TPU_BLS_PAIRING_DEVICE=1``) through a started ``VerifyScheduler``,
-twice, its verdicts checked (without ``--parent``, one turn of this
-tree). Prints a ``kernelN:`` line per kernel and build, a ``commit:``, a
+with kernel 11 or 12, ``check_pairs`` at 2 pairs on the card (median
+of 5) beside the native host library's ``pairing_check`` on the same
+pairs, and the 64-QC window over the 150 validators on the device route
+(``TM_TPU_BLS_PAIRING_DEVICE=1``): its assembly (``assemble_qc``, then
+each QC's signature and signer-key sums on the card, timed apart) and
+its check through a started ``VerifyScheduler``, twice, its verdicts
+checked (without ``--parent``, one turn of this tree). Prints a ``kernelN:`` line per kernel and build, a ``commit:``, a
 ``blocksync:`` and a ``pairing:`` line per tree, every number again as one
 JSON object on a
 line of its own, the ``nvidia-smi`` name and power limit, and last the
@@ -87,22 +109,34 @@ K6_LIVE, K6_BUCKET = 9600, 16384  # the blocksync window's rows and bucket
 K5_SIZES = (16, 256)
 BLS_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "bls_kernels.cu")
 KERNEL_NAMES = {3: ("verify_table_kernel",), 5: ("neg_pubkey_bigtable_kernel",),
-                6: ("verify_bigcache_kernel",),
-                12: ("miller_kernel", "chunk_product_kernel", "final_exp_kernel")}
+                6: ("verify_bigcache_kernel",), 11: ("g2_aggregate_kernel",),
+                12: ("miller_kernel", "chunk_product_kernel", "final_exp_kernel"),
+                13: ("g2_add_kernel",)}
+BLS_KERNELS = (11, 12, 13)  # the kernels of bls_kernels.cu
+ALL_KERNELS = (3, 5, 6, 11, 12, 13)
 PAIRING_REPS = 5  # check_pairs and native pairing_check calls per turn
 # kernel 12's time split: builds of this tree's bls_kernels.cu with one part
 # of run_program (bls12_381_device.cuh) emptied, timed beside the full one
 # (their values are wrong; only their times are read)
+DEVICE_H, KERNELS_CU = "bls12_381_device.cuh", "bls_kernels.cu"
 SPLITS = {
     "product stages emptied": [
-        ("        fq_mul_n<2>(r, a, b);", "        r[0] = a[0];\n        r[1] = a[1];"),
-        ("        fq_mul(r, a, b);", "        r = a;")],
+        (DEVICE_H, "        fq_mul_n<2>(r, a, b);",
+         "        r[0] = a[0];\n        r[1] = a[1];"),
+        (DEVICE_H, "        fq_mul(r, a, b);", "        r = a;")],
     "addition stages emptied": [
-        ("      if (l < nj) alu_job(w, j0, flags);\n"
+        (DEVICE_H, "      if (l < nj) alu_job(w, j0, flags);\n"
          "      if (l + 32 < nj) alu_job(w, j1, flags);", "")],
     "inversion emptied": [
-        ("      fq_inv(r, w.ld(job_a(j0)));", "      r = w.ld(job_a(j0));")],
+        (DEVICE_H, "      fq_inv(r, w.ld(job_a(j0)));", "      r = w.ld(job_a(j0));")],
 }
+# kernel 11's warps a tree: builds of this tree's bls_kernels.cu with
+# kG2TreeWarps set to each, checked and timed beside the full build
+TREE_WARPS = (8, 32)
+G2_WARPS_LINE = "constexpr int kG2TreeWarps = 16;"
+WARP_VARIANTS = {f"{n} warps": [(KERNELS_CU, G2_WARPS_LINE, G2_WARPS_LINE.replace("16", str(n)))]
+                 for n in TREE_WARPS}
+N_SHARDED_SMALL = 5  # kernel 13's case of fewer points than shards
 
 
 def chip_smoke():
@@ -133,27 +167,27 @@ def start_build(torch_build, src: str, tag: str):
     return shared, cubin, so
 
 
-def start_split_builds(torch_build) -> dict:
+def start_variant_builds(torch_build, variants: dict, tag: str) -> dict:
     """{variant: (nvcc process, .so path)}: this tree's bls_kernels.cu with
-    the SPLITS patches, each in a directory of its own under _kbuild."""
+    each variant's patches (file, old, new), each in a directory of its own
+    under _kbuild."""
     csrc = os.path.join(ROOT, os.path.dirname(BLS_KERNEL))
     procs = {}
-    for i, (name, patches) in enumerate(SPLITS.items()):
-        d = os.path.join(torch_build.BUILD_DIR, f"chip_kernels_split{i}")
+    for i, (name, patches) in enumerate(variants.items()):
+        d = os.path.join(torch_build.BUILD_DIR, f"chip_kernels_{tag}{i}")
         os.makedirs(d, exist_ok=True)
         for f in os.listdir(csrc):
             if f.endswith((".cu", ".cuh")):
                 with open(os.path.join(csrc, f)) as src, open(os.path.join(d, f), "w") as dst:
                     dst.write(src.read())
-        header = os.path.join(d, "bls12_381_device.cuh")
-        with open(header) as f:
-            text = f.read()
-        for old, new in patches:
-            assert text.count(old) == 1, f"split {name!r}: {old!r} not found once"
-            text = text.replace(old, new)
-        with open(header, "w") as f:
-            f.write(text)
-        so = os.path.join(d, "split.so")
+        for fname, old, new in patches:
+            path = os.path.join(d, fname)
+            with open(path) as f:
+                text = f.read()
+            assert text.count(old) == 1, f"variant {name!r}: {old!r} not found once"
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+        so = os.path.join(d, "variant.so")
         procs[name] = (subprocess.Popen(
             [torch_build._nvcc(), torch_build.ARCH, "-std=c++17", "-O3", "-shared",
              "-Xcompiler", "-fPIC", "-o", so, os.path.join(d, "bls_kernels.cu")],
@@ -163,8 +197,8 @@ def start_split_builds(torch_build) -> dict:
 
 class Build:
     """One tree's build of ed25519_kernels.cu (kernels 3, 6, 5) or
-    bls_kernels.cu (kernel 12), loaded: its launchers on torch tensors,
-    and each kernel's ptxas line."""
+    bls_kernels.cu (kernels 11, 12, 13), loaded: its launchers on torch
+    tensors, and each kernel's ptxas line."""
 
     def __init__(self, shared, cubin, so: str, ptxas_usage, kernels):
         outs = [proc.communicate()[0] for proc in (shared, cubin)]
@@ -184,6 +218,8 @@ class Build:
             "tm_neg_pubkey_bigtable": [vp, vp, vp, vp, i, vp],
             "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
             "tm_final_exp": [vp, vp, i, vp],
+            "tm_g2_aggregate": [vp, vp, vp, i, i, i, vp],
+            "tm_g2_add": [vp, vp, vp, i, vp],
         }
         for name, args in sigs.items():
             if hasattr(lib, name):
@@ -244,10 +280,32 @@ class Build:
         ))
         return out
 
+    def g2_aggregate(self, torch, pts):
+        """tm_g2_aggregate on [T, B, 3, 2, 48] bytes -> [T, 3, 2, 48]
+        (ops/bls_g2.g2_aggregate's operands and scratch)."""
+        t, b = pts.shape[:2]
+        nb = 1 << max(1, (b - 1).bit_length())
+        out = torch.empty((t, 3, 2, 48), dtype=torch.uint8, device=pts.device)
+        scratch = torch.empty(t * nb * 36, dtype=torch.int64, device=pts.device)
+        self._check(self.lib.tm_g2_aggregate(
+            pts.data_ptr(), scratch.data_ptr(), out.data_ptr(), t, b, nb,
+            torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
 
-class SplitBuild(Build):
-    """A SPLITS variant of bls_kernels.cu, loaded: Build's tm_miller and
-    tm_final_exp launchers."""
+    def g2_add(self, torch, p, q):
+        """tm_g2_add on two [n, 3, 2, 48] batches."""
+        out = torch.empty_like(p)
+        self._check(self.lib.tm_g2_add(
+            p.data_ptr(), q.data_ptr(), out.data_ptr(), p.shape[0],
+            torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
+
+class VariantBuild(Build):
+    """A SPLITS or WARP_VARIANTS build of bls_kernels.cu, loaded: Build's
+    BLS launchers."""
 
     def __init__(self, proc, so: str):
         out = proc.communicate()[0]
@@ -257,6 +315,8 @@ class SplitBuild(Build):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.tm_miller.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, vp]
         lib.tm_final_exp.argtypes = [vp, vp, i, vp]
+        lib.tm_g2_aggregate.argtypes = [vp, vp, vp, i, i, i, vp]
+        lib.tm_g2_add.argtypes = [vp, vp, vp, i, vp]
         self.lib = lib
 
 
@@ -329,7 +389,9 @@ def pairing_turn(types, host, vset, by_addr, rng, chain_id: str) -> dict:
     """check_pairs at 2 pairs on the card beside the native library's
     pairing_check on the same pairs (ms, PAIRING_REPS calls each), then the
     64-QC window on the device route (chip_smoke.qc_route, twice, its
-    verdicts checked): wall ms per window and the pairing checks' ms."""
+    verdicts checked): the assembly's ms (assemble_qc, and the signature
+    and signer-key sums on the card), wall ms per window and the pairing
+    checks' ms."""
     import torch
 
     from tendermint_tpu_torch import ops
@@ -376,6 +438,8 @@ def pairing_turn(types, host, vset, by_addr, rng, chain_id: str) -> dict:
     want = [h != cs.QC_BAD for h in range(1, cs.WINDOW + 1)]
     assert all(v == want for v in r["verdicts"]), "qc window verdicts"
     return {"check_pairs_ms": card, "native_ms": native,
+            "assemble_ms": r["assemble_s"] * 1e3,
+            "sums_ms": {g: t * 1e3 for g, t in r["sums_s"].items()},
             "qc_wall_ms": [w * 1e3 for w in r["walls"]],
             "qc_pairing_ms": [a.get("_pairing_is_one", 0.0) * 1e3 for a in r["splits"]],
             "qc_checks": r["win_launches"]["final_exp"] // 2}
@@ -392,6 +456,154 @@ def turn(tree: str, seed: int, what: list[str]) -> dict:
     if "pairing" in what:
         out["pairing"] = pairing_turn(types, host, vset, by_addr, rng, "chip-kernels")
     return out
+
+
+def g2_operands(torch, cs, rng, dev) -> dict:
+    """Kernels 11 and 13's operands on `dev`: N_VALS keys, 256 adversarial
+    points (duplicates, opposites, identities), the trees of kernel 11
+    ({name: [T, B, 3, 2, 48]}) and the host sums."""
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+    from tendermint_tpu_torch.crypto import bls_signatures as bls
+    from tendermint_tpu_torch.ops import bls_g2
+
+    def g2_point() -> tuple:
+        k = int.from_bytes(rng.bytes(32), "big") % (c.R - 1) + 1
+        return bls._g2_mul_point(c.G2_GEN, k)
+
+    keys = [g2_point() for _ in range(N_VALS)]
+    adv = [g2_point() for _ in range(200)]
+    adv += adv[:20] + [c.g2_neg(p) for p in adv[20:40]] + [c.G2_INF] * 16
+    key_pts, adv_pts = g2_stack(torch, keys, dev), g2_stack(torch, adv, dev)
+    trees = {f"1x{N_VALS}": key_pts.unsqueeze(0),
+             f"{cs.WINDOW}x{N_VALS}": torch.stack(
+                 [key_pts.roll(t, 0) for t in range(cs.WINDOW)]).contiguous(),
+             "adversarial 256": adv_pts.unsqueeze(0)}
+    return {"keys": keys, "key_pts": key_pts, "adv_pts": adv_pts, "trees": trees,
+            "key_sum": g2_host_sum(keys), "adv_sum": g2_host_sum(adv)}
+
+
+def g2_stack(torch, pts, dev):
+    from tendermint_tpu_torch.ops import bls_g2
+
+    return torch.stack([bls_g2.g2_from_host(p) for p in pts]).to(dev)
+
+
+def g2_host_sum(pts) -> tuple:
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+
+    acc = c.G2_INF
+    for p in pts:
+        acc = c.g2_add(acc, p)
+    return acc
+
+
+def run_kernel11(torch, cs, g2, bls_built, warp_builds, timed_turns, report, smi) -> dict:
+    """Kernel 11 (tm_g2_aggregate): every build and warp variant held
+    against the plain version and the host sums at g2["trees"], timed in
+    turns at the first two, the variants beside this tree's build."""
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+    from tendermint_tpu_torch.ops import bls_g2
+
+    trees, plain_ms = g2["trees"], {}
+    for name, pts in trees.items():
+        t0 = time.perf_counter()
+        plain = bls_g2.g2_aggregate_plain(pts)
+        if pts.is_cuda:
+            torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        want = g2["adv_sum"] if name == "adversarial 256" else g2["key_sum"]
+        assert all(c.g2_eq(bls_g2.g2_to_host(t), want) for t in plain.cpu()), name
+        for tag, bld in list(bls_built.items()) + list(warp_builds.items()):
+            got = bld.g2_aggregate(torch, pts)
+            if pts.is_cuda:
+                torch.cuda.synchronize()
+            assert cs.max_abs_err(got, plain) == 0, f"{tag}: tm_g2_aggregate != plain ({name})"
+    print(f"kernel-vs-plain: kernel 11 of {sorted(bls_built)} and the "
+          f"{sorted(warp_builds)} builds: tm_g2_aggregate at {list(trees)} equal "
+          f"the plain version byte for byte and the host oracle's sums")
+    timed = list(trees)[:2]
+    times = timed_turns(timed, lambda bld, n: bld.g2_aggregate(torch, trees[n]), bls_built)
+    one, warp = cs.g2_tree_paths(N_VALS)
+    report(11, "trees", times,
+           f"critical path of a tree of {N_VALS} keys {warp} (one thread an "
+           f"addition: {one}); at most {cs.G2_TREE_WARPS} warps a tree", bls_built)
+    variants = {f"{cs.G2_TREE_WARPS} warps": bls_built["this"], **warp_builds}
+    warp_ms = {name: {n: cs.time_cuda(torch, lambda: bld.g2_aggregate(torch, trees[n]), REPS)
+                      for n in timed}
+               for name, bld in variants.items()}
+    print("kernel11 warps: this tree, median ms of 20 launches of tm_g2_aggregate "
+          f"at {timed} with at most N warps a tree (kG2TreeWarps): " + "; ".join(
+              f"{name} " + " / ".join(f"{t[n]:.4f}" for n in timed)
+              for name, t in warp_ms.items()) + f" | {smi}")
+    print(f"time: g2_aggregate_plain on the card (one call, host clock) "
+          f"{json.dumps({k: round(v, 2) for k, v in plain_ms.items()})} | {smi}")
+    return {"plain_ms": plain_ms, "ms": times, "warps_ms": warp_ms}
+
+
+def run_kernel13(torch, cs, g2, bls_built, timed_turns, report, smi) -> dict:
+    """Kernel 13's G2 half: the sharded sum's schedule (this tree's
+    ops/shard_reduce.py) over MESH_SHARDS shards with each build's
+    tm_g2_aggregate and tm_g2_add, against the plain schedule on the CPU
+    and the host sums; tm_g2_add on pairs of every branch against
+    g2_add_plain; both timed in turns."""
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+    from tendermint_tpu_torch.ops import bls_g2, shard_reduce
+    from tendermint_tpu_torch.parallel.mesh import Mesh
+
+    key_pts, keys = g2["key_pts"], g2["keys"]
+    dev = key_pts.device
+    mesh = Mesh([dev] * cs.MESH_SHARDS)
+    ident = bls_g2.g2_identity()
+    cases = {f"{N_VALS} keys": (key_pts, g2["key_sum"]),
+             "adversarial 256": (g2["adv_pts"], g2["adv_sum"]),
+             f"{N_SHARDED_SMALL} keys": (key_pts[:N_SHARDED_SMALL].contiguous(),
+                                         g2_host_sum(keys[:N_SHARDED_SMALL]))}
+
+    def sharded(bld, pts):
+        return shard_reduce.aggregate_sharded(
+            pts, mesh, lambda x: bld.g2_aggregate(torch, x),
+            lambda p, q: bld.g2_add(torch, p, q), ident)
+
+    for name, (pts, want) in cases.items():
+        plain = bls_g2.g2_aggregate_sharded_plain(pts.cpu(), mesh)
+        assert c.g2_eq(bls_g2.g2_to_host(plain), want), name
+        for tag, bld in bls_built.items():
+            got = sharded(bld, pts).cpu()
+            assert cs.max_abs_err(got, plain) == 0, f"{tag}: sharded sum != plain ({name})"
+    # tm_g2_add on pairs of every branch of the addition, in one launch
+    ps, qs = cs.branch_pairs("g2", keys[0], keys[1])
+    p_add, q_add = g2_stack(torch, ps, dev), g2_stack(torch, qs, dev)
+    plain = bls_g2.g2_add_plain(p_add.cpu(), q_add.cpu())
+    assert c.g2_eq(bls_g2.g2_to_host(plain[0]), c.g2_add(keys[0], keys[1]))
+    differ = {}
+    for tag, bld in bls_built.items():
+        got = bld.g2_add(torch, p_add, q_add).cpu()
+        differ[tag] = [cs.BRANCH_PAIRS[i] for i in range(len(ps)) if not torch.equal(got[i], plain[i])]
+    assert not differ["this"], f"this tree's tm_g2_add != plain on {differ['this']}"
+    print(f"kernel-vs-plain: kernel 13 of {sorted(bls_built)}: the sharded G2 sum "
+          f"over {cs.MESH_SHARDS} shards at {list(cases)} equal to the plain "
+          f"schedule on the CPU byte for byte and the host sums; tm_g2_add on one "
+          f"launch of the pairs {list(cs.BRANCH_PAIRS)} against g2_add_plain: "
+          + "; ".join(f"{tag} tree " + (f"differs on {d}" if d else "equal")
+                      for tag, d in differ.items()))
+    one_p, one_q = key_pts[:1].contiguous(), key_pts[1:2].contiguous()
+    sizes = (f"sharded {N_VALS}", "g2_add 1 pair")
+    times = timed_turns(sizes, lambda bld, n: (
+        sharded(bld, key_pts) if n.startswith("sharded") else bld.g2_add(torch, one_p, one_q)),
+        bls_built)
+    t0 = time.perf_counter()
+    bls_g2.g2_aggregate_sharded_plain(key_pts.cpu(), mesh)
+    plain_sharded = (time.perf_counter() - t0) * 1e3
+    add_plain_ms = cs.time_cuda(torch, lambda: bls_g2.g2_add_plain(one_p, one_q), 3)
+    rounds = cs.MESH_SHARDS.bit_length() - 1
+    report(13, "shapes", times,
+           f"{cs.MESH_SHARDS} tree launches + {cs.MESH_SHARDS * rounds} add launches a "
+           f"sharded sum; critical path of g2_add {cs.FP_G2_ADD_KERNEL_PATH} (one "
+           f"thread: {cs.FP_G2_ADD_THREAD})", bls_built)
+    print(f"time: g2_aggregate_sharded_plain on the CPU {plain_sharded:.2f} ms (one "
+          f"call, host clock); g2_add_plain on the card {add_plain_ms:.2f} ms | {smi}")
+    return {"ms": times, "plain_sharded_cpu_ms": plain_sharded,
+            "g2_add_plain_ms": add_plain_ms, "branch_pairs_differ": differ}
 
 
 def tile_rows(torch, ops, want, live: int, total: int):
@@ -411,8 +623,8 @@ def tile_rows(torch, ops, want, live: int, total: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", type=int, nargs="+", choices=(3, 5, 6, 12),
-                    default=[3, 5, 6, 12], help="kernels to check and time")
+    ap.add_argument("--kernel", type=int, nargs="+", choices=ALL_KERNELS,
+                    default=list(ALL_KERNELS), help="kernels to check and time")
     ap.add_argument("--parent", default=None,
                     help="root of another tree whose kernels are timed beside this one's")
     ap.add_argument("--seed", type=int, default=20261017)
@@ -443,22 +655,26 @@ def main() -> int:
     if args.parent:
         trees["parent"] = os.path.abspath(args.parent)
     t0 = time.perf_counter()
-    ed_kernels = [k for k in args.kernel if k != 12]
+    ed_kernels = [k for k in args.kernel if k not in BLS_KERNELS]
+    bls_kernels = [k for k in args.kernel if k in BLS_KERNELS]
     procs = {}
     if ed_kernels:
         procs.update({tag: start_build(_build, os.path.join(root, KERNEL), tag)
                       for tag, root in trees.items()})
-    if 12 in args.kernel:
+    if bls_kernels:
         procs.update({"bls_" + tag: start_build(_build, os.path.join(root, BLS_KERNEL),
                                                 "bls_" + tag)
                       for tag, root in trees.items()})
-    splits = start_split_builds(_build) if 12 in args.kernel else {}
-    builds = {tag: Build(*p, cs.ptxas_usage, [12] if tag.startswith("bls_") else ed_kernels)
+    splits = start_variant_builds(_build, SPLITS, "split") if 12 in args.kernel else {}
+    warp_builds = (start_variant_builds(_build, WARP_VARIANTS, "warps")
+                   if 11 in args.kernel else {})
+    builds = {tag: Build(*p, cs.ptxas_usage, bls_kernels if tag.startswith("bls_") else ed_kernels)
               for tag, p in procs.items()}
-    splits = {name: SplitBuild(*p) for name, p in splits.items()}
+    splits = {name: VariantBuild(*p) for name, p in splits.items()}
+    warp_builds = {name: VariantBuild(*p) for name, p in warp_builds.items()}
     built = {tag: b for tag, b in builds.items() if not tag.startswith("bls_")}
     bls_built = {tag[4:]: b for tag, b in builds.items() if tag.startswith("bls_")}
-    print(f"build: {len(builds) + len(splits)} nvcc builds of "
+    print(f"build: {len(builds) + len(splits) + len(warp_builds)} nvcc builds of "
           f"{' and '.join(src for src, on in ((KERNEL, ed_kernels), (BLS_KERNEL, bls_built)) if on)}"
           f" in parallel, {time.perf_counter() - t0:.1f} s | {smi}")
     order = ["parent", "this", "this", "parent"] if "parent" in trees else ["this"]
@@ -649,10 +865,19 @@ def main() -> int:
                   for name, t in split_ms.items()) + f" | {smi}")
         result["kernel12"] = {"plain_ms": plain_ms, "ms": times, "split_ms": split_ms}
 
-    if "parent" in trees or 12 in args.kernel:
+    if {11, 13} & set(args.kernel):
+        g2 = g2_operands(torch, cs, rng, dev)
+    if 11 in args.kernel:
+        result["kernel11"] = run_kernel11(torch, cs, g2, bls_built, warp_builds,
+                                          timed_turns, report, smi)
+    if 13 in args.kernel:
+        result["kernel13"] = run_kernel13(torch, cs, g2, bls_built, timed_turns,
+                                          report, smi)
+
+    if "parent" in trees or {11, 12} & set(args.kernel):
         what = (["commit"] if 3 in args.kernel and "parent" in trees else []) + (
             ["blocksync"] if {5, 6} & set(args.kernel) and "parent" in trees else []) + (
-            ["pairing"] if 12 in args.kernel else [])
+            ["pairing"] if {11, 12} & set(args.kernel) else [])
         turns: dict[str, list[dict]] = {t: [] for t in trees}
         for tag in order:
             proc = subprocess.run(
@@ -675,7 +900,10 @@ def main() -> int:
                       f"turn {json.dumps([[round(x, 3) for x in t['check_pairs_ms']] for t in pr])}, "
                       f"the native host library's pairing_check on the same pairs (one "
                       f"CPU thread) {json.dumps([[round(x, 3) for x in t['native_ms']] for t in pr])}; "
-                      f"the 64-QC window on the device route, wall ms "
+                      f"the 64-QC window on the device route: assembly ms "
+                      f"(assemble_qc, then the signature / signer-key sums on the card) "
+                      f"{json.dumps([[round(t['assemble_ms'], 2), round(t['sums_ms']['g1'], 2), round(t['sums_ms']['g2'], 2)] for t in pr])}, "
+                      f"check wall ms "
                       f"{json.dumps([[round(x, 2) for x in t['qc_wall_ms']] for t in pr])}, "
                       f"of which pairing checks "
                       f"{json.dumps([[round(x, 2) for x in t['qc_pairing_ms']] for t in pr])} "

@@ -85,11 +85,13 @@ Phases (any failure raises and the exit code is non-zero):
    each. Timings: each BLS kernel (median of 20) and its plain version
    (one call, the comparison at the device route's shape),
    ``check_pairs`` on the card against the native host library's
-   ``pairing_check`` on the same pairs, each route's assembly per QC and
-   its window walls split into signature and key parse, hash-to-G1,
-   scalar multiplications and pairing checks; the ``kernel12:`` line gives
-   ``tm_miller`` at both shapes, ``tm_final_exp``, their critical paths
-   (``FP_MILLER_PATH``, ``FP_FINAL_EXP_PATH``) and ``ptxas`` usage.
+   ``pairing_check`` on the same pairs, each route's assembly per QC (on
+   the device route also the 64 signature and signer-key sums on the
+   card, host clock) and its window walls split into signature and key
+   parse, hash-to-G1, scalar multiplications and pairing checks,
+   ``g2_aggregate`` also at the 64-tree forest; the ``kernel12:`` line
+   gives ``tm_miller`` at both shapes, ``tm_final_exp``, their critical
+   paths (``FP_MILLER_PATH``, ``FP_FINAL_EXP_PATH``) and ``ptxas`` usage.
 6. The mixed-key path and the L2 block's merkle leaves (``mixed_phase``):
    ``secp_verify_prehashed`` on 64 crafted rows (valid, flipped s, wrong
    message, cross key, ``ok_in`` False, Q = G with u1 = u2, R at infinity,
@@ -155,13 +157,20 @@ Phases (any failure raises and the exit code is non-zero):
    phase-3 commit round sharded on the small tier and the generic kernel
    (``mesh_min_rows=1``); ``prewarm_buckets`` with both device variants
    where the ladder allows; the secp256k1 kernel sharded over the mixed
-   window's 8,192 rows (3,200 live), equal to the unsharded launch. Times:
+   window's 8,192 rows (3,200 live), equal to the unsharded launch;
+   ``g1_add`` and ``g2_add`` each on one launch of ``BRANCH_PAIRS`` (a
+   pair for every branch of the addition) against their plain versions.
+   Times:
    the add kernels, kernel 13 with its bound, the windows beside phase 3's,
    the secp256k1 rows sharded and not. Where ``torch.cuda.device_count()``
    is 2 or more, kernel 13, the host-hashed window and the secp256k1
    launch again over ``build_mesh(0, 1, "cuda")``; else it prints
    ``mesh: real multi-GPU mesh not run (1 device)``. The path's launches
-   add to the kernels line, which gains ``g1_add`` and ``g2_add``.
+   add to the kernels line, which gains ``g1_add`` and ``g2_add``. The
+   ``g2sums:`` line then gives the warp-wide G2 sums (``g2_aggregate`` at
+   one tree and the forest, ``g2_add``, the sharded G2 sum), their
+   critical paths against one thread an addition (``g2_tree_paths``,
+   ``FP_G2_ADD_KERNEL_PATH``, ``FP_G2_ADD_PATH``) and ``ptxas`` usage.
 9. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -559,6 +568,33 @@ FP_MILLER_PATH = (1 + (MILLER_BITS - MILLER_ADDS) * FP_MILLER_DBL_PATH
                   + MILLER_ADDS * FP_MILLER_ADD_PATH + 1)
 FP_EASY_PATH, FP_EXP_X_PATH, FP_GLUE_PATH = 12, 64 + 6, 1 + 1 + 2 + 0 + 5
 FP_FINAL_EXP_PATH = 1 + FP_EASY_PATH + 5 * FP_EXP_X_PATH + FP_GLUE_PATH + 1
+# the G2 sums on a warp (g2_add_w): the dependent Fp multiplications of an
+# addition are its product stages, 2 of G2_HR and 3 of G2_ADD_FIN; of a
+# doubling (G2_DBL) 3 (python -m tendermint_tpu_torch.ops.bls_warp_gen)
+FP_G2_ADD_PATH, FP_G2_DBL_PATH = 5, 3
+# tm_g2_add on one pair: on one thread (the parent's g2_add_kernel) 12
+# loads, the addition and 6 stores in series; on a warp one load and one
+# store a lane
+FP_G2_ADD_THREAD = 12 + FP_G2_ADD + 6
+FP_G2_ADD_KERNEL_PATH = 1 + FP_G2_ADD_PATH + 1
+G2_TREE_WARPS = 16  # kG2TreeWarps of bls_kernels.cu: a G2 tree's warps, at most
+# kTreeThreads of bls_kernels.cu: the one-thread tree's threads, at most (the
+# G1 sums; the parent's G2 sums)
+TREE_THREADS = 128
+
+
+def g2_tree_paths(b: int) -> tuple[int, int]:
+    """Dependent Fp multiplications of tm_g2_aggregate on one tree of b
+    keys, (one thread an addition, a warp an addition): the leaf loads a
+    thread runs in series, each level's addition, the store."""
+    nb = 1 << max(1, (b - 1).bit_length())
+    levels = nb.bit_length() - 1
+    threads = min(TREE_THREADS, nb // 2)
+    warps = min(G2_TREE_WARPS, nb // 2)
+    return (6 * -(-b // threads) + levels * FP_G2_ADD + 6,
+            -(-6 * b // (32 * warps)) + levels * FP_G2_ADD_PATH + 1)
+
+
 QC_BAD = 40  # the forged certificate's height in the 64-QC window
 
 
@@ -638,7 +674,9 @@ def qc_route(torch, ops, bls, qcm, qset, vals, privs, chain_id, entries,
     executor thread through a started VerifyScheduler's qc_verify lane,
     twice (launch counts read). With `device`, each QC's signature sum and
     signer-key sum also go through the named device sums, held against
-    the assembled (native) ones."""
+    the assembled (native) ones, each call timed on the host clock (parse
+    of the points, copies, the kernel, the result's bytes) into
+    ``sums_s``."""
     from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
     from tendermint_tpu_torch.obs.ledger import DispatchLedger
     from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
@@ -648,16 +686,21 @@ def qc_route(torch, ops, bls, qcm, qset, vals, privs, chain_id, entries,
     qcs = [qcm.assemble_qc(chain_id, commit, qset) for _, _, commit in entries]
     assemble_s = time.perf_counter() - t0
     assert all(q is not None and q.num_signers() == len(vals) for q in qcs)
+    sums_s = {"g1": 0.0, "g2": 0.0}
     if device:
         for q, (_, _, commit) in zip(qcs, entries):
             shares = [bls.g1_from_bytes(commit.signatures[i].qc_signature)
                       for i in q.signers.ones()]
+            t0 = time.perf_counter()
             got = bls.g1_to_bytes(bls.aggregate_signatures_device(shares))
+            sums_s["g1"] += time.perf_counter() - t0
             assert got == q.agg_signature, "aggregate_signatures_device != native"
             keys = [bls.new_trusted_public_key(
                 bls.g2_from_bytes(qset.validators[i].bls_pub_key))
                 for i in q.signers.ones()]
+            t0 = time.perf_counter()
             got = bls.g2_to_bytes(bls.aggregate_public_keys_device(keys))
+            sums_s["g2"] += time.perf_counter() - t0
             assert got == bls.g2_to_bytes(bls.aggregate_public_keys(keys).key), \
                 "aggregate_public_keys_device != native"
     torch.cuda.synchronize()
@@ -703,7 +746,8 @@ def qc_route(torch, ops, bls, qcm, qset, vals, privs, chain_id, entries,
         set_default_scheduler(None)
     torch.cuda.synchronize()
     return {
-        "qcs": qcs, "assemble_s": assemble_s, "asm_launches": asm_launches,
+        "qcs": qcs, "assemble_s": assemble_s, "sums_s": sums_s,
+        "asm_launches": asm_launches,
         "verdicts": verdicts, "walls": walls, "splits": splits,
         "win_launches": ops.kernel_launches(),
         "rounds": [e for e in ledger.entries() if e["engine"] == "qc_verify"],
@@ -784,7 +828,8 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     (assemble_qc) and verify_commits_qc through a started VerifyScheduler's
     qc_verify lane, twice. Returns the four kernels' rows, for the mesh
     phase the point sets {"g1"|"g2": [(label, points, host points)]}, and
-    the pairing kernels' ms {"miller_verify", "miller_rlc", "final_exp"}."""
+    the pairing kernels' and the G2 trees' ms {"miller_verify",
+    "miller_rlc", "final_exp", "g2_aggregate", "g2_forest"}."""
     from tendermint_tpu_torch.crypto import bls12_381 as c
     from tendermint_tpu_torch.crypto import bls_native
     from tendermint_tpu_torch.crypto import bls_signatures as bls
@@ -1033,8 +1078,11 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     mv = time_cuda(torch, lambda: bp.miller(*vchunks), 20)
     print(f"time: miller at the 2-pair verify shape {mv:.4f} ms (1 chunk); "
           f"at the 65-pair RLC shape ({n_rlc_chunks} chunks) the miller row | {smi}")
+    forest_ms = time_cuda(torch, lambda: bls_g2.g2_aggregate(key_forest), 20)
     timings = {"miller_verify": mv, "miller_rlc": next(r["ms"] for r in rows if r["name"] == "miller"),
-               "final_exp": next(r["ms"] for r in rows if r["name"] == "final_exp")}
+               "final_exp": next(r["ms"] for r in rows if r["name"] == "final_exp"),
+               "g2_aggregate": next(r["ms"] for r in rows if r["name"] == "g2_aggregate"),
+               "g2_forest": forest_ms}
     for k, pairs in shapes.items():
         g1b = b"".join(bls.g1_to_bytes(p) for p, _ in pairs)
         g2b = b"".join(bls.g2_to_bytes(q) for _, q in pairs)
@@ -1062,7 +1110,12 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     for route, r in routes.items():
         print(f"time: qc assembly ({route} route) of {n_win} QCs "
               f"{r['assemble_s'] * 1e3:.1f} ms, {r['assemble_s'] * 1e3 / n_win:.2f} "
-              f"ms per QC (assemble_qc alone) | {smi}")
+              f"ms per QC (assemble_qc alone)"
+              + (f"; the device sums of the {n_win} QCs, host clock: signatures "
+                 f"(aggregate_signatures_device) {r['sums_s']['g1'] * 1e3:.2f} ms, "
+                 f"signer keys (aggregate_public_keys_device) "
+                 f"{r['sums_s']['g2'] * 1e3:.2f} ms" if route == "device" else "")
+              + f" | {smi}")
         for rep, (wall, acc) in enumerate(zip(r["walls"], r["splits"]), start=1):
             parts = ", ".join(f"{labels[k]} {acc.get(k, 0.0) * 1e3:.2f} ms"
                               for k in split_names)
@@ -1861,6 +1914,27 @@ def counted(torch, ops, acc, fn, *args):
     return out
 
 
+BRANCH_PAIRS = ("p + q", "p at infinity", "q at infinity", "p = q, two representations",
+                "p = -q", "p = q with y = 0", "p = q")
+
+
+def branch_pairs(g: str, k0, k1):
+    """(p, q) host point lists of G1 (`g` "g1") or G2 ("g2"), one pair for
+    each case of BRANCH_PAIRS (every branch of the complete addition),
+    from two points k0, k1 of the group."""
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+
+    if g == "g2":
+        mul, neg, inf, lam, zero = c.f2_mul, c.g2_neg, c.G2_INF, (3, 5), (0, 0)
+    else:
+        mul, neg, inf, lam, zero = (lambda a, b: a * b % c.P), c.g1_neg, c.G1_INF, 7, 0
+    l2 = mul(lam, lam)
+    other = (mul(k0[0], l2), mul(k0[1], mul(l2, lam)), mul(k0[2], lam))
+    y0 = (k0[0], zero, k0[2])
+    return ([k0, inf, k0, k0, k0, y0, k0],
+            [k1, k0, inf, other, neg(other), y0, k0])
+
+
 def sharded_sums(torch, ops, mesh, point_sets, acc, errs, label) -> None:
     """Kernel 13 (g1/g2_aggregate_sharded) over `mesh` at three sizes,
     held against its plain version (the same schedule on the CPU, byte
@@ -1927,7 +2001,8 @@ def mesh_phase(torch, np, rng, dev, smi, ops, host, vset, chain_id, entries,
                tampered, bad_height, bulk, g_items, point_sets, secp_arrays):
     """Phase 8: the multi-device path over MESH_SHARDS shards on `dev`,
     then over every card where there are two or more. Returns the rows of
-    the butterfly add kernels and the path's launches per kernel."""
+    the butterfly add kernels, the path's launches per kernel and the
+    sharded sums' ms {"g1"|"g2": ms}."""
     from tendermint_tpu_torch.crypto import batch_verifier as bv
     from tendermint_tpu_torch.crypto.shape_registry import ShapeRegistry
     from tendermint_tpu_torch.ops import bls_g1, bls_g2
@@ -2033,7 +2108,7 @@ def mesh_phase(torch, np, rng, dev, smi, ops, host, vset, chain_id, entries,
 
     # --- timings
     sig_pts, key_pts = point_sets["g1"][0][1], point_sets["g2"][0][1]
-    rows = []
+    rows, sharded_ms = [], {}
     for g, add, add_plain, kern, plain, pts, fp_add, per_coord in (
         ("g1", bls_g1.g1_add, bls_g1.g1_add_plain, bls_g1.g1_aggregate_sharded,
          bls_g1.g1_aggregate_sharded_plain, sig_pts, FP_G1_ADD, 1),
@@ -2041,11 +2116,19 @@ def mesh_phase(torch, np, rng, dev, smi, ops, host, vset, chain_id, entries,
          bls_g2.g2_aggregate_sharded_plain, key_pts, FP_G2_ADD, 2),
     ):
         b = pts.shape[0]
+        # every branch of the addition in one launch: the threads (G1) or
+        # warps (G2) of one launch take different branches
+        hosts = point_sets[g][0][2]
+        to_dev = bls_g1.g1_from_host if g == "g1" else bls_g2.g2_from_host
+        bp, bq = (torch.stack([to_dev(x) for x in side]).to(dev)
+                  for side in branch_pairs(g, hosts[0], hosts[1]))
+        err = max_abs_err(add(bp, bq), add_plain(bp, bq))
+        assert err == 0, f"{g}_add != plain on the branch pairs"
         # one butterfly launch: one pair, as every round adds per shard
         p, q = pts[:1].contiguous(), pts[1:2].contiguous()
         got = add(p, q)
         want, plain_ms = time_once(torch, add_plain, p, q)
-        err = max_abs_err(got, want)
+        err = max(err, max_abs_err(got, want))
         assert err == 0, f"{g}_add != plain"
         errs[g + "_add"] = max(errs[g + "_add"], err)
         ms = time_cuda(torch, lambda: add(p, q), 20)
@@ -2060,7 +2143,7 @@ def mesh_phase(torch, np, rng, dev, smi, ops, host, vset, chain_id, entries,
         })
         print(f"time: {g}_add kernel (one butterfly launch, 1 pair) {ms:.4f} ms plain "
               f"{plain_ms:.2f} ms (one call) bound {b_ms:.3g} ms ({b_by}) | {smi}")
-        sum_ms = time_cuda(torch, lambda: kern(pts, mesh), 20)
+        sum_ms = sharded_ms[g] = time_cuda(torch, lambda: kern(pts, mesh), 20)
         t0 = time.perf_counter()
         plain(pts.cpu(), mesh)
         sum_plain_ms = (time.perf_counter() - t0) * 1e3
@@ -2089,7 +2172,7 @@ def mesh_phase(torch, np, rng, dev, smi, ops, host, vset, chain_id, entries,
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         print("mesh: real multi-GPU mesh not run (1 device)")
-        return rows, acc
+        return rows, acc, sharded_ms
     real = build_mesh(0, 1, "cuda")
     label = f"mesh of {real.size} cards"
     sharded_sums(torch, ops, real, point_sets, acc, errs, label)
@@ -2104,7 +2187,7 @@ def mesh_phase(torch, np, rng, dev, smi, ops, host, vset, chain_id, entries,
           f"sharded secp256k1 launch pass; window walls "
           f"{[round(w * 1e3, 2) for w in r_walls]} ms; launches {json.dumps(counts)} "
           f"| {smi}")
-    return rows, acc
+    return rows, acc, sharded_ms
 
 
 def main() -> int:
@@ -2660,7 +2743,7 @@ def main() -> int:
           f"kernels line's launches)")
 
     # --- 8. the multi-device path -------------------------------------------
-    mesh_rows, mesh_launches = mesh_phase(
+    mesh_rows, mesh_launches, sharded_ms = mesh_phase(
         torch, np, rng, dev, smi, ops, host, vset, chain_id, entries, tampered,
         bad_height, bulk, g_items, point_sets, secp_arrays)
     for row in rows:
@@ -2675,6 +2758,20 @@ def main() -> int:
     print(f"main path: mesh path launches per kernel "
           f"{json.dumps({k: v for k, v in mesh_launches.items() if v})} (added to "
           f"the kernels line's launches)")
+    g2_add_ms = next(r["ms"] for r in mesh_rows if r["name"] == "g2_add")
+    one, warp = g2_tree_paths(args.validators)
+    print(f"g2sums: g2_aggregate_kernel (a warp an addition, at most "
+          f"{G2_TREE_WARPS} warps a tree), median ms of 20 launches at (1, "
+          f"{args.validators}) {k12['g2_aggregate']:.4f} and the ({WINDOW}, "
+          f"{args.validators}) forest {k12['g2_forest']:.4f}; g2_add_kernel (a warp a "
+          f"pair) at 1 pair {g2_add_ms:.4f}; g2_aggregate_sharded over {MESH_SHARDS} "
+          f"shards {sharded_ms['g2']:.4f}; critical paths in dependent Fp "
+          f"multiplications: the tree of {args.validators} keys {warp} (one thread an "
+          f"addition: {one}), g2_add {FP_G2_ADD_KERNEL_PATH} (one thread: "
+          f"{FP_G2_ADD_THREAD}), an addition {FP_G2_ADD_PATH} (one thread: "
+          f"{FP_G2_ADD}), a doubling {FP_G2_DBL_PATH}; ptxas: " + "; ".join(
+              f"{k}: {usages.get(k, 'not reported')}"
+              for k in ("g2_aggregate_kernel", "g2_add_kernel")) + f" | {smi}")
 
     # --- 9. result lines ----------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})

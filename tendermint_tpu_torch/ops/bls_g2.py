@@ -14,7 +14,9 @@ of quorum certificates.
 
 Each wrapper launches its kernel (``tm_g2_aggregate``, ``tm_g2_add``) on
 a CUDA tensor and runs its plain version (``*_plain``) on a CPU one; it
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches``. Both kernels run each
+addition on one warp (``g2_add_w`` in ``ops/csrc/bls12_381_device.cuh``):
+the tree a block of warps per tree, the pair sum a warp per pair.
 """
 
 from __future__ import annotations

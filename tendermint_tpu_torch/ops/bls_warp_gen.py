@@ -1,12 +1,15 @@
-"""Stage programs of the warp-wide BLS12-381 pairing kernels.
+"""Stage programs of the warp-wide BLS12-381 kernels.
 
 The Miller loop (``tm_miller``), the chunk product and the final
-exponentiation (``tm_final_exp``) run on one warp each. Their Fp12
-arithmetic is written here once, over symbolic Fp values, with the
-formulas of the one-thread code in ``ops/csrc/bls12_381_device.cuh``
-(Karatsuba f2/f6/f12 products, the even/odd f12 squaring, Granger-Scott
-cyclotomic squaring, the Miller doubling and addition steps with their
-line scaling, the inversion through the even subalgebra). Each operation
+exponentiation (``tm_final_exp``) run on one warp each, and so does each
+G2 point addition of the public-key sums (``tm_g2_aggregate``,
+``tm_g2_add``). Their arithmetic is written here once, over symbolic Fp
+values, with the formulas of the one-thread code in
+``ops/csrc/bls12_381_device.cuh`` (Karatsuba f2/f6/f12 products, the
+even/odd f12 squaring, Granger-Scott cyclotomic squaring, the Miller
+doubling and addition steps with their line scaling, the inversion
+through the even subalgebra, the Jacobian G2 addition and doubling of
+``jac_add<fp2>``/``jac_double<fp2>``). Each operation
 becomes a small dataflow graph of Fp multiplications, additions,
 subtractions, selects (invalid pairs fold the identity line) and one
 inversion; known zeros and ones fold away, common subexpressions
@@ -372,6 +375,12 @@ M_F, M_P, M_Q, M_T, M_TEMP = 16, 28, 32, 40, 52
 C_X, C_Y, C_Z, C_TEMP = 16, 28, 40, 52
 # the final exponentiation
 E_F, E_A, E_B, E_R, E_X, E_O, E_TEMP = 16, 28, 40, 52, 64, 76, 88
+# the G2 point sums: the Jacobian points P and Q (coordinate c component k
+# at base + 2 c + k), G2_HR's values z1z1, z2z2, u1, s1, h and r (an Fp2
+# each), and the result O of G2_ADD_FIN or G2_DBL
+G2_P, G2_Q, G2_O = 16, 22, 40
+G2_Z1Z1, G2_Z2Z2, G2_U1, G2_S1, G2_H, G2_R = range(28, 40, 2)
+G2_TEMP = 46
 
 
 def _miller_state(g):
@@ -514,6 +523,59 @@ def prog_fe_g5(g):
     return f12_slots(E_O, f12_mul(g, c, t))
 
 
+def _g2_at(g, base):
+    return tuple(f2_at(g, base + 2 * c) for c in range(3))
+
+
+def _f2_slots(base, v):
+    return [(base, v[0]), (base + 1, v[1])]
+
+
+def prog_g2_hr(g):
+    """jac_add<fp2>'s first half, P + Q up to its branch: z1z1, z2z2, u1,
+    u2, s1, s2, then h = u2 - u1 and r = s2 - s1."""
+    (x1, y1, z1), (x2, y2, z2) = _g2_at(g, G2_P), _g2_at(g, G2_Q)
+    z1z1, z2z2 = f2_sqr(g, z1), f2_sqr(g, z2)
+    u1, u2 = f2_mul(g, x1, z2z2), f2_mul(g, x2, z1z1)
+    s1 = f2_mul(g, f2_mul(g, y1, z2), z2z2)
+    s2 = f2_mul(g, f2_mul(g, y2, z1), z1z1)
+    h, r = f2_sub(g, u2, u1), f2_sub(g, s2, s1)
+    out = []
+    for base, v in ((G2_Z1Z1, z1z1), (G2_Z2Z2, z2z2), (G2_U1, u1), (G2_S1, s1),
+                    (G2_H, h), (G2_R, r)):
+        out += _f2_slots(base, v)
+    return out
+
+
+def prog_g2_add_fin(g):
+    """jac_add<fp2>'s second half, from i = (2h)^2 to z3, into O."""
+    (_, _, z1), (_, _, z2) = _g2_at(g, G2_P), _g2_at(g, G2_Q)
+    z1z1, z2z2, u1, s1, h, r = (f2_at(g, s) for s in (
+        G2_Z1Z1, G2_Z2Z2, G2_U1, G2_S1, G2_H, G2_R))
+    i = f2_sqr(g, _dbl(g, h))
+    j = f2_mul(g, h, i)
+    rr = _dbl(g, r)
+    v = f2_mul(g, u1, i)
+    x3 = f2_sub(g, f2_sub(g, f2_sub(g, f2_sqr(g, rr), j), v), v)
+    y3 = f2_sub(g, f2_mul(g, rr, f2_sub(g, v, x3)), _dbl(g, f2_mul(g, s1, j)))
+    z3 = f2_mul(g, f2_sub(g, f2_sub(g, f2_sqr(g, f2_add(g, z1, z2)), z1z1), z2z2), h)
+    return _f2_slots(G2_O, x3) + _f2_slots(G2_O + 2, y3) + _f2_slots(G2_O + 4, z3)
+
+
+def prog_g2_dbl(g):
+    """jac_double<fp2> of P into O (its branch to the identity, y or z
+    zero, is the caller's)."""
+    x, y, z = _g2_at(g, G2_P)
+    a, b = f2_sqr(g, x), f2_sqr(g, y)
+    c = f2_sqr(g, b)
+    d = _dbl(g, f2_sub(g, f2_sub(g, f2_sqr(g, f2_add(g, x, b)), a), c))
+    e = f2_add(g, _dbl(g, a), a)
+    x3 = f2_sub(g, f2_sub(g, f2_sqr(g, e), d), d)
+    y3 = f2_sub(g, f2_mul(g, e, f2_sub(g, d, x3)), _dbl(g, _dbl(g, _dbl(g, c))))
+    z3 = _dbl(g, f2_mul(g, y, z))
+    return _f2_slots(G2_O, x3) + _f2_slots(G2_O + 2, y3) + _f2_slots(G2_O + 4, z3)
+
+
 # name -> (graph function, first temporary slot)
 PROGRAMS = {
     "M_INIT": (prog_miller_init, M_TEMP),
@@ -535,6 +597,9 @@ PROGRAMS = {
     "T_CYC": (prog_test_cyclo, C_TEMP),
     "T_FROB": (prog_test_frob, C_TEMP),
     "T_INV": (prog_test_inv, C_TEMP),
+    "G2_HR": (prog_g2_hr, G2_TEMP),
+    "G2_ADD_FIN": (prog_g2_add_fin, G2_TEMP),
+    "G2_DBL": (prog_g2_dbl, G2_TEMP),
 }
 
 
@@ -739,13 +804,13 @@ def render(progs: dict[str, dict]) -> str:
         index.append((name, first, len(stage_words) - first, p))
     kernel_slots = {
         prefix: max(p["temps"] for name, p in progs.items() if name.startswith(prefix))
-        for prefix in ("M_", "FE_", "T_")
+        for prefix in ("M_", "FE_", "T_", "G2_")
     }
     kernel_slots["C_"] = max(kernel_slots.pop("T_"), progs["MUL12"]["temps"])
     lines = [
         "// Generated by tendermint_tpu_torch/ops/bls_warp_gen.py; do not edit.",
         "//",
-        "// The stage programs of the warp-wide pairing kernels (run_program in",
+        "// The stage programs of the warp-wide BLS12-381 kernels (run_program in",
         "// bls12_381_device.cuh). A stage word is kind | jobs << 2 | first job << 9",
         "// (kind 0: Fp multiplications, 1: additions, subtractions and selects,",
         "// 2: one inversion); a job is op | dst << 3 | a << 12 | b << 22 over",
@@ -759,18 +824,24 @@ def render(progs: dict[str, dict]) -> str:
         "namespace bdev {",
         "namespace prog {",
         "",
-        f"constexpr int NCONST = {len(CONST_VALUES)};",
+        f"constexpr int NCONST = {len(CONST_VALUES)}, ZERO_SLOT = {ZERO_SLOT}, "
+        f"ONE_SLOT = {ONE_SLOT};",
         "",
         "// regions (first slot; an Fp12 is 12 slots, coefficient i component c",
         "// at + 2 i + c): the Miller kernel's f, P, Q, T; the chunk product's",
         "// and the test programs' X, Y, Z = op(X, Y); the final",
-        "// exponentiation's F, A, B, R, X, O; and each kernel's slot count",
+        "// exponentiation's F, A, B, R, X, O; the G2 sums' points P, Q, O",
+        "// (coordinate c component k at + 2 c + k) and G2_HR's Fp2 values; and",
+        "// each kernel's slot count",
         f"constexpr int M_F = {M_F}, M_P = {M_P}, M_Q = {M_Q}, M_T = {M_T};",
         f"constexpr int C_X = {C_X}, C_Y = {C_Y}, C_Z = {C_Z};",
         f"constexpr int E_F = {E_F}, E_A = {E_A}, E_B = {E_B}, E_R = {E_R}, "
         f"E_X = {E_X}, E_O = {E_O};",
+        f"constexpr int G2_P = {G2_P}, G2_Q = {G2_Q}, G2_O = {G2_O};",
+        f"constexpr int G2_Z1Z1 = {G2_Z1Z1}, G2_Z2Z2 = {G2_Z2Z2}, G2_U1 = {G2_U1}, "
+        f"G2_S1 = {G2_S1}, G2_H = {G2_H}, G2_R = {G2_R};",
         f"constexpr int M_SLOTS = {kernel_slots['M_']}, C_SLOTS = {kernel_slots['C_']}, "
-        f"FE_SLOTS = {kernel_slots['FE_']};",
+        f"FE_SLOTS = {kernel_slots['FE_']}, G2_SLOTS = {kernel_slots['G2_']};",
         "",
         "// program: first stage, stages; its slots, Fp multiplications and",
         "// dependent multiplications along its longest path",

@@ -1,9 +1,9 @@
 // BLS12-381 device arithmetic for the aggregation and pairing kernels.
 //
 //   Fp     6 x 64-bit limbs, Montgomery form (R = 2^384), CIOS multiply
-//          through unsigned __int128 products (the aggregation and mesh
-//          kernels, and the pairing's one-thread reference)
-//   fq     the pairing kernels' Fp: 12 x 32-bit limbs, the same Montgomery
+//          through unsigned __int128 products (the G1 sums, and the
+//          one-thread reference of the pairing and the G2 sums)
+//   fq     the warp kernels' Fp: 12 x 32-bit limbs, the same Montgomery
 //          form (R = 2^384), so a value is the same integer in both; CIOS
 //          over 32 x 32 -> 64-bit products, the products nvcc issues as
 //          IMAD.WIDE.U32 (Hopper has no 64-bit multiply), in registers
@@ -24,11 +24,12 @@
 // constant time; the warp kernels' fq_inv is a binary extended Euclid with
 // the same value. Both map 0 to 0, as the plain versions do.
 //
-// The pairing kernels run on a warp (the end of this file): their Fp12
-// operations are stage programs (bls12_381_programs.cuh, generated by
-// ops/bls_warp_gen.py from these one-thread formulas) that run_program
-// interprets, a stage of independent fq products or additions at a time,
-// two jobs a lane, over Fp values in shared memory.
+// The pairing kernels and the G2 sums run on a warp (the end of this file):
+// their Fp12 operations and G2 additions are stage programs
+// (bls12_381_programs.cuh, generated by ops/bls_warp_gen.py from these
+// one-thread formulas) that run_program interprets, a stage of independent
+// fq products or additions at a time, two jobs a lane, over Fp values in
+// shared memory.
 //
 // Values cross the boundary as canonical little-endian bytes: 48 per Fp
 // element; any 48-byte input is read mod p. Built by nvcc for sm_90a; the
@@ -38,6 +39,7 @@
 // become plain (inline) C++.
 #pragma once
 
+#include <stddef.h>
 #include <stdint.h>
 
 #ifndef __CUDACC__
@@ -1315,6 +1317,113 @@ __device__ __forceinline__ void final_exp_w(W& w, const uint8_t* in,
   TM_RUN(w, FE_G5, 0u);  // O = (b^x)^x frob^2(b) conj(b) f^2 f
   if (l < 12) fq_store(out + 48 * l, w.ld(prog::E_O + l));
   w.sync();
+}
+
+// --- the warp-wide G2 point sums ---------------------------------------------
+//
+// tm_g2_aggregate and tm_g2_add run each G2 addition on one warp: the
+// points sit in slots (P at prog::G2_P, Q at prog::G2_Q, six fq each:
+// coordinate c component k at + 2 c + k), and jac_add<fp2> runs as two
+// stage programs with its branches between them. Every lane reads the
+// slots a branch tests, so each branch is taken by the whole warp; fq
+// values are fully reduced, so a zero test is exact. The order of the tests
+// is jac_add's, the JAX package's precedence: P at infinity gives Q, Q at
+// infinity gives P, h = 0 and r = 0 give 2P, h = 0 alone the identity. The
+// doubling runs only where it is taken.
+
+// the Fp2 at slots s, s + 1 is zero (read by every lane)
+template <class W>
+__device__ __forceinline__ bool f2_slots_zero(W& w, int s) {
+  return fq_is_zero(w.ld(s)) && fq_is_zero(w.ld(s + 1));
+}
+
+// O = the identity (0, 1, 0)
+template <class W>
+__device__ __forceinline__ void g2_identity_w(W& w) {
+  if (w.lane < 6)
+    w.st(prog::G2_O + w.lane, w.ld(w.lane == 2 ? prog::ONE_SLOT : prog::ZERO_SLOT));
+  w.sync();
+}
+
+// O = 2P, jac_double<fp2>: the identity where y or z is zero, else G2_DBL
+template <class W>
+__device__ __forceinline__ void g2_dbl_w(W& w) {
+  if (f2_slots_zero(w, prog::G2_P + 2) || f2_slots_zero(w, prog::G2_P + 4))
+    g2_identity_w(w);
+  else
+    TM_RUN(w, G2_DBL, 0u);
+}
+
+// P + Q, jac_add<fp2>: the first slot of the sum (G2_Q, G2_P or G2_O); the
+// warp's constants must be loaded
+template <class W>
+__device__ __forceinline__ int g2_add_w(W& w) {
+  if (f2_slots_zero(w, prog::G2_P + 4)) return prog::G2_Q;
+  if (f2_slots_zero(w, prog::G2_Q + 4)) return prog::G2_P;
+  TM_RUN(w, G2_HR, 0u);  // z1z1, z2z2, u1, s1, h, r
+  if (f2_slots_zero(w, prog::G2_H)) {
+    if (f2_slots_zero(w, prog::G2_R))
+      g2_dbl_w(w);
+    else
+      g2_identity_w(w);
+  } else {
+    TM_RUN(w, G2_ADD_FIN, 0u);
+  }
+  return prog::G2_O;
+}
+
+// o = p + q of two points of 288 canonical bytes ([3][2][48]), read mod p:
+// lanes 0-11 load P and Q, lanes 0-5 store the sum's canonical bytes
+template <class W>
+__device__ __forceinline__ void g2_add_bytes_w(W& w, const uint8_t* p,
+                                               const uint8_t* q, uint8_t* o) {
+  warp_consts(w);
+  const int l = w.lane;
+  if (l < 12) {
+    fq v;
+    fq_load(v, (l < 6 ? p : q) + 48 * (l % 6));
+    w.st(prog::G2_P + l, v);  // G2_Q = G2_P + 6
+  }
+  w.sync();
+  const int sum = g2_add_w(w);
+  if (l < 6) fq_store(o + 48 * l, w.ld(sum + l));
+  w.sync();
+}
+
+// the sum of b points of 288 canonical bytes at in, padded with the
+// identity to nb (a power of two), into out: all threads of the block
+// load the leaves into s (nb points of six fq, Montgomery form); level
+// `step` adds point 2 i step + step into 2 i step (the JAX package's
+// pairing of neighbours), addition i of a level on warp i mod nwarps,
+// block_sync between levels; warp 0 writes the canonical bytes
+template <class W, class Sync>
+__device__ __forceinline__ void g2_tree_w(W& w, int warp, int nwarps,
+                                          const uint8_t* in, fq* s, uint8_t* out,
+                                          int b, int nb, Sync block_sync) {
+  const int l = w.lane;
+  for (int c = 32 * warp + l; c < 6 * nb; c += 32 * nwarps) {
+    if (c < 6 * b) {
+      fq_load(s[c], in + 48 * (size_t)c);
+    } else {
+      fq v;
+      for (int i = 0; i < 12; i++) v.l[i] = c % 6 == 2 ? prog::CONSTS[prog::ONE_SLOT][i] : 0u;
+      s[c] = v;
+    }
+  }
+  warp_consts(w);
+  block_sync();
+  for (int step = 1; step < nb; step <<= 1) {
+    for (int i = warp; 2 * i * step < nb; i += nwarps) {
+      fq* pk = s + 6 * (size_t)(2 * i * step);
+      if (l < 12) w.st(prog::G2_P + l, pk[l < 6 ? l : 6 * step + l - 6]);
+      w.sync();
+      const int sum = g2_add_w(w);
+      if (l < 6) pk[l] = w.ld(sum + l);
+      w.sync();
+    }
+    block_sync();
+  }
+  if (warp == 0 && l < 6) fq_store(out + 48 * l, s[l]);
 }
 
 }  // namespace bdev

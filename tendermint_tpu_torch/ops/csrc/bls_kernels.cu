@@ -17,18 +17,29 @@
 //                       cube_jit), driven by pairing_value :541 and
 //                       check_pairs :554
 //
-// What bounds them on an H100: integer multiplies, and for the pairing the
-// length of one dependent chain. An Fp multiplication is 72 64x64->128-bit
-// products (144 32x32->64-bit ones and as many for the reduction); a 2-pair
-// Miller loop is ~14k Fp multiplications, a final exponentiation ~9k, a G2
-// addition 43. Inputs are a few KiB, so no kernel is near the memory
-// roofline. Design:
-// - aggregation: one block per tree, the leaves in a global-memory scratch
-//   in Montgomery form, one thread per addition of a level and
-//   __syncthreads between levels (level s adds element 2is + s into 2is,
-//   the JAX package's pairing of neighbours);
-// - the butterfly add: one thread per pair, the tree's device add; a round
-//   adds one partial per shard, so each launch has one active thread;
+// What bounds them on an H100: integer multiplies, and the length of one
+// dependent chain. An Fp multiplication is 72 64x64->128-bit products (144
+// 32x32->64-bit ones and as many for the reduction); a 2-pair Miller loop is
+// ~14k Fp multiplications, a final exponentiation ~9k, a G2 addition 43.
+// Inputs are a few KiB, so no kernel is near the memory roofline. Design:
+// - the G1 sums (tm_g1_aggregate, tm_g1_add): one thread per addition.
+//   The tree keeps the leaves in a global-memory scratch in Montgomery form,
+//   one thread per addition of a level and __syncthreads between levels
+//   (level s adds element 2is + s into 2is, the JAX package's pairing of
+//   neighbours); the butterfly add gives one thread to each pair;
+// - the G2 sums (tm_g2_aggregate, tm_g2_add): one warp per addition.
+//   jac_add<fp2> runs as the stage programs G2_HR (z1z1 .. h, r) and
+//   G2_ADD_FIN (from (2h)^2 to z3), or G2_DBL where h = r = 0, over 32-bit
+//   fq slots in shared memory, its branches taken by the whole warp
+//   (g2_add_w in bls12_381_device.cuh). g2_aggregate_kernel is one block of
+//   kG2TreeWarps warps per tree (fewer for a small tree): all its threads
+//   load the leaves, then the tree above with addition i of a level on warp
+//   i mod the block's warps, each warp its own slots in dynamic shared
+//   memory. g2_add_kernel gives one warp to each pair. Critical paths, in
+//   dependent Fp multiplications: an addition 43 on one thread -> 5 (2
+//   product stages of G2_HR, 3 of G2_ADD_FIN; a doubling 3); g2_add with its
+//   loads and stores 61 -> 7; the tree of 150 keys (256 leaves, 8 levels)
+//   ~362 -> 42;
 // - the pairing (tm_miller, tm_final_exp): a check is one chain, so it is
 //   spread over a warp. One warp per 2-pair chunk (miller_kernel) and per
 //   element (final_exp_kernel) runs the stage programs of
@@ -60,6 +71,7 @@ namespace {
 constexpr int kTreeThreads = 128;
 constexpr int kChunkThreads = 32;
 constexpr int kProdWarps = 4;
+constexpr int kG2TreeWarps = 16;  // warps of a G2 tree's block, at most
 
 template <class F>
 __device__ void aggregate_tree(const uint8_t* in, jac<F>* scratch,
@@ -101,11 +113,6 @@ __global__ void g1_aggregate_kernel(const uint8_t* in, jac<fp>* scratch,
   aggregate_tree<fp>(in, scratch, out, b, nb);
 }
 
-__global__ void g2_aggregate_kernel(const uint8_t* in, jac<fp2>* scratch,
-                                    uint8_t* out, int b, int nb) {
-  aggregate_tree<fp2>(in, scratch, out, b, nb);
-}
-
 // o[i] = p[i] + q[i], one thread per pair (the butterfly's combiner)
 template <class F>
 __device__ void add_pairs(const uint8_t* p, const uint8_t* q, uint8_t* o,
@@ -135,11 +142,6 @@ __global__ void g1_add_kernel(const uint8_t* p, const uint8_t* q, uint8_t* o,
   add_pairs<fp>(p, q, o, n);
 }
 
-__global__ void g2_add_kernel(const uint8_t* p, const uint8_t* q, uint8_t* o,
-                              int n) {
-  add_pairs<fp2>(p, q, o, n);
-}
-
 // the warp: shared-memory slots and __syncwarp
 struct DevWarp {
   fq* sm;
@@ -148,6 +150,30 @@ struct DevWarp {
   __device__ __forceinline__ void st(int s, const fq& v) { sm[s] = v; }
   __device__ __forceinline__ void sync() const { __syncwarp(); }
 };
+
+// one block of warps per tree of the G2 sum: each warp's slots in dynamic
+// shared memory (G2_SLOTS fq a warp), the leaves in scratch (nb points of
+// six fq a tree)
+__global__ void __launch_bounds__(32 * kG2TreeWarps)
+    g2_aggregate_kernel(const uint8_t* in, fq* scratch, uint8_t* out, int b,
+                        int nb) {
+  extern __shared__ fq g2_slots[];
+  const int warp = threadIdx.x >> 5;
+  DevWarp w{g2_slots + prog::G2_SLOTS * warp, (int)(threadIdx.x & 31)};
+  const size_t tree = blockIdx.x;
+  g2_tree_w(w, warp, (int)(blockDim.x >> 5), in + tree * b * 288,
+            scratch + tree * nb * 6, out + tree * 288, b, nb,
+            [] { __syncthreads(); });
+}
+
+// one warp per pair of the G2 butterfly's combiner: o[i] = p[i] + q[i]
+__global__ void __launch_bounds__(32)
+    g2_add_kernel(const uint8_t* p, const uint8_t* q, uint8_t* o) {
+  __shared__ fq sm[prog::G2_SLOTS];
+  DevWarp w{sm, (int)threadIdx.x};
+  const size_t i = blockIdx.x;
+  g2_add_bytes_w(w, p + 288 * i, q + 288 * i, o + 288 * i);
+}
 
 // one warp per chunk of two (P, Q) pairs: its Miller value, conjugated, in
 // Montgomery words into scratch
@@ -184,6 +210,11 @@ inline int tree_threads(int nb) {
   return nb / 2 < kTreeThreads ? (nb / 2 > 0 ? nb / 2 : 1) : kTreeThreads;
 }
 
+// a warp for each addition of a G2 tree's first level, at most kG2TreeWarps
+inline int g2_tree_warps(int nb) {
+  return nb / 2 < kG2TreeWarps ? (nb / 2 > 0 ? nb / 2 : 1) : kG2TreeWarps;
+}
+
 }  // namespace
 
 extern "C" {
@@ -198,9 +229,16 @@ int tm_g1_aggregate(const void* in, void* scratch, void* out, int ntrees,
 
 int tm_g2_aggregate(const void* in, void* scratch, void* out, int ntrees,
                     int b, int nb, void* stream) {
-  if (ntrees > 0)
-    g2_aggregate_kernel<<<ntrees, tree_threads(nb), 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)in, (jac<fp2>*)scratch, (uint8_t*)out, b, nb);
+  if (ntrees <= 0) return (int)cudaGetLastError();
+  const int warps = g2_tree_warps(nb);
+  const int smem = warps * prog::G2_SLOTS * (int)sizeof(fq);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        g2_aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  g2_aggregate_kernel<<<ntrees, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)in, (fq*)scratch, (uint8_t*)out, b, nb);
   return (int)cudaGetLastError();
 }
 
@@ -215,10 +253,8 @@ int tm_g1_add(const void* p, const void* q, void* out, int n, void* stream) {
 
 int tm_g2_add(const void* p, const void* q, void* out, int n, void* stream) {
   if (n > 0)
-    g2_add_kernel<<<blocks_for(n, kChunkThreads), kChunkThreads, 0,
-                    (cudaStream_t)stream>>>((const uint8_t*)p,
-                                            (const uint8_t*)q, (uint8_t*)out,
-                                            n);
+    g2_add_kernel<<<n, 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)p, (const uint8_t*)q, (uint8_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,13 @@
-// Host harness of the warp-wide BLS12-381 pairing kernels, for the CPU tests
-// (tests/test_torch_bls_pairing_lanes.py builds it with g++).
+// Host harness of the warp-wide BLS12-381 kernels, for the CPU tests
+// (tests/test_torch_bls_pairing_lanes.py builds it with g++; the G2 sums'
+// tests, tests/test_torch_bls_g2_lanes.py, use the same build).
 //
 // It runs the same source as the card: the fq core, run_program and the
-// stage programs, miller_chunk_w, chunk_product_w and final_exp_w of
-// ops/csrc/bls12_381_device.cuh, with 32 host threads playing the lanes of a
-// warp over one shared slot array. The warp's sync is a barrier of the 32
+// stage programs, miller_chunk_w, chunk_product_w, final_exp_w, g2_add_w
+// and g2_tree_w of ops/csrc/bls12_381_device.cuh, with 32 host threads
+// playing the lanes of a warp over one shared slot array (a G2 tree's
+// block: several such warps, and a barrier of all their threads for
+// __syncthreads). The warp's sync is a barrier of the 32
 // threads, so the lanes run in lock-step, a stage at a time. At each sync
 // the harness checks the stage that ends there:
 // - every lane arrives with the same tag (the call and the lane's count of
@@ -13,12 +16,14 @@
 // - no slot was written by two lanes, or written by one lane and read by
 //   another, in the stage: on the card, such a read could see either value.
 // It also exports the one-thread functions of the same header (fp_mul,
-// f12_mul, f12_sqr, ..., the Miller steps), which the tests hold the warp
-// functions against.
+// f12_mul, f12_sqr, ..., the Miller steps, jac_add<fp2>, jac_double<fp2>),
+// which the tests hold the warp functions against.
 #include <stdint.h>
 #include <string.h>
 
 #include <atomic>
+#include <barrier>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -97,21 +102,34 @@ struct HostWarp {
   void sync() { wp->barrier(lane, (call << 32) | ++seq); }
 };
 
-// fn(w) on 32 lanes in lock-step, then a last barrier with the tag kDone;
-// 0, or -1 if the lanes fell out of lock-step or a stage's accesses clashed
+// fn(w, warp, block_sync) on nwarps warps of 32 lanes, each warp in
+// lock-step over its own slots and ending with a last barrier with the tag
+// kDone, block_sync a barrier of every thread (the card's __syncthreads);
+// 0, or -1 if a warp fell out of lock-step or a stage's accesses clashed
 template <class F>
-int run_warp(int nslots, F fn) {
-  Warp wp(nslots);
-  std::thread lanes[kLanes];
-  for (int lane = 0; lane < kLanes; lane++) {
-    lanes[lane] = std::thread([&, lane] {
-      HostWarp w{&wp, lane};
-      fn(w);
-      wp.barrier(lane, kDone);
+int run_block(int nwarps, int nslots, F fn) {
+  std::vector<std::unique_ptr<Warp>> warps;
+  for (int i = 0; i < nwarps; i++) warps.emplace_back(new Warp(nslots));
+  std::barrier block(kLanes * nwarps);
+  std::vector<std::thread> threads;
+  for (int t = 0; t < kLanes * nwarps; t++) {
+    threads.emplace_back([&, t] {
+      const int warp = t / kLanes, lane = t % kLanes;
+      HostWarp w{warps[warp].get(), lane};
+      fn(w, warp, [&] { block.arrive_and_wait(); });
+      warps[warp]->barrier(lane, kDone);
     });
   }
-  for (auto& t : lanes) t.join();
-  return wp.failed ? -1 : 0;
+  for (auto& t : threads) t.join();
+  for (auto& wp : warps)
+    if (wp->failed) return -1;
+  return 0;
+}
+
+// fn(w) on one warp
+template <class F>
+int run_warp(int nslots, F fn) {
+  return run_block(1, nslots, [&](HostWarp& w, int, auto) { fn(w); });
 }
 
 void words_of(uint32_t* o, const fp& a) {
@@ -406,6 +424,113 @@ int tm_host_final_exp_one_thread(const uint8_t* in, uint8_t* out, int n) {
     f12_store(out + 576 * k, r);
   }
   return 0;
+}
+
+// For n pairs of G2 points p, q of 288 bytes ([3][2][48], read mod p):
+// words[n][4][72], the sum's Montgomery words by the one-thread
+// jac_add<fp2>, by g2_add_w on one warp, then the double of p by the
+// one-thread jac_double<fp2> and by g2_dbl_w; bytes[n][2][288], the sum's
+// canonical bytes by jac_add<fp2> (fe_store) and by g2_add_bytes_w. 0, or
+// -1 if a warp run failed its checks.
+int tm_host_g2_ops(const uint8_t* p, const uint8_t* q, int n, uint32_t* words,
+                   uint8_t* bytes) {
+  for (int i = 0; i < n; i++) {
+    const uint8_t* pi = p + 288 * i;
+    const uint8_t* qi = q + 288 * i;
+    uint32_t* o = words + 4 * 72 * i;
+    uint8_t* ob = bytes + 2 * 288 * i;
+    jac<fp2> a, b, r;
+    for (int c = 0; c < 3; c++) {
+      f2_load(c == 0 ? a.x : c == 1 ? a.y : a.z, pi + 96 * c);
+      f2_load(c == 0 ? b.x : c == 1 ? b.y : b.z, qi + 96 * c);
+    }
+    const fp2* coords[3] = {&r.x, &r.y, &r.z};
+    jac_add(r, a, b);
+    for (int c = 0; c < 3; c++) {
+      words_of(o + 24 * c, coords[c]->c0);
+      words_of(o + 24 * c + 12, coords[c]->c1);
+      f2_store(ob + 96 * c, *coords[c]);
+    }
+    jac_double(r, a);
+    for (int c = 0; c < 3; c++) {
+      words_of(o + 144 + 24 * c, coords[c]->c0);
+      words_of(o + 144 + 24 * c + 12, coords[c]->c1);
+    }
+    for (int dbl = 0; dbl < 2; dbl++) {
+      uint32_t* q_out = o + 72 + 144 * dbl;
+      const int rc = run_warp(prog::G2_SLOTS, [&](HostWarp& w) {
+        warp_consts(w);
+        const int l = w.lane;
+        if (l < 12) {
+          fq v;
+          fq_load(v, (l < 6 ? pi : qi) + 48 * (l % 6));
+          w.st(prog::G2_P + l, v);
+        }
+        w.sync();
+        int sum = prog::G2_O;
+        if (dbl)
+          g2_dbl_w(w);
+        else
+          sum = g2_add_w(w);
+        if (l < 6) memcpy(q_out + 12 * l, w.ld(sum + l).l, 48);
+        w.sync();
+      });
+      if (rc != 0) return -1;
+    }
+    if (run_warp(prog::G2_SLOTS, [&](HostWarp& w) {
+          g2_add_bytes_w(w, pi, qi, ob + 288);
+        }) != 0)
+      return -1;
+  }
+  return 0;
+}
+
+// tm_g2_aggregate's body on host memory: ntrees trees of b points of 288
+// bytes at in, each padded to nb leaves and summed by g2_tree_w on nwarps
+// warps (one block a tree); the canonical sums into out[ntrees][288]. 0,
+// or -1.
+int tm_host_g2_aggregate(const uint8_t* in, int ntrees, int b, int nb,
+                         int nwarps, uint8_t* out) {
+  std::vector<fq> s(6 * (size_t)nb);
+  for (int t = 0; t < ntrees; t++) {
+    if (run_block(nwarps, prog::G2_SLOTS, [&](HostWarp& w, int warp, auto block_sync) {
+          g2_tree_w(w, warp, nwarps, in + 288 * (size_t)b * t, s.data(),
+                    out + 288 * t, b, nb, block_sync);
+        }) != 0)
+      return -1;
+  }
+  return 0;
+}
+
+// The harness's checks on g2_add_w of p + q (p = q in two representations,
+// so the doubling branch runs): fault 0 none; 1 lane 5 syncs once more
+// than the others after it; 2 lane 3 reads h as nonzero and runs
+// G2_ADD_FIN where the warp runs G2_DBL (a branch that is not
+// warp-uniform); 3 lane 6 writes h in the stage where every lane reads it.
+// 0, or -1 when the run failed its checks.
+int tm_host_g2_selftest(const uint8_t* p, const uint8_t* q, int fault) {
+  struct FaultyWarp {
+    HostWarp& w;
+    int fault, lane;
+    bool wrote = false;
+    fq ld(int s) {
+      fq v = w.ld(s);
+      if (s == prog::G2_H && fault == 2 && lane == 3) v.l[0] ^= 1u;
+      if (s == prog::G2_H && fault == 3 && lane == 6 && !wrote) {
+        w.st(s, v);
+        wrote = true;
+      }
+      return v;
+    }
+    void st(int s, const fq& v) { w.st(s, v); }
+    void sync() { w.sync(); }
+  };
+  return run_warp(prog::G2_SLOTS, [&](HostWarp& hw) {
+    FaultyWarp w{hw, fault, hw.lane};
+    uint8_t out[288];
+    g2_add_bytes_w(w, p, q, out);
+    if (fault == 1 && w.lane == 5) w.sync();
+  });
 }
 
 // The harness's own checks on a toy run of two stages: fault 0 none; 1

@@ -18,7 +18,10 @@ Held, exactly (the core reduces fully, so no value is compared mod p):
   against Python's Montgomery product;
 - each warp-wide f12 operation (``MUL12``, and the test programs of
   ``f12_sqr``, ``f12_mul_line``, ``f12_cyclo_sqr``, ``f12_frob``,
-  ``f12_inv``) against its one-thread function, limb for limb;
+  ``f12_inv``) against its one-thread function, limb for limb; the stage
+  tables, and the G2 sums' (``G2_HR``, ``G2_ADD_FIN``, ``G2_DBL``, whose
+  warp functions ``tests/test_torch_bls_g2_lanes.py`` holds), against the
+  host oracle in Python;
 - one Miller bit (``M_DBL``, ``M_ADD``) against the one-thread steps;
 - the harness's Miller value and final exponentiation against
   ``miller_plain``/``final_exp_plain`` byte for byte and the host
@@ -154,11 +157,42 @@ def _rand_f12():
     return tuple((_below(P), _below(P)) for _ in range(6))
 
 
-@pytest.mark.parametrize("name", ["MUL12", "T_SQR", "T_LINE", "T_CYC", "T_FROB", "T_INV"])
+def _g2_program_values(progs, name):
+    """(got, want) of a G2 program's simulate run on two points of the
+    subgroup: G2_HR's z1z1, z2z2, u1, s1, h, r; G2_HR then G2_ADD_FIN's sum;
+    G2_DBL's double of P. The oracle's g2_add/g2_double are the one-thread
+    formulas, so the coordinates themselves agree."""
+    p, q = (ref.g2_mul(ref.G2_GEN, _below(ref.R - 1) + 1) for _ in range(2))
+    slots = gen.const_slots()
+    for base, pt in ((gen.G2_P, p), (gen.G2_Q, q)):
+        slots.update({base + 2 * c + k: pt[c][k] for c in range(3) for k in range(2)})
+    for prog in {"G2_HR": ["G2_HR"], "G2_ADD_FIN": ["G2_HR", "G2_ADD_FIN"],
+                 "G2_DBL": ["G2_DBL"]}[name]:
+        gen.simulate(progs[prog], slots)
+    if name == "G2_HR":
+        (x1, y1, z1), (x2, y2, z2) = p, q
+        z1z1, z2z2 = ref.f2_sqr(z1), ref.f2_sqr(z2)
+        u1 = ref.f2_mul(x1, z2z2)
+        s1 = ref.f2_mul(ref.f2_mul(y1, z2), z2z2)
+        h = ref.f2_sub(ref.f2_mul(x2, z1z1), u1)
+        r = ref.f2_sub(ref.f2_mul(ref.f2_mul(y2, z1), z1z1), s1)
+        bases = (gen.G2_Z1Z1, gen.G2_Z2Z2, gen.G2_U1, gen.G2_S1, gen.G2_H, gen.G2_R)
+        return [(slots[b], slots[b + 1]) for b in bases], [z1z1, z2z2, u1, s1, h, r]
+    got = tuple((slots[gen.G2_O + 2 * c], slots[gen.G2_O + 2 * c + 1]) for c in range(3))
+    return got, ref.g2_add(p, q) if name == "G2_ADD_FIN" else ref.g2_double(p)
+
+
+@pytest.mark.parametrize("name", ["MUL12", "T_SQR", "T_LINE", "T_CYC", "T_FROB", "T_INV",
+                                  "G2_HR", "G2_ADD_FIN", "G2_DBL"])
 def test_program_tables_compute_the_oracles_operation(progs, name):
     """A Python run of each operation's stage table (its stage rules
     checked) against the host oracle; the cyclotomic squaring on an element
-    of the cyclotomic subgroup, where it is the square."""
+    of the cyclotomic subgroup, where it is the square; the G2 programs of
+    the point sums on points of the subgroup."""
+    if name.startswith("G2_"):
+        got, want = _g2_program_values(progs, name)
+        assert got == want
+        return
     x, y = _rand_f12(), _rand_f12()
     if name == "T_CYC":  # f^((p^6 - 1)(p^2 + 1)), the easy part
         x = ref.f12_mul(ref.f12_conj(x), ref.f12_inv(x))
