@@ -109,9 +109,10 @@ K6_LIVE, K6_BUCKET = 9600, 16384  # the blocksync window's rows and bucket
 K5_SIZES = (16, 256)
 BLS_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "bls_kernels.cu")
 KERNEL_NAMES = {3: ("verify_table_kernel",), 5: ("neg_pubkey_bigtable_kernel",),
-                6: ("verify_bigcache_kernel",), 11: ("g2_aggregate_kernel",),
+                6: ("verify_bigcache_kernel",),
+                11: ("g1_aggregate_kernel", "g2_aggregate_kernel"),
                 12: ("miller_kernel", "chunk_product_kernel", "final_exp_kernel"),
-                13: ("g2_add_kernel",)}
+                13: ("g1_add_kernel", "g2_add_kernel")}
 BLS_KERNELS = (11, 12, 13)  # the kernels of bls_kernels.cu
 ALL_KERNELS = (3, 5, 6, 11, 12, 13)
 PAIRING_REPS = 5  # check_pairs and native pairing_check calls per turn
@@ -136,6 +137,12 @@ TREE_WARPS = (8, 32)
 G2_WARPS_LINE = "constexpr int kG2TreeWarps = 16;"
 WARP_VARIANTS = {f"{n} warps": [(KERNELS_CU, G2_WARPS_LINE, G2_WARPS_LINE.replace("16", str(n)))]
                  for n in TREE_WARPS}
+# the G1 sums' lanes a group (kernels 11 and 13): this tree's bls_kernels.cu
+# with the tree's and the pair sum's group widths swapped (8 and 4), checked
+# and timed beside the full build (4 and 8)
+LANE_VARIANTS = {"tree 8 lanes, add 4 lanes": [
+    (KERNELS_CU, "kG1TreeLanes = 4;", "kG1TreeLanes = 8;"),
+    (KERNELS_CU, "kG1AddLanes = 8;", "kG1AddLanes = 4;")]}
 N_SHARDED_SMALL = 5  # kernel 13's case of fewer points than shards
 
 
@@ -218,6 +225,8 @@ class Build:
             "tm_neg_pubkey_bigtable": [vp, vp, vp, vp, i, vp],
             "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
             "tm_final_exp": [vp, vp, i, vp],
+            "tm_g1_aggregate": [vp, vp, vp, i, i, i, vp],
+            "tm_g1_add": [vp, vp, vp, i, vp],
             "tm_g2_aggregate": [vp, vp, vp, i, i, i, vp],
             "tm_g2_add": [vp, vp, vp, i, vp],
         }
@@ -280,23 +289,25 @@ class Build:
         ))
         return out
 
-    def g2_aggregate(self, torch, pts):
-        """tm_g2_aggregate on [T, B, 3, 2, 48] bytes -> [T, 3, 2, 48]
-        (ops/bls_g2.g2_aggregate's operands and scratch)."""
+    def aggregate(self, g: str, torch, pts):
+        """tm_g1_aggregate or tm_g2_aggregate (`g` "g1", "g2") on [T, B,
+        *point] bytes -> [T, *point] (ops/bls_g*.g*_aggregate's operands
+        and scratch: three Fp or Fp2 elements a leaf)."""
         t, b = pts.shape[:2]
         nb = 1 << max(1, (b - 1).bit_length())
-        out = torch.empty((t, 3, 2, 48), dtype=torch.uint8, device=pts.device)
-        scratch = torch.empty(t * nb * 36, dtype=torch.int64, device=pts.device)
-        self._check(self.lib.tm_g2_aggregate(
+        out = torch.empty((t, *pts.shape[2:]), dtype=torch.uint8, device=pts.device)
+        scratch = torch.empty(t * nb * (18 if g == "g1" else 36), dtype=torch.int64,
+                              device=pts.device)
+        self._check(getattr(self.lib, f"tm_{g}_aggregate")(
             pts.data_ptr(), scratch.data_ptr(), out.data_ptr(), t, b, nb,
             torch.cuda.current_stream().cuda_stream,
         ))
         return out
 
-    def g2_add(self, torch, p, q):
-        """tm_g2_add on two [n, 3, 2, 48] batches."""
+    def add(self, g: str, torch, p, q):
+        """tm_g1_add or tm_g2_add on two [n, *point] batches."""
         out = torch.empty_like(p)
-        self._check(self.lib.tm_g2_add(
+        self._check(getattr(self.lib, f"tm_{g}_add")(
             p.data_ptr(), q.data_ptr(), out.data_ptr(), p.shape[0],
             torch.cuda.current_stream().cuda_stream,
         ))
@@ -304,8 +315,8 @@ class Build:
 
 
 class VariantBuild(Build):
-    """A SPLITS or WARP_VARIANTS build of bls_kernels.cu, loaded: Build's
-    BLS launchers."""
+    """A SPLITS, WARP_VARIANTS or LANE_VARIANTS build of bls_kernels.cu,
+    loaded: Build's BLS launchers."""
 
     def __init__(self, proc, so: str):
         out = proc.communicate()[0]
@@ -315,8 +326,9 @@ class VariantBuild(Build):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.tm_miller.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, vp]
         lib.tm_final_exp.argtypes = [vp, vp, i, vp]
-        lib.tm_g2_aggregate.argtypes = [vp, vp, vp, i, i, i, vp]
-        lib.tm_g2_add.argtypes = [vp, vp, vp, i, vp]
+        for g in ("g1", "g2"):
+            getattr(lib, f"tm_{g}_aggregate").argtypes = [vp, vp, vp, i, i, i, vp]
+            getattr(lib, f"tm_{g}_add").argtypes = [vp, vp, vp, i, vp]
         self.lib = lib
 
 
@@ -445,6 +457,29 @@ def pairing_turn(types, host, vset, by_addr, rng, chain_id: str) -> dict:
             "qc_checks": r["win_launches"]["final_exp"] // 2}
 
 
+def sharded_turn(rng) -> dict:
+    """Kernel 13 through this package's wrappers: g1/g2_aggregate_sharded
+    of N_VALS seeded points over MESH_SHARDS shards of the card, each
+    checked against the host sum, then median ms of REPS calls (CUDA
+    events)."""
+    import torch
+
+    from tendermint_tpu_torch.parallel.mesh import Mesh
+
+    cs = chip_smoke()
+    dev = torch.device("cuda")
+    mesh = Mesh([dev] * cs.MESH_SHARDS)
+    out = {}
+    for g in ("g1", "g2"):
+        keys = seeded_points(rng, g, N_VALS)
+        pts = point_stack(torch, g, keys, dev)
+        eq, mod = group(g)[3:]
+        kern = getattr(mod, g + "_aggregate_sharded")
+        assert eq(getattr(mod, g + "_to_host")(kern(pts, mesh)), host_sum(g, keys)), g
+        out[g] = cs.time_cuda(torch, lambda: kern(pts, mesh), REPS)
+    return out
+
+
 def turn(tree: str, seed: int, what: list[str]) -> dict:
     """One child's turn: the main paths of the tree at `tree`."""
     types, host, vset, by_addr, rng = _validator_set(tree, seed)
@@ -455,155 +490,211 @@ def turn(tree: str, seed: int, what: list[str]) -> dict:
         out["blocksync"] = blocksync_ms(types, host, vset, by_addr, rng, "chip-kernels")
     if "pairing" in what:
         out["pairing"] = pairing_turn(types, host, vset, by_addr, rng, "chip-kernels")
+    if "sharded" in what:
+        out["sharded"] = sharded_turn(rng)
     return out
 
 
-def g2_operands(torch, cs, rng, dev) -> dict:
-    """Kernels 11 and 13's operands on `dev`: N_VALS keys, 256 adversarial
-    points (duplicates, opposites, identities), the trees of kernel 11
-    ({name: [T, B, 3, 2, 48]}) and the host sums."""
+def group(g: str):
+    """(host oracle's add, identity, negation and equality, the package's
+    module of the group) of G1 (`g` "g1") or G2 ("g2")."""
+    from tendermint_tpu_torch.crypto import bls12_381 as c
+    from tendermint_tpu_torch.ops import bls_g1, bls_g2
+
+    if g == "g1":
+        return c.g1_add, c.G1_INF, c.g1_neg, c.g1_eq, bls_g1
+    return c.g2_add, c.G2_INF, c.g2_neg, c.g2_eq, bls_g2
+
+
+def point_stack(torch, g: str, pts, dev):
+    mod = group(g)[4]
+    return torch.stack([getattr(mod, g + "_from_host")(p) for p in pts]).to(dev)
+
+
+def host_sum(g: str, pts) -> tuple:
+    add, acc = group(g)[:2]
+    for p in pts:
+        acc = add(acc, p)
+    return acc
+
+
+def seeded_points(rng, g: str, n: int) -> list:
+    """n multiples of the group's generator by seeded scalars."""
     from tendermint_tpu_torch.crypto import bls12_381 as c
     from tendermint_tpu_torch.crypto import bls_signatures as bls
-    from tendermint_tpu_torch.ops import bls_g2
 
-    def g2_point() -> tuple:
-        k = int.from_bytes(rng.bytes(32), "big") % (c.R - 1) + 1
-        return bls._g2_mul_point(c.G2_GEN, k)
+    mul, gen = ((bls._g1_mul_point, c.G1_GEN) if g == "g1"
+                else (bls._g2_mul_point, c.G2_GEN))
+    return [mul(gen, int.from_bytes(rng.bytes(32), "big") % (c.R - 1) + 1)
+            for _ in range(n)]
 
-    keys = [g2_point() for _ in range(N_VALS)]
-    adv = [g2_point() for _ in range(200)]
-    adv += adv[:20] + [c.g2_neg(p) for p in adv[20:40]] + [c.G2_INF] * 16
-    key_pts, adv_pts = g2_stack(torch, keys, dev), g2_stack(torch, adv, dev)
+
+def sum_operands(torch, cs, rng, dev, g: str) -> dict:
+    """Kernels 11 and 13's operands of one group on `dev`: N_VALS points
+    (signatures or keys), 256 adversarial points (duplicates, opposites,
+    identities), the trees of kernel 11 ({name: [T, B, *point]}) and the
+    host sums."""
+    _, inf, neg, _, _ = group(g)
+    keys = seeded_points(rng, g, N_VALS)
+    adv = seeded_points(rng, g, 200)
+    adv += adv[:20] + [neg(p) for p in adv[20:40]] + [inf] * 16
+    key_pts, adv_pts = point_stack(torch, g, keys, dev), point_stack(torch, g, adv, dev)
     trees = {f"1x{N_VALS}": key_pts.unsqueeze(0),
              f"{cs.WINDOW}x{N_VALS}": torch.stack(
                  [key_pts.roll(t, 0) for t in range(cs.WINDOW)]).contiguous(),
              "adversarial 256": adv_pts.unsqueeze(0)}
     return {"keys": keys, "key_pts": key_pts, "adv_pts": adv_pts, "trees": trees,
-            "key_sum": g2_host_sum(keys), "adv_sum": g2_host_sum(adv)}
+            "key_sum": host_sum(g, keys), "adv_sum": host_sum(g, adv)}
 
 
-def g2_stack(torch, pts, dev):
-    from tendermint_tpu_torch.ops import bls_g2
-
-    return torch.stack([bls_g2.g2_from_host(p) for p in pts]).to(dev)
-
-
-def g2_host_sum(pts) -> tuple:
-    from tendermint_tpu_torch.crypto import bls12_381 as c
-
-    acc = c.G2_INF
-    for p in pts:
-        acc = c.g2_add(acc, p)
-    return acc
-
-
-def run_kernel11(torch, cs, g2, bls_built, warp_builds, timed_turns, report, smi) -> dict:
-    """Kernel 11 (tm_g2_aggregate): every build and warp variant held
-    against the plain version and the host sums at g2["trees"], timed in
-    turns at the first two, the variants beside this tree's build."""
-    from tendermint_tpu_torch.crypto import bls12_381 as c
-    from tendermint_tpu_torch.ops import bls_g2
-
-    trees, plain_ms = g2["trees"], {}
-    for name, pts in trees.items():
-        t0 = time.perf_counter()
-        plain = bls_g2.g2_aggregate_plain(pts)
-        if pts.is_cuda:
-            torch.cuda.synchronize()
-        plain_ms[name] = (time.perf_counter() - t0) * 1e3
-        want = g2["adv_sum"] if name == "adversarial 256" else g2["key_sum"]
-        assert all(c.g2_eq(bls_g2.g2_to_host(t), want) for t in plain.cpu()), name
-        for tag, bld in list(bls_built.items()) + list(warp_builds.items()):
-            got = bld.g2_aggregate(torch, pts)
+def run_kernel11(torch, cs, sums, bls_built, variants, timed_turns, report, smi) -> dict:
+    """Kernel 11, both halves (tm_g1_aggregate, row 11a; tm_g2_aggregate,
+    row 11b): every build and variant held against the plain version and
+    the host sums at each group's trees, timed in turns at the first two,
+    the variants ({group: {name: build}}) beside this tree's build."""
+    out = {"plain_ms": {}, "variants_ms": {}}
+    timed = []
+    for g, ops in sums.items():
+        eq, mod = group(g)[3:]
+        plain_fn, to_host = getattr(mod, g + "_aggregate_plain"), getattr(mod, g + "_to_host")
+        for name, pts in ops["trees"].items():
+            t0 = time.perf_counter()
+            plain = plain_fn(pts)
             if pts.is_cuda:
                 torch.cuda.synchronize()
-            assert cs.max_abs_err(got, plain) == 0, f"{tag}: tm_g2_aggregate != plain ({name})"
-    print(f"kernel-vs-plain: kernel 11 of {sorted(bls_built)} and the "
-          f"{sorted(warp_builds)} builds: tm_g2_aggregate at {list(trees)} equal "
-          f"the plain version byte for byte and the host oracle's sums")
-    timed = list(trees)[:2]
-    times = timed_turns(timed, lambda bld, n: bld.g2_aggregate(torch, trees[n]), bls_built)
-    one, warp = cs.g2_tree_paths(N_VALS)
-    report(11, "trees", times,
-           f"critical path of a tree of {N_VALS} keys {warp} (one thread an "
-           f"addition: {one}); at most {cs.G2_TREE_WARPS} warps a tree", bls_built)
-    variants = {f"{cs.G2_TREE_WARPS} warps": bls_built["this"], **warp_builds}
-    warp_ms = {name: {n: cs.time_cuda(torch, lambda: bld.g2_aggregate(torch, trees[n]), REPS)
-                      for n in timed}
-               for name, bld in variants.items()}
-    print("kernel11 warps: this tree, median ms of 20 launches of tm_g2_aggregate "
-          f"at {timed} with at most N warps a tree (kG2TreeWarps): " + "; ".join(
-              f"{name} " + " / ".join(f"{t[n]:.4f}" for n in timed)
-              for name, t in warp_ms.items()) + f" | {smi}")
-    print(f"time: g2_aggregate_plain on the card (one call, host clock) "
-          f"{json.dumps({k: round(v, 2) for k, v in plain_ms.items()})} | {smi}")
-    return {"plain_ms": plain_ms, "ms": times, "warps_ms": warp_ms}
+            out["plain_ms"][f"{g} {name}"] = (time.perf_counter() - t0) * 1e3
+            want = ops["adv_sum"] if name == "adversarial 256" else ops["key_sum"]
+            assert all(eq(to_host(t), want) for t in plain.cpu()), (g, name)
+            for tag, bld in list(bls_built.items()) + list(variants[g].items()):
+                got = bld.aggregate(g, torch, pts)
+                if pts.is_cuda:
+                    torch.cuda.synchronize()
+                assert cs.max_abs_err(got, plain) == 0, \
+                    f"{tag}: tm_{g}_aggregate != plain ({name})"
+        timed += [f"{g} {n}" for n in list(ops["trees"])[:2]]
+        print(f"kernel-vs-plain: kernel 11 of {sorted(bls_built)} and the "
+              f"{sorted(variants[g])} builds: tm_{g}_aggregate at {list(ops['trees'])} "
+              f"equal the plain version byte for byte and the host oracle's sums")
+
+    def call(bld, n):
+        g, name = n.split(" ", 1)
+        return bld.aggregate(g, torch, sums[g]["trees"][name])
+
+    out["ms"] = timed_turns(timed, call, bls_built)
+    one1, lanes = cs.g1_tree_paths(N_VALS)
+    one2, warp = cs.g2_tree_paths(N_VALS)
+    report(11, "trees", out["ms"],
+           f"critical paths of a tree of {N_VALS} points: G1 {lanes} on groups of "
+           f"{cs.G1_TREE_LANES} lanes (one thread an addition: {one1}), G2 {warp} on "
+           f"warps (one thread: {one2}); at most {cs.G1_TREE_WARPS} and "
+           f"{cs.G2_TREE_WARPS} warps a tree", bls_built)
+    for g, what, this in (("g1", "lanes", f"tree {cs.G1_TREE_LANES} lanes, add "
+                                          f"{cs.G1_ADD_LANES} lanes"),
+                          ("g2", "warps", f"{cs.G2_TREE_WARPS} warps")):
+        builds = {this: bls_built["this"], **variants[g]}
+        ms = out["variants_ms"][g] = {name: {
+            n: cs.time_cuda(torch, lambda: call(bld, n), REPS)
+            for n in timed if n.startswith(g)} for name, bld in builds.items()}
+        print(f"kernel11 {what}: this tree, median ms of 20 launches of tm_{g}_aggregate "
+              f"at {[n for n in timed if n.startswith(g)]} with each build: " + "; ".join(
+                  f"{name} " + " / ".join(f"{t:.4f}" for t in v.values())
+                  for name, v in ms.items()) + f" | {smi}")
+    print(f"time: g1/g2_aggregate_plain on the card (one call, host clock) "
+          f"{json.dumps({k: round(v, 2) for k, v in out['plain_ms'].items()})} | {smi}")
+    return out
 
 
-def run_kernel13(torch, cs, g2, bls_built, timed_turns, report, smi) -> dict:
-    """Kernel 13's G2 half: the sharded sum's schedule (this tree's
+def run_kernel13(torch, cs, sums, bls_built, variants, timed_turns, report, smi) -> dict:
+    """Kernel 13, both halves: the sharded sum's schedule (this tree's
     ops/shard_reduce.py) over MESH_SHARDS shards with each build's
-    tm_g2_aggregate and tm_g2_add, against the plain schedule on the CPU
-    and the host sums; tm_g2_add on pairs of every branch against
-    g2_add_plain; both timed in turns."""
-    from tendermint_tpu_torch.crypto import bls12_381 as c
-    from tendermint_tpu_torch.ops import bls_g2, shard_reduce
+    tm_g*_aggregate and tm_g*_add (and G1's lane variants), against the
+    plain schedule on the CPU and the host sums; tm_g*_add on pairs of
+    every branch against g*_add_plain; both timed in turns, the G1 lane
+    variants beside this tree's build."""
+    from tendermint_tpu_torch.ops import shard_reduce
     from tendermint_tpu_torch.parallel.mesh import Mesh
 
-    key_pts, keys = g2["key_pts"], g2["keys"]
-    dev = key_pts.device
-    mesh = Mesh([dev] * cs.MESH_SHARDS)
-    ident = bls_g2.g2_identity()
-    cases = {f"{N_VALS} keys": (key_pts, g2["key_sum"]),
-             "adversarial 256": (g2["adv_pts"], g2["adv_sum"]),
-             f"{N_SHARDED_SMALL} keys": (key_pts[:N_SHARDED_SMALL].contiguous(),
-                                         g2_host_sum(keys[:N_SHARDED_SMALL]))}
+    out = {"differ": {}, "plain_sharded_cpu_ms": {}, "add_plain_ms": {}}
+    sizes, one = [], {}
+    for g, ops in sums.items():
+        add, _, _, eq, mod = group(g)
+        key_pts, keys = ops["key_pts"], ops["keys"]
+        dev = key_pts.device
+        mesh = Mesh([dev] * cs.MESH_SHARDS)
+        ident = getattr(mod, g + "_identity")()
+        sharded_plain = getattr(mod, g + "_aggregate_sharded_plain")
+        add_plain, to_host = getattr(mod, g + "_add_plain"), getattr(mod, g + "_to_host")
+        cases = {f"{N_VALS} points": (key_pts, ops["key_sum"]),
+                 "adversarial 256": (ops["adv_pts"], ops["adv_sum"]),
+                 f"{N_SHARDED_SMALL} points": (key_pts[:N_SHARDED_SMALL].contiguous(),
+                                               host_sum(g, keys[:N_SHARDED_SMALL]))}
 
-    def sharded(bld, pts):
-        return shard_reduce.aggregate_sharded(
-            pts, mesh, lambda x: bld.g2_aggregate(torch, x),
-            lambda p, q: bld.g2_add(torch, p, q), ident)
+        def sharded(bld, pts, g=g, mesh=mesh, ident=ident):
+            return shard_reduce.aggregate_sharded(
+                pts, mesh, lambda x: bld.aggregate(g, torch, x),
+                lambda p, q: bld.add(g, torch, p, q), ident)
 
-    for name, (pts, want) in cases.items():
-        plain = bls_g2.g2_aggregate_sharded_plain(pts.cpu(), mesh)
-        assert c.g2_eq(bls_g2.g2_to_host(plain), want), name
-        for tag, bld in bls_built.items():
-            got = sharded(bld, pts).cpu()
-            assert cs.max_abs_err(got, plain) == 0, f"{tag}: sharded sum != plain ({name})"
-    # tm_g2_add on pairs of every branch of the addition, in one launch
-    ps, qs = cs.branch_pairs("g2", keys[0], keys[1])
-    p_add, q_add = g2_stack(torch, ps, dev), g2_stack(torch, qs, dev)
-    plain = bls_g2.g2_add_plain(p_add.cpu(), q_add.cpu())
-    assert c.g2_eq(bls_g2.g2_to_host(plain[0]), c.g2_add(keys[0], keys[1]))
-    differ = {}
-    for tag, bld in bls_built.items():
-        got = bld.g2_add(torch, p_add, q_add).cpu()
-        differ[tag] = [cs.BRANCH_PAIRS[i] for i in range(len(ps)) if not torch.equal(got[i], plain[i])]
-    assert not differ["this"], f"this tree's tm_g2_add != plain on {differ['this']}"
-    print(f"kernel-vs-plain: kernel 13 of {sorted(bls_built)}: the sharded G2 sum "
-          f"over {cs.MESH_SHARDS} shards at {list(cases)} equal to the plain "
-          f"schedule on the CPU byte for byte and the host sums; tm_g2_add on one "
-          f"launch of the pairs {list(cs.BRANCH_PAIRS)} against g2_add_plain: "
-          + "; ".join(f"{tag} tree " + (f"differs on {d}" if d else "equal")
-                      for tag, d in differ.items()))
-    one_p, one_q = key_pts[:1].contiguous(), key_pts[1:2].contiguous()
-    sizes = (f"sharded {N_VALS}", "g2_add 1 pair")
-    times = timed_turns(sizes, lambda bld, n: (
-        sharded(bld, key_pts) if n.startswith("sharded") else bld.g2_add(torch, one_p, one_q)),
-        bls_built)
-    t0 = time.perf_counter()
-    bls_g2.g2_aggregate_sharded_plain(key_pts.cpu(), mesh)
-    plain_sharded = (time.perf_counter() - t0) * 1e3
-    add_plain_ms = cs.time_cuda(torch, lambda: bls_g2.g2_add_plain(one_p, one_q), 3)
+        for name, (pts, want) in cases.items():
+            plain = sharded_plain(pts.cpu(), mesh)
+            assert eq(to_host(plain), want), (g, name)
+            for tag, bld in list(bls_built.items()) + list(variants[g].items()):
+                got = sharded(bld, pts).cpu()
+                assert cs.max_abs_err(got, plain) == 0, \
+                    f"{tag}: sharded {g} sum != plain ({name})"
+        # tm_g*_add on pairs of every branch of the addition, in one launch
+        ps, qs = cs.branch_pairs(g, keys[0], keys[1])
+        p_add, q_add = point_stack(torch, g, ps, dev), point_stack(torch, g, qs, dev)
+        plain = add_plain(p_add.cpu(), q_add.cpu())
+        assert eq(to_host(plain[0]), add(keys[0], keys[1]))
+        differ = out["differ"][g] = {}
+        for tag, bld in list(bls_built.items()) + list(variants[g].items()):
+            got = bld.add(g, torch, p_add, q_add).cpu()
+            differ[tag] = [cs.BRANCH_PAIRS[i] for i in range(len(ps))
+                           if not torch.equal(got[i], plain[i])]
+        assert not differ["this"], f"this tree's tm_{g}_add != plain on {differ['this']}"
+        for name, d in differ.items():
+            assert name == "parent" or not d, f"{name}: tm_{g}_add != plain on {d}"
+        print(f"kernel-vs-plain: kernel 13 of {sorted(bls_built)} and the "
+              f"{sorted(variants[g])} builds: the sharded {g} sum over {cs.MESH_SHARDS} "
+              f"shards at {list(cases)} equal to the plain schedule on the CPU byte for "
+              f"byte and the host sums; tm_{g}_add on one launch of the pairs "
+              f"{list(cs.BRANCH_PAIRS)} against {g}_add_plain: "
+              + "; ".join(f"{tag} " + (f"differs on {d}" if d else "equal")
+                          for tag, d in differ.items()))
+        one[g] = (key_pts[:1].contiguous(), key_pts[1:2].contiguous(), sharded)
+        sizes += [f"{g} sharded {N_VALS}", f"{g}_add 1 pair"]
+        t0 = time.perf_counter()
+        sharded_plain(key_pts.cpu(), mesh)
+        out["plain_sharded_cpu_ms"][g] = (time.perf_counter() - t0) * 1e3
+        out["add_plain_ms"][g] = cs.time_cuda(torch, lambda: add_plain(*one[g][:2]), 3)
+
+    def call(bld, n):
+        g = n[:2]
+        p, q, sharded = one[g]
+        return (sharded(bld, sums[g]["key_pts"]) if "sharded" in n
+                else bld.add(g, torch, p, q))
+
+    out["ms"] = timed_turns(sizes, call, bls_built)
     rounds = cs.MESH_SHARDS.bit_length() - 1
-    report(13, "shapes", times,
+    report(13, "shapes", out["ms"],
            f"{cs.MESH_SHARDS} tree launches + {cs.MESH_SHARDS * rounds} add launches a "
-           f"sharded sum; critical path of g2_add {cs.FP_G2_ADD_KERNEL_PATH} (one "
+           f"sharded sum; critical paths of g1_add {cs.FP_G1_ADD_KERNEL_PATH} (one "
+           f"thread: {cs.FP_G1_ADD_THREAD}), g2_add {cs.FP_G2_ADD_KERNEL_PATH} (one "
            f"thread: {cs.FP_G2_ADD_THREAD})", bls_built)
-    print(f"time: g2_aggregate_sharded_plain on the CPU {plain_sharded:.2f} ms (one "
-          f"call, host clock); g2_add_plain on the card {add_plain_ms:.2f} ms | {smi}")
-    return {"ms": times, "plain_sharded_cpu_ms": plain_sharded,
-            "g2_add_plain_ms": add_plain_ms, "branch_pairs_differ": differ}
+    builds = {f"tree {cs.G1_TREE_LANES} lanes, add {cs.G1_ADD_LANES} lanes": bls_built["this"],
+              **variants["g1"]}
+    out["variants_ms"] = {name: {n: cs.time_cuda(torch, lambda: call(bld, n), REPS)
+                                 for n in sizes if n.startswith("g1")}
+                          for name, bld in builds.items()}
+    print("kernel13 lanes: this tree, median ms of 20 of the G1 sharded sum / "
+          "tm_g1_add at 1 pair with each build: " + "; ".join(
+              f"{name} " + " / ".join(f"{t:.4f}" for t in v.values())
+              for name, v in out["variants_ms"].items()) + f" | {smi}")
+    print(f"time: g1/g2_aggregate_sharded_plain on the CPU "
+          f"{json.dumps({k: round(v, 2) for k, v in out['plain_sharded_cpu_ms'].items()})} "
+          f"ms (one call, host clock); g1/g2_add_plain on the card "
+          f"{json.dumps({k: round(v, 2) for k, v in out['add_plain_ms'].items()})} ms | {smi}")
+    return out
 
 
 def tile_rows(torch, ops, want, live: int, total: int):
@@ -668,13 +759,17 @@ def main() -> int:
     splits = start_variant_builds(_build, SPLITS, "split") if 12 in args.kernel else {}
     warp_builds = (start_variant_builds(_build, WARP_VARIANTS, "warps")
                    if 11 in args.kernel else {})
+    lane_builds = (start_variant_builds(_build, LANE_VARIANTS, "lanes")
+                   if {11, 13} & set(args.kernel) else {})
     builds = {tag: Build(*p, cs.ptxas_usage, bls_kernels if tag.startswith("bls_") else ed_kernels)
               for tag, p in procs.items()}
     splits = {name: VariantBuild(*p) for name, p in splits.items()}
     warp_builds = {name: VariantBuild(*p) for name, p in warp_builds.items()}
+    lane_builds = {name: VariantBuild(*p) for name, p in lane_builds.items()}
     built = {tag: b for tag, b in builds.items() if not tag.startswith("bls_")}
     bls_built = {tag[4:]: b for tag, b in builds.items() if tag.startswith("bls_")}
-    print(f"build: {len(builds) + len(splits) + len(warp_builds)} nvcc builds of "
+    print(f"build: {len(builds) + len(splits) + len(warp_builds) + len(lane_builds)} "
+          f"nvcc builds of "
           f"{' and '.join(src for src, on in ((KERNEL, ed_kernels), (BLS_KERNEL, bls_built)) if on)}"
           f" in parallel, {time.perf_counter() - t0:.1f} s | {smi}")
     order = ["parent", "this", "this", "parent"] if "parent" in trees else ["this"]
@@ -866,18 +961,21 @@ def main() -> int:
         result["kernel12"] = {"plain_ms": plain_ms, "ms": times, "split_ms": split_ms}
 
     if {11, 13} & set(args.kernel):
-        g2 = g2_operands(torch, cs, rng, dev)
+        sums = {g: sum_operands(torch, cs, rng, dev, g) for g in ("g1", "g2")}
     if 11 in args.kernel:
-        result["kernel11"] = run_kernel11(torch, cs, g2, bls_built, warp_builds,
+        result["kernel11"] = run_kernel11(torch, cs, sums, bls_built,
+                                          {"g1": lane_builds, "g2": warp_builds},
                                           timed_turns, report, smi)
     if 13 in args.kernel:
-        result["kernel13"] = run_kernel13(torch, cs, g2, bls_built, timed_turns,
-                                          report, smi)
+        result["kernel13"] = run_kernel13(torch, cs, sums, bls_built,
+                                          {"g1": lane_builds, "g2": {}},
+                                          timed_turns, report, smi)
 
-    if "parent" in trees or {11, 12} & set(args.kernel):
+    if "parent" in trees or {11, 12, 13} & set(args.kernel):
         what = (["commit"] if 3 in args.kernel and "parent" in trees else []) + (
             ["blocksync"] if {5, 6} & set(args.kernel) and "parent" in trees else []) + (
-            ["pairing"] if {11, 12} & set(args.kernel) else [])
+            ["pairing"] if {11, 12} & set(args.kernel) else []) + (
+            ["sharded"] if 13 in args.kernel else [])
         turns: dict[str, list[dict]] = {t: [] for t in trees}
         for tag in order:
             proc = subprocess.run(
@@ -908,6 +1006,12 @@ def main() -> int:
                       f"of which pairing checks "
                       f"{json.dumps([[round(x, 2) for x in t['qc_pairing_ms']] for t in pr])} "
                       f"({pr[0]['qc_checks']} checks a window) | {smi}")
+            if "sharded" in what:
+                print(f"sharded: {tag} tree, kernel 13 through its wrappers "
+                      f"(g1_aggregate_sharded / g2_aggregate_sharded of {N_VALS} points "
+                      f"over {cs.MESH_SHARDS} shards of the card), median ms of {REPS} per turn "
+                      f"{json.dumps([[round(t['sharded'][g], 4) for g in ('g1', 'g2')] for t in ts])} "
+                      f"| {smi}")
             if "blocksync" in what:
                 print(f"blocksync: {tag} tree, the 64 x {N_VALS} window host-hashed, "
                       f"wall ms per window per turn "

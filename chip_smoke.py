@@ -89,7 +89,8 @@ Phases (any failure raises and the exit code is non-zero):
    the device route also the 64 signature and signer-key sums on the
    card, host clock) and its window walls split into signature and key
    parse, hash-to-G1, scalar multiplications and pairing checks,
-   ``g2_aggregate`` also at the 64-tree forest; the ``kernel12:`` line
+   ``g1_aggregate`` and ``g2_aggregate`` also at the 64-tree forest,
+   against the plain version and the host oracle; the ``kernel12:`` line
    gives ``tm_miller`` at both shapes, ``tm_final_exp``, their critical
    paths (``FP_MILLER_PATH``, ``FP_FINAL_EXP_PATH``) and ``ptxas`` usage.
 6. The mixed-key path and the L2 block's merkle leaves (``mixed_phase``):
@@ -170,7 +171,9 @@ Phases (any failure raises and the exit code is non-zero):
    ``g2sums:`` line then gives the warp-wide G2 sums (``g2_aggregate`` at
    one tree and the forest, ``g2_add``, the sharded G2 sum), their
    critical paths against one thread an addition (``g2_tree_paths``,
-   ``FP_G2_ADD_KERNEL_PATH``, ``FP_G2_ADD_PATH``) and ``ptxas`` usage.
+   ``FP_G2_ADD_KERNEL_PATH``, ``FP_G2_ADD_PATH``) and ``ptxas`` usage;
+   the ``g1sums:`` line the same for the G1 sums on lane groups
+   (``g1_tree_paths``, ``FP_G1_ADD_KERNEL_PATH``, ``FP_G1_ADD_PATH``).
 9. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -578,8 +581,19 @@ FP_G2_ADD_PATH, FP_G2_DBL_PATH = 5, 3
 FP_G2_ADD_THREAD = 12 + FP_G2_ADD + 6
 FP_G2_ADD_KERNEL_PATH = 1 + FP_G2_ADD_PATH + 1
 G2_TREE_WARPS = 16  # kG2TreeWarps of bls_kernels.cu: a G2 tree's warps, at most
-# kTreeThreads of bls_kernels.cu: the one-thread tree's threads, at most (the
-# G1 sums; the parent's G2 sums)
+# the G1 sums on lane groups (g1_add_g): an addition's product stages, 2 of
+# G1_HR and 3 of G1_ADD_FIN; a doubling's (G1_DBL) 3
+FP_G1_ADD_PATH, FP_G1_DBL_PATH = 5, 3
+# kG1TreeLanes, kG1AddLanes and kG1TreeWarps of bls_kernels.cu: the lanes
+# of a G1 tree addition's group and of a pair sum's, a G1 tree's warps of
+# groups, at most
+G1_TREE_LANES, G1_ADD_LANES, G1_TREE_WARPS = 4, 8, 16
+# tm_g1_add on one pair: on one thread (the parent's g1_add_kernel) 6 loads,
+# the addition and 3 stores in series; on a group the 6 loads spread over
+# its lanes and one store a lane
+FP_G1_ADD_THREAD = 6 + FP_G1_ADD + 3
+FP_G1_ADD_KERNEL_PATH = -(-6 // G1_ADD_LANES) + FP_G1_ADD_PATH + 1
+# the one-thread trees' threads, at most (the parents' G1 and G2 sums)
 TREE_THREADS = 128
 
 
@@ -593,6 +607,20 @@ def g2_tree_paths(b: int) -> tuple[int, int]:
     warps = min(G2_TREE_WARPS, nb // 2)
     return (6 * -(-b // threads) + levels * FP_G2_ADD + 6,
             -(-6 * b // (32 * warps)) + levels * FP_G2_ADD_PATH + 1)
+
+
+def g1_tree_paths(b: int) -> tuple[int, int]:
+    """Dependent Fp multiplications of tm_g1_aggregate on one tree of b
+    signatures, (one thread an addition, a lane group an addition): the
+    leaf loads a thread runs in series, each level's additions (on groups,
+    in as many rounds as a level has additions per group), the store."""
+    nb = 1 << max(1, (b - 1).bit_length())
+    levels = nb.bit_length() - 1
+    threads = min(TREE_THREADS, nb // 2)
+    groups = min(G1_TREE_WARPS * 32 // G1_TREE_LANES, nb // 2)
+    rounds = sum(-(-(nb >> k) // groups) for k in range(1, levels + 1))
+    return (3 * -(-b // threads) + levels * FP_G1_ADD + 3,
+            -(-3 * b // (G1_TREE_LANES * groups)) + rounds * FP_G1_ADD_PATH + 1)
 
 
 QC_BAD = 40  # the forged certificate's height in the 64-QC window
@@ -828,8 +856,9 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     (assemble_qc) and verify_commits_qc through a started VerifyScheduler's
     qc_verify lane, twice. Returns the four kernels' rows, for the mesh
     phase the point sets {"g1"|"g2": [(label, points, host points)]}, and
-    the pairing kernels' and the G2 trees' ms {"miller_verify",
-    "miller_rlc", "final_exp", "g2_aggregate", "g2_forest"}."""
+    the pairing kernels' and the trees' ms {"miller_verify",
+    "miller_rlc", "final_exp", "g1_aggregate", "g1_forest", "g2_aggregate",
+    "g2_forest"}."""
     from tendermint_tpu_torch.crypto import bls12_381 as c
     from tendermint_tpu_torch.crypto import bls_native
     from tendermint_tpu_torch.crypto import bls_signatures as bls
@@ -1001,6 +1030,7 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     key_pts = torch.stack([bls_g2.g2_from_host(pubs[v.address]) for v in vals])
     key_trees = key_pts.unsqueeze(0).to(dev)
     key_forest = torch.stack([key_pts.roll(t, 0) for t in range(n_win)]).to(dev)
+    sig_forest = torch.stack([sig_pts.roll(t, 0) for t in range(n_win)])
     sig_sum, key_sum = c.G1_INF, c.G2_INF
     for p in sigs:
         sig_sum = c.g1_add(sig_sum, p)
@@ -1011,17 +1041,21 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
         ("g1_aggregate", bls_g1.g1_aggregate, bls_g1.g1_aggregate_plain, sig_pts),
         ("g2_aggregate", bls_g2.g2_aggregate, bls_g2.g2_aggregate_plain, key_trees),
         ("g2_forest", bls_g2.g2_aggregate, bls_g2.g2_aggregate_plain, key_forest),
+        ("g1_forest", bls_g1.g1_aggregate, bls_g1.g1_aggregate_plain, sig_forest),
     ):
         got = kern(pts)
         want, t_ms = time_once(torch, plain, pts)
         err = max_abs_err(got, want)
         assert err == 0, f"{name}: kernel != plain at shape {tuple(pts.shape)}"
-        if name != "g2_forest":
+        kname = name.replace("forest", "aggregate")
+        if kname == name:
             plain_ms[name] = t_ms
-        kname = "g2_aggregate" if name == "g2_forest" else name
         errs[kname] = max(errs[kname], err)
         sums[name] = got.cpu()
     assert c.g1_eq(bls_g1.g1_to_host(sums["g1_aggregate"]), sig_sum), "g1 != host oracle"
+    assert len(sums["g1_forest"]) == n_win and all(
+        c.g1_eq(bls_g1.g1_to_host(t), sig_sum) for t in sums["g1_forest"]), \
+        "g1_forest trees != host oracle"
     for name in ("g2_aggregate", "g2_forest"):
         assert len(sums[name]) == (n_win if name == "g2_forest" else 1)
         assert all(c.g2_eq(bls_g2.g2_to_host(t), key_sum) for t in sums[name]), \
@@ -1029,8 +1063,8 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     print(f"kernel-vs-plain: g1_aggregate at {tuple(sig_pts.shape)}, "
           f"g2_aggregate at {tuple(key_trees.shape)} (the device route's shapes) "
           f"and at {tuple(key_forest.shape)} (the no-library QC engine's "
-          f"{n_win}-tree launch) equal their plain versions (tolerance: exact) "
-          f"and the host oracle")
+          f"{n_win}-tree launch), g1_aggregate also at {tuple(sig_forest.shape)}, "
+          f"equal their plain versions (tolerance: exact) and the host oracle")
 
     # --- timings at the main path's shapes
     rlc = chunks["rlc"]
@@ -1078,11 +1112,12 @@ def qc_phase(torch, rng, dev, smi, ops, types, vset, chain_id, entries):
     mv = time_cuda(torch, lambda: bp.miller(*vchunks), 20)
     print(f"time: miller at the 2-pair verify shape {mv:.4f} ms (1 chunk); "
           f"at the 65-pair RLC shape ({n_rlc_chunks} chunks) the miller row | {smi}")
-    forest_ms = time_cuda(torch, lambda: bls_g2.g2_aggregate(key_forest), 20)
-    timings = {"miller_verify": mv, "miller_rlc": next(r["ms"] for r in rows if r["name"] == "miller"),
-               "final_exp": next(r["ms"] for r in rows if r["name"] == "final_exp"),
-               "g2_aggregate": next(r["ms"] for r in rows if r["name"] == "g2_aggregate"),
-               "g2_forest": forest_ms}
+    timings = {"miller_verify": mv,
+               "g2_forest": time_cuda(torch, lambda: bls_g2.g2_aggregate(key_forest), 20),
+               "g1_forest": time_cuda(torch, lambda: bls_g1.g1_aggregate(sig_forest), 20)}
+    for name in ("miller", "final_exp", "g1_aggregate", "g2_aggregate"):
+        timings[name.replace("miller", "miller_rlc")] = next(
+            r["ms"] for r in rows if r["name"] == name)
     for k, pairs in shapes.items():
         g1b = b"".join(bls.g1_to_bytes(p) for p, _ in pairs)
         g2b = b"".join(bls.g2_to_bytes(q) for _, q in pairs)
@@ -2116,8 +2151,8 @@ def mesh_phase(torch, np, rng, dev, smi, ops, host, vset, chain_id, entries,
          bls_g2.g2_aggregate_sharded_plain, key_pts, FP_G2_ADD, 2),
     ):
         b = pts.shape[0]
-        # every branch of the addition in one launch: the threads (G1) or
-        # warps (G2) of one launch take different branches
+        # every branch of the addition in one launch: the lane groups (G1)
+        # or warps (G2) of one launch take different branches
         hosts = point_sets[g][0][2]
         to_dev = bls_g1.g1_from_host if g == "g1" else bls_g2.g2_from_host
         bp, bq = (torch.stack([to_dev(x) for x in side]).to(dev)
@@ -2772,6 +2807,22 @@ def main() -> int:
           f"{FP_G2_ADD}), a doubling {FP_G2_DBL_PATH}; ptxas: " + "; ".join(
               f"{k}: {usages.get(k, 'not reported')}"
               for k in ("g2_aggregate_kernel", "g2_add_kernel")) + f" | {smi}")
+    g1_add_ms = next(r["ms"] for r in mesh_rows if r["name"] == "g1_add")
+    one, group = g1_tree_paths(args.validators)
+    print(f"g1sums: g1_aggregate_kernel (a group of {G1_TREE_LANES} lanes an addition, "
+          f"{32 // G1_TREE_LANES} groups a warp, at most {G1_TREE_WARPS} warps a tree), "
+          f"median ms of 20 launches at (1, {args.validators}) {k12['g1_aggregate']:.4f} "
+          f"and the ({WINDOW}, {args.validators}) forest {k12['g1_forest']:.4f}; "
+          f"g1_add_kernel (a group of {G1_ADD_LANES} lanes a pair) at 1 pair "
+          f"{g1_add_ms:.4f}; "
+          f"g1_aggregate_sharded over {MESH_SHARDS} shards {sharded_ms['g1']:.4f}; "
+          f"critical paths in dependent Fp multiplications: the tree of "
+          f"{args.validators} signatures {group} (one thread an addition: {one}), "
+          f"g1_add {FP_G1_ADD_KERNEL_PATH} (one thread: {FP_G1_ADD_THREAD}), an "
+          f"addition {FP_G1_ADD_PATH} (one thread: {FP_G1_ADD}), a doubling "
+          f"{FP_G1_DBL_PATH}; ptxas: " + "; ".join(
+              f"{k}: {usages.get(k, 'not reported')}"
+              for k in ("g1_aggregate_kernel", "g1_add_kernel")) + f" | {smi}")
 
     # --- 9. result lines ----------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})

@@ -381,6 +381,13 @@ E_F, E_A, E_B, E_R, E_X, E_O, E_TEMP = 16, 28, 40, 52, 64, 76, 88
 G2_P, G2_Q, G2_O = 16, 22, 40
 G2_Z1Z1, G2_Z2Z2, G2_U1, G2_S1, G2_H, G2_R = range(28, 40, 2)
 G2_TEMP = 46
+# the G1 point sums: the same layout over Fp, a coordinate a slot, in a lane
+# group's own region, whose only constants are zero and one (slots 0, 1)
+G1_P, G1_Q, G1_O = 2, 5, 14
+G1_Z1Z1, G1_Z2Z2, G1_U1, G1_S1, G1_H, G1_R = range(8, 14)
+G1_TEMP = 17
+# jobs a G1 stage: two a lane on a group of four lanes (one a lane on eight)
+G1_JOBS_PER_STAGE = 8
 
 
 def _miller_state(g):
@@ -576,6 +583,59 @@ def prog_g2_dbl(g):
     return _f2_slots(G2_O, x3) + _f2_slots(G2_O + 2, y3) + _f2_slots(G2_O + 4, z3)
 
 
+def _g1_at(g, base):
+    return tuple(g.inp(base + c) for c in range(3))
+
+
+def prog_g1_hr(g):
+    """jac_add<fp>'s first half, P + Q up to its branch: z1z1, z2z2, u1,
+    u2, s1, s2, then h = u2 - u1 and r = s2 - s1."""
+    (x1, y1, z1), (x2, y2, z2) = _g1_at(g, G1_P), _g1_at(g, G1_Q)
+    z1z1, z2z2 = g.mul(z1, z1), g.mul(z2, z2)
+    u1, u2 = g.mul(x1, z2z2), g.mul(x2, z1z1)
+    s1 = g.mul(g.mul(y1, z2), z2z2)
+    s2 = g.mul(g.mul(y2, z1), z1z1)
+    h, r = g.sub(u2, u1), g.sub(s2, s1)
+    return list(zip((G1_Z1Z1, G1_Z2Z2, G1_U1, G1_S1, G1_H, G1_R),
+                    (z1z1, z2z2, u1, s1, h, r)))
+
+
+def prog_g1_add_fin(g):
+    """jac_add<fp>'s second half, from i = (2h)^2 to z3, into O."""
+    z1, z2 = g.inp(G1_P + 2), g.inp(G1_Q + 2)
+    z1z1, z2z2, u1, s1, h, r = (g.inp(s) for s in (
+        G1_Z1Z1, G1_Z2Z2, G1_U1, G1_S1, G1_H, G1_R))
+    h2 = g.add(h, h)
+    i = g.mul(h2, h2)
+    j = g.mul(h, i)
+    rr = g.add(r, r)
+    v = g.mul(u1, i)
+    x3 = g.sub(g.sub(g.sub(g.mul(rr, rr), j), v), v)
+    sj = g.mul(s1, j)
+    y3 = g.sub(g.mul(rr, g.sub(v, x3)), g.add(sj, sj))
+    zs = g.add(z1, z2)
+    z3 = g.mul(g.sub(g.sub(g.mul(zs, zs), z1z1), z2z2), h)
+    return [(G1_O, x3), (G1_O + 1, y3), (G1_O + 2, z3)]
+
+
+def prog_g1_dbl(g):
+    """jac_double<fp> of P into O (its branch to the identity, y or z
+    zero, is the caller's)."""
+    x, y, z = _g1_at(g, G1_P)
+    a, b = g.mul(x, x), g.mul(y, y)
+    c = g.mul(b, b)
+    xb = g.add(x, b)
+    t = g.sub(g.sub(g.mul(xb, xb), a), c)
+    d = g.add(t, t)
+    e = g.add(g.add(a, a), a)
+    x3 = g.sub(g.sub(g.mul(e, e), d), d)
+    c2 = g.add(c, c)
+    c4 = g.add(c2, c2)
+    y3 = g.sub(g.mul(e, g.sub(d, x3)), g.add(c4, c4))
+    yz = g.mul(y, z)
+    return [(G1_O, x3), (G1_O + 1, y3), (G1_O + 2, g.add(yz, yz))]
+
+
 # name -> (graph function, first temporary slot)
 PROGRAMS = {
     "M_INIT": (prog_miller_init, M_TEMP),
@@ -600,6 +660,9 @@ PROGRAMS = {
     "G2_HR": (prog_g2_hr, G2_TEMP),
     "G2_ADD_FIN": (prog_g2_add_fin, G2_TEMP),
     "G2_DBL": (prog_g2_dbl, G2_TEMP),
+    "G1_HR": (prog_g1_hr, G1_TEMP),
+    "G1_ADD_FIN": (prog_g1_add_fin, G1_TEMP),
+    "G1_DBL": (prog_g1_dbl, G1_TEMP),
 }
 
 
@@ -626,8 +689,10 @@ def _srcs(key) -> tuple:
     return key[1:]
 
 
-def compile_program(name: str, build, temp_base: int) -> dict:
-    """Graph -> stages of jobs with slots. Returns {"stages": [(kind,
+def compile_program(name: str, build, temp_base: int,
+                    jobs_per_stage: int = JOBS_PER_STAGE) -> dict:
+    """Graph -> stages of at most `jobs_per_stage` jobs with slots.
+    Returns {"stages": [(kind,
     [job words])], "temps": highest slot + 1, "muls": n, "mul_stages": n,
     "alu_stages": n, "path": dependent multiplications}."""
     g = Graph()
@@ -673,7 +738,7 @@ def compile_program(name: str, build, temp_base: int) -> dict:
         else:
             kind = "alu"
         assert r, f"{name}: nothing ready"
-        take = r[:JOBS_PER_STAGE] if kind != "inv" else r[:1]
+        take = r[:jobs_per_stage] if kind != "inv" else r[:1]
         for n in take:
             stage_of[n] = len(stages)
             pending.discard(n)
@@ -781,7 +846,9 @@ INV_MULS = 1
 
 
 def compile_all() -> dict[str, dict]:
-    return {name: compile_program(name, b, t) for name, (b, t) in PROGRAMS.items()}
+    return {name: compile_program(name, b, t, G1_JOBS_PER_STAGE if name.startswith("G1_")
+                                  else JOBS_PER_STAGE)
+            for name, (b, t) in PROGRAMS.items()}
 
 
 # --- the header ------------------------------------------------------------
@@ -804,7 +871,7 @@ def render(progs: dict[str, dict]) -> str:
         index.append((name, first, len(stage_words) - first, p))
     kernel_slots = {
         prefix: max(p["temps"] for name, p in progs.items() if name.startswith(prefix))
-        for prefix in ("M_", "FE_", "T_", "G2_")
+        for prefix in ("M_", "FE_", "T_", "G2_", "G1_")
     }
     kernel_slots["C_"] = max(kernel_slots.pop("T_"), progs["MUL12"]["temps"])
     lines = [
@@ -815,8 +882,9 @@ def render(progs: dict[str, dict]) -> str:
         "// (kind 0: Fp multiplications, 1: additions, subtractions and selects,",
         "// 2: one inversion); a job is op | dst << 3 | a << 12 | b << 22 over",
         "// shared-memory slots of one Fp element (op 0 mul, 1 add, 2 sub, 3/4",
-        "// select on pair 0/1's validity, 5 inversion). Lane l runs jobs l and",
-        "// l + 32 of a stage.",
+        "// select on pair 0/1's validity, 5 inversion). Lane l of a warp runs",
+        "// jobs l and l + 32 of a stage; the G1 programs, at most 8 jobs a stage,",
+        "// run on a group of G lanes, lane l jobs l and l + G.",
         "#pragma once",
         "",
         "#include <stdint.h>",
@@ -831,8 +899,10 @@ def render(progs: dict[str, dict]) -> str:
         "// at + 2 i + c): the Miller kernel's f, P, Q, T; the chunk product's",
         "// and the test programs' X, Y, Z = op(X, Y); the final",
         "// exponentiation's F, A, B, R, X, O; the G2 sums' points P, Q, O",
-        "// (coordinate c component k at + 2 c + k) and G2_HR's Fp2 values; and",
-        "// each kernel's slot count",
+        "// (coordinate c component k at + 2 c + k) and G2_HR's Fp2 values; the",
+        "// G1 sums' points P, Q, O (a coordinate a slot) and G1_HR's values, in",
+        "// a region whose only constants are slots 0 and 1; and each kernel's",
+        "// slot count",
         f"constexpr int M_F = {M_F}, M_P = {M_P}, M_Q = {M_Q}, M_T = {M_T};",
         f"constexpr int C_X = {C_X}, C_Y = {C_Y}, C_Z = {C_Z};",
         f"constexpr int E_F = {E_F}, E_A = {E_A}, E_B = {E_B}, E_R = {E_R}, "
@@ -840,8 +910,12 @@ def render(progs: dict[str, dict]) -> str:
         f"constexpr int G2_P = {G2_P}, G2_Q = {G2_Q}, G2_O = {G2_O};",
         f"constexpr int G2_Z1Z1 = {G2_Z1Z1}, G2_Z2Z2 = {G2_Z2Z2}, G2_U1 = {G2_U1}, "
         f"G2_S1 = {G2_S1}, G2_H = {G2_H}, G2_R = {G2_R};",
+        f"constexpr int G1_P = {G1_P}, G1_Q = {G1_Q}, G1_O = {G1_O};",
+        f"constexpr int G1_Z1Z1 = {G1_Z1Z1}, G1_Z2Z2 = {G1_Z2Z2}, G1_U1 = {G1_U1}, "
+        f"G1_S1 = {G1_S1}, G1_H = {G1_H}, G1_R = {G1_R};",
         f"constexpr int M_SLOTS = {kernel_slots['M_']}, C_SLOTS = {kernel_slots['C_']}, "
-        f"FE_SLOTS = {kernel_slots['FE_']}, G2_SLOTS = {kernel_slots['G2_']};",
+        f"FE_SLOTS = {kernel_slots['FE_']}, G2_SLOTS = {kernel_slots['G2_']}, "
+        f"G1_SLOTS = {kernel_slots['G1_']};",
         "",
         "// program: first stage, stages; its slots, Fp multiplications and",
         "// dependent multiplications along its longest path",

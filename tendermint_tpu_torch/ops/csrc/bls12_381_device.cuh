@@ -1,8 +1,8 @@
 // BLS12-381 device arithmetic for the aggregation and pairing kernels.
 //
 //   Fp     6 x 64-bit limbs, Montgomery form (R = 2^384), CIOS multiply
-//          through unsigned __int128 products (the G1 sums, and the
-//          one-thread reference of the pairing and the G2 sums)
+//          through unsigned __int128 products (the one-thread reference
+//          of the pairing and the G1 and G2 sums)
 //   fq     the warp kernels' Fp: 12 x 32-bit limbs, the same Montgomery
 //          form (R = 2^384), so a value is the same integer in both; CIOS
 //          over 32 x 32 -> 64-bit products, the products nvcc issues as
@@ -24,12 +24,12 @@
 // constant time; the warp kernels' fq_inv is a binary extended Euclid with
 // the same value. Both map 0 to 0, as the plain versions do.
 //
-// The pairing kernels and the G2 sums run on a warp (the end of this file):
-// their Fp12 operations and G2 additions are stage programs
-// (bls12_381_programs.cuh, generated by ops/bls_warp_gen.py from these
-// one-thread formulas) that run_program interprets, a stage of independent
-// fq products or additions at a time, two jobs a lane, over Fp values in
-// shared memory.
+// The pairing kernels and the G2 sums run on a warp, the G1 sums on groups
+// of lanes of a warp (the end of this file): their Fp12 operations and
+// point additions are stage programs (bls12_381_programs.cuh, generated by
+// ops/bls_warp_gen.py from these one-thread formulas) that run_program
+// interprets, a stage of independent fq products or additions at a time,
+// two jobs a lane, over Fp values in shared memory.
 //
 // Values cross the boundary as canonical little-endian bytes: 48 per Fp
 // element; any 48-byte input is read mod p. Built by nvcc for sm_90a; the
@@ -865,9 +865,10 @@ __device__ __noinline__ void jac_add(jac<F>& o, const jac<F>& p, const jac<F>& q
 // The doubling and addition steps of the two pairs do not depend on f, so
 // their products share stages with f's squaring.
 //
-// W is the warp: w.lane, w.ld(slot), w.st(slot, v), w.sync(). On the card it
-// is shared memory and __syncwarp (bls_kernels.cu); in the CPU harness,
-// 32 host threads in lock-step that check each stage's slot accesses.
+// W is the warp: W::kLanes (32), w.lane, w.ld(slot), w.st(slot, v),
+// w.sync(). On the card it is shared memory and __syncwarp (bls_kernels.cu);
+// in the CPU harness, 32 host threads in lock-step that check each stage's
+// slot accesses. The G1 sums run the same way on groups of fewer lanes.
 
 struct alignas(16) fq {
   uint32_t l[12];
@@ -1134,25 +1135,26 @@ __device__ __forceinline__ uint32_t stage_job(uint32_t st, int i) {
   return i < (int)((st >> 2) & 127) ? prog::JOBS[(st >> 9) + i] : 0u;
 }
 
-// the stages first .. first + n - 1 of prog::STAGES, then the warp's sync
-// after each; every lane runs every stage (lanes without a job idle), so
-// the warp stays converged at its syncs. A stage's jobs are loaded while
-// the stage before it runs.
-template <class W>
+// the stages first .. first + n - 1 of prog::STAGES on the G lanes of w (a
+// warp, G = 32, or a group of a warp), then w's sync after each: lane l
+// runs jobs l and l + G of a stage. Every lane runs every stage (lanes
+// without a job idle), so the lanes stay converged at their syncs. A
+// stage's jobs are loaded while the stage before it runs.
+template <class W, int G = W::kLanes>
 __device__ __forceinline__ void run_program(W& w, int first, int n,
                                             unsigned flags) {
   const int l = w.lane;
   uint32_t st = prog::STAGES[first];
-  uint32_t j0 = stage_job(st, l), j1 = stage_job(st, l + 32);
+  uint32_t j0 = stage_job(st, l), j1 = stage_job(st, l + G);
   for (int s = first; s < first + n; s++) {
     const uint32_t st_next = s + 1 < first + n ? prog::STAGES[s + 1] : 0u;
-    const uint32_t n0 = stage_job(st_next, l), n1 = stage_job(st_next, l + 32);
+    const uint32_t n0 = stage_job(st_next, l), n1 = stage_job(st_next, l + G);
     const int kind = st & 3, nj = (st >> 2) & 127;
     if (kind == K_MUL) {
-      if (nj > 32) {
+      if (nj > G) {
         // two products a lane; a lane with one reads slot 0 for the other
         // and discards it
-        const bool two = l + 32 < nj;
+        const bool two = l + G < nj;
         fq a[2] = {w.ld(job_a(j0)), w.ld(job_a(j1))};
         fq b[2] = {w.ld(job_b(j0)), w.ld(job_b(j1))};
         fq r[2];
@@ -1167,7 +1169,7 @@ __device__ __forceinline__ void run_program(W& w, int first, int n,
       }
     } else if (kind == K_ALU) {
       if (l < nj) alu_job(w, j0, flags);
-      if (l + 32 < nj) alu_job(w, j1, flags);
+      if (l + G < nj) alu_job(w, j1, flags);
     } else if (l < nj) {
       fq r;
       fq_inv(r, w.ld(job_a(j0)));
@@ -1424,6 +1426,129 @@ __device__ __forceinline__ void g2_tree_w(W& w, int warp, int nwarps,
     block_sync();
   }
   if (warp == 0 && l < 6) fq_store(out + 48 * l, s[l]);
+}
+
+// --- the G1 point sums on lane groups -----------------------------------------
+//
+// tm_g1_aggregate and tm_g1_add run each G1 addition on a group of G lanes
+// of a warp (G = W::kLanes, 4 or 8: bls_kernels.cu's kG1TreeLanes and
+// kG1AddLanes), 32 / G groups a warp: jac_add<fp> as the stage programs
+// G1_HR and G1_ADD_FIN,
+// or G1_DBL where h = r = 0, with g2_add_w's branches between them, taken
+// by the whole group. The programs hold at most 8 jobs a stage (two a lane
+// on four lanes). A group's slots are its own region of shared memory
+// (P at prog::G1_P, Q at prog::G1_Q, O at prog::G1_O, a coordinate a slot;
+// slots 0 and 1 zero and one), and its sync is __syncwarp over its own
+// lanes (group_mask), so the groups of a warp run and branch apart.
+
+// the lanes of warp lane l's group of G (a power of two), as the mask of
+// __syncwarp
+template <int G>
+__device__ __forceinline__ unsigned group_mask(int l) {
+  return G == 32 ? 0xffffffffu : ((1u << (G & 31)) - 1u) << (l & (32 - G));
+}
+
+// slots 0 and 1: zero and one
+template <class W>
+__device__ __forceinline__ void g1_consts(W& w) {
+  static_assert(W::kLanes >= 4, "the G1 programs run two jobs a lane on four lanes");
+  if (w.lane < 2) {
+    fq c;
+    for (int i = 0; i < 12; i++) c.l[i] = prog::CONSTS[w.lane][i];
+    w.st(w.lane, c);
+  }
+  w.sync();
+}
+
+// O = the identity (0, 1, 0)
+template <class W>
+__device__ __forceinline__ void g1_identity_g(W& w) {
+  if (w.lane < 3)
+    w.st(prog::G1_O + w.lane, w.ld(w.lane == 1 ? prog::ONE_SLOT : prog::ZERO_SLOT));
+  w.sync();
+}
+
+// O = 2P, jac_double<fp>: the identity where y or z is zero, else G1_DBL
+template <class W>
+__device__ __forceinline__ void g1_dbl_g(W& w) {
+  if (fq_is_zero(w.ld(prog::G1_P + 1)) || fq_is_zero(w.ld(prog::G1_P + 2)))
+    g1_identity_g(w);
+  else
+    TM_RUN(w, G1_DBL, 0u);
+}
+
+// P + Q, jac_add<fp>: the first slot of the sum (G1_Q, G1_P or G1_O); the
+// group's constants must be loaded
+template <class W>
+__device__ __forceinline__ int g1_add_g(W& w) {
+  if (fq_is_zero(w.ld(prog::G1_P + 2))) return prog::G1_Q;
+  if (fq_is_zero(w.ld(prog::G1_Q + 2))) return prog::G1_P;
+  TM_RUN(w, G1_HR, 0u);  // z1z1, z2z2, u1, s1, h, r
+  if (fq_is_zero(w.ld(prog::G1_H))) {
+    if (fq_is_zero(w.ld(prog::G1_R)))
+      g1_dbl_g(w);
+    else
+      g1_identity_g(w);
+  } else {
+    TM_RUN(w, G1_ADD_FIN, 0u);
+  }
+  return prog::G1_O;
+}
+
+// o = p + q of two points of 144 canonical bytes ([3][48]), read mod p:
+// the group's lanes load the six coordinates of P and Q, lanes 0-2 store
+// the sum's canonical bytes
+template <class W>
+__device__ __forceinline__ void g1_add_bytes_g(W& w, const uint8_t* p,
+                                               const uint8_t* q, uint8_t* o) {
+  g1_consts(w);
+  const int l = w.lane;
+  for (int c = l; c < 6; c += W::kLanes) {
+    fq v;
+    fq_load(v, (c < 3 ? p : q) + 48 * (c % 3));
+    w.st(prog::G1_P + c, v);  // G1_Q = G1_P + 3
+  }
+  w.sync();
+  const int sum = g1_add_g(w);
+  if (l < 3) fq_store(o + 48 * l, w.ld(sum + l));
+  w.sync();
+}
+
+// the sum of b points of 144 canonical bytes at in, padded with the
+// identity to nb (a power of two), into out: all threads of the block load
+// the leaves into s (nb points of three fq, Montgomery form); level `step`
+// adds point 2 i step + step into 2 i step (the JAX package's pairing of
+// neighbours), addition i of a level on group i mod ngroups, block_sync
+// between levels; group 0 writes the canonical bytes
+template <class W, class Sync>
+__device__ __forceinline__ void g1_tree_g(W& w, int group, int ngroups,
+                                          const uint8_t* in, fq* s, uint8_t* out,
+                                          int b, int nb, Sync block_sync) {
+  constexpr int G = W::kLanes;
+  const int l = w.lane;
+  for (int c = G * group + l; c < 3 * nb; c += G * ngroups) {
+    if (c < 3 * b) {
+      fq_load(s[c], in + 48 * (size_t)c);
+    } else {
+      fq v;
+      for (int i = 0; i < 12; i++) v.l[i] = c % 3 == 1 ? prog::CONSTS[prog::ONE_SLOT][i] : 0u;
+      s[c] = v;
+    }
+  }
+  g1_consts(w);
+  block_sync();
+  for (int step = 1; step < nb; step <<= 1) {
+    for (int i = group; 2 * i * step < nb; i += ngroups) {
+      fq* pk = s + 3 * (size_t)(2 * i * step);
+      for (int c = l; c < 6; c += G) w.st(prog::G1_P + c, pk[c < 3 ? c : 3 * step + c - 3]);
+      w.sync();
+      const int sum = g1_add_g(w);
+      if (l < 3) pk[l] = w.ld(sum + l);
+      w.sync();
+    }
+    block_sync();
+  }
+  if (group == 0 && l < 3) fq_store(out + 48 * l, s[l]);
 }
 
 }  // namespace bdev

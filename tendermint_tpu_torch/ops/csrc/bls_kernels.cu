@@ -20,13 +20,29 @@
 // What bounds them on an H100: integer multiplies, and the length of one
 // dependent chain. An Fp multiplication is 72 64x64->128-bit products (144
 // 32x32->64-bit ones and as many for the reduction); a 2-pair Miller loop is
-// ~14k Fp multiplications, a final exponentiation ~9k, a G2 addition 43.
+// ~14k Fp multiplications, a final exponentiation ~9k, a G2 addition 43, a
+// G1 addition 16.
 // Inputs are a few KiB, so no kernel is near the memory roofline. Design:
-// - the G1 sums (tm_g1_aggregate, tm_g1_add): one thread per addition.
-//   The tree keeps the leaves in a global-memory scratch in Montgomery form,
-//   one thread per addition of a level and __syncthreads between levels
-//   (level s adds element 2is + s into 2is, the JAX package's pairing of
-//   neighbours); the butterfly add gives one thread to each pair;
+// - the G1 sums (tm_g1_aggregate, tm_g1_add): a group of lanes per
+//   addition, several groups a warp: 4 lanes in the tree (kG1TreeLanes),
+//   8 in the pair sum (kG1AddLanes), each the faster of the two widths on
+//   an H100 (the tree takes its first level in one round of 128 groups;
+//   the pair sum loads its six coordinates in one round). jac_add<fp> runs
+//   as the stage programs G1_HR and G1_ADD_FIN, or G1_DBL where h = r = 0, over
+//   fq slots in the group's own region of shared memory, its branches taken
+//   by the whole group and its syncs __syncwarp over the group's lanes
+//   (g1_add_g in bls12_381_device.cuh); the groups of a warp run apart.
+//   g1_aggregate_kernel is one block of up to kG1TreeWarps warps of groups
+//   per tree: all its threads load the leaves into a global-memory scratch
+//   in Montgomery form, then addition i of a level runs on group i mod the
+//   block's groups, __syncthreads between levels (level s adds element
+//   2is + s into 2is, the JAX package's pairing of neighbours).
+//   g1_add_kernel gives one group to each pair. Critical paths, in
+//   dependent Fp multiplications: an addition 16 on one thread -> 5 (2
+//   product stages of G1_HR, 3 of G1_ADD_FIN; a doubling 3); g1_add with
+//   its loads and stores 25 -> 7 (a load a lane on eight lanes); the tree
+//   of 150 keys (256 leaves, 8 levels, a level's additions on 128 groups in
+//   one round) 137 -> 42;
 // - the G2 sums (tm_g2_aggregate, tm_g2_add): one warp per addition.
 //   jac_add<fp2> runs as the stage programs G2_HR (z1z1 .. h, r) and
 //   G2_ADD_FIN (from (2h)^2 to z3), or G2_DBL where h = r = 0, over 32-bit
@@ -68,88 +84,58 @@ using namespace bdev;
 
 namespace {
 
-constexpr int kTreeThreads = 128;
-constexpr int kChunkThreads = 32;
 constexpr int kProdWarps = 4;
 constexpr int kG2TreeWarps = 16;  // warps of a G2 tree's block, at most
+constexpr int kG1TreeLanes = 4;  // lanes of a G1 tree addition's group
+constexpr int kG1TreeWarps = 16;  // warps of a G1 tree's block, at most
+constexpr int kG1AddLanes = 8;   // lanes of a G1 pair sum's group
+constexpr int kG1AddGroups = 32 / kG1AddLanes;  // pair sums a block
 
-template <class F>
-__device__ void aggregate_tree(const uint8_t* in, jac<F>* scratch,
-                               uint8_t* out, int b, int nb) {
-  constexpr int kCoord = (int)(sizeof(F) / sizeof(fp)) * 48;  // bytes
-  constexpr int kBytes = 3 * kCoord;
-  const int tree = blockIdx.x;
-  jac<F>* s = scratch + (size_t)tree * nb;
-  const uint8_t* src = in + (size_t)tree * b * kBytes;
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    if (i < b) {
-      fe_load(s[i].x, src + (size_t)i * kBytes);
-      fe_load(s[i].y, src + (size_t)i * kBytes + kCoord);
-      fe_load(s[i].z, src + (size_t)i * kBytes + 2 * kCoord);
-    } else {
-      jac_identity(s[i]);
-    }
-  }
-  __syncthreads();
-  for (int step = 1; step < nb; step <<= 1) {
-    for (int i = threadIdx.x; 2 * i * step < nb; i += blockDim.x) {
-      const int k = 2 * i * step;
-      jac<F> r;
-      jac_add(r, s[k], s[k + step]);
-      s[k] = r;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    uint8_t* dst = out + (size_t)tree * kBytes;
-    fe_store(dst, s[0].x);
-    fe_store(dst + kCoord, s[0].y);
-    fe_store(dst + 2 * kCoord, s[0].z);
-  }
-}
-
-__global__ void g1_aggregate_kernel(const uint8_t* in, jac<fp>* scratch,
-                                    uint8_t* out, int b, int nb) {
-  aggregate_tree<fp>(in, scratch, out, b, nb);
-}
-
-// o[i] = p[i] + q[i], one thread per pair (the butterfly's combiner)
-template <class F>
-__device__ void add_pairs(const uint8_t* p, const uint8_t* q, uint8_t* o,
-                          int n) {
-  constexpr int kCoord = (int)(sizeof(F) / sizeof(fp)) * 48;  // bytes
-  constexpr int kBytes = 3 * kCoord;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  jac<F> a, b, r;
-  const uint8_t* pa = p + (size_t)i * kBytes;
-  const uint8_t* qb = q + (size_t)i * kBytes;
-  fe_load(a.x, pa);
-  fe_load(a.y, pa + kCoord);
-  fe_load(a.z, pa + 2 * kCoord);
-  fe_load(b.x, qb);
-  fe_load(b.y, qb + kCoord);
-  fe_load(b.z, qb + 2 * kCoord);
-  jac_add(r, a, b);
-  uint8_t* dst = o + (size_t)i * kBytes;
-  fe_store(dst, r.x);
-  fe_store(dst + kCoord, r.y);
-  fe_store(dst + 2 * kCoord, r.z);
-}
-
-__global__ void g1_add_kernel(const uint8_t* p, const uint8_t* q, uint8_t* o,
-                              int n) {
-  add_pairs<fp>(p, q, o, n);
-}
-
-// the warp: shared-memory slots and __syncwarp
-struct DevWarp {
+// a warp (G = 32), or a group of G lanes of one warp: its slots in shared
+// memory and __syncwarp over its own lanes
+template <int G>
+struct DevLanes {
+  static constexpr int kLanes = G;
   fq* sm;
-  int lane;
+  int lane;  // in the group
+  unsigned mask = 0xffffffffu;  // the group's lanes in its warp
   __device__ __forceinline__ fq ld(int s) const { return sm[s]; }
   __device__ __forceinline__ void st(int s, const fq& v) { sm[s] = v; }
-  __device__ __forceinline__ void sync() const { __syncwarp(); }
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
 };
+
+using DevWarp = DevLanes<32>;
+using G1TreeGroup = DevLanes<kG1TreeLanes>;
+using G1AddGroup = DevLanes<kG1AddLanes>;
+
+// one block of lane groups per tree of the G1 sum: each group's slots in
+// dynamic shared memory (G1_SLOTS fq a group), the leaves in scratch (nb
+// points of three fq a tree)
+__global__ void __launch_bounds__(32 * kG1TreeWarps)
+    g1_aggregate_kernel(const uint8_t* in, fq* scratch, uint8_t* out, int b,
+                        int nb) {
+  extern __shared__ fq g1_slots[];
+  const int group = threadIdx.x / kG1TreeLanes;
+  G1TreeGroup w{g1_slots + prog::G1_SLOTS * group, (int)(threadIdx.x % kG1TreeLanes),
+                group_mask<kG1TreeLanes>(threadIdx.x & 31)};
+  const size_t tree = blockIdx.x;
+  g1_tree_g(w, group, (int)(blockDim.x / kG1TreeLanes), in + tree * b * 144,
+            scratch + tree * nb * 3, out + tree * 144, b, nb,
+            [] { __syncthreads(); });
+}
+
+// one group per pair of the G1 butterfly's combiner, a warp's groups to a
+// block: o[i] = p[i] + q[i]
+__global__ void __launch_bounds__(32)
+    g1_add_kernel(const uint8_t* p, const uint8_t* q, uint8_t* o, int n) {
+  __shared__ fq sm[kG1AddGroups][prog::G1_SLOTS];
+  const int group = threadIdx.x / kG1AddLanes;
+  const size_t i = (size_t)blockIdx.x * kG1AddGroups + group;
+  if (i >= (size_t)n) return;  // the whole group
+  G1AddGroup w{sm[group], (int)(threadIdx.x % kG1AddLanes),
+               group_mask<kG1AddLanes>(threadIdx.x)};
+  g1_add_bytes_g(w, p + 144 * i, q + 144 * i, o + 144 * i);
+}
 
 // one block of warps per tree of the G2 sum: each warp's slots in dynamic
 // shared memory (G2_SLOTS fq a warp), the leaves in scratch (nb points of
@@ -204,10 +190,11 @@ __global__ void __launch_bounds__(32)
   final_exp_w(w, in + 576 * (size_t)blockIdx.x, out + 576 * (size_t)blockIdx.x);
 }
 
-inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
-
-inline int tree_threads(int nb) {
-  return nb / 2 < kTreeThreads ? (nb / 2 > 0 ? nb / 2 : 1) : kTreeThreads;
+// a group for each addition of a G1 tree's first level, at most
+// kG1TreeWarps warps of them
+inline int g1_tree_groups(int nb) {
+  constexpr int most = kG1TreeWarps * (32 / kG1TreeLanes);
+  return nb / 2 < most ? (nb / 2 > 0 ? nb / 2 : 1) : most;
 }
 
 // a warp for each addition of a G2 tree's first level, at most kG2TreeWarps
@@ -221,9 +208,16 @@ extern "C" {
 
 int tm_g1_aggregate(const void* in, void* scratch, void* out, int ntrees,
                     int b, int nb, void* stream) {
-  if (ntrees > 0)
-    g1_aggregate_kernel<<<ntrees, tree_threads(nb), 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)in, (jac<fp>*)scratch, (uint8_t*)out, b, nb);
+  if (ntrees <= 0) return (int)cudaGetLastError();
+  const int groups = g1_tree_groups(nb);
+  const int smem = groups * prog::G1_SLOTS * (int)sizeof(fq);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        g1_aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  g1_aggregate_kernel<<<ntrees, kG1TreeLanes * groups, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)in, (fq*)scratch, (uint8_t*)out, b, nb);
   return (int)cudaGetLastError();
 }
 
@@ -244,10 +238,10 @@ int tm_g2_aggregate(const void* in, void* scratch, void* out, int ntrees,
 
 int tm_g1_add(const void* p, const void* q, void* out, int n, void* stream) {
   if (n > 0)
-    g1_add_kernel<<<blocks_for(n, kChunkThreads), kChunkThreads, 0,
-                    (cudaStream_t)stream>>>((const uint8_t*)p,
-                                            (const uint8_t*)q, (uint8_t*)out,
-                                            n);
+    g1_add_kernel<<<(n + kG1AddGroups - 1) / kG1AddGroups,
+                    kG1AddLanes * (n < kG1AddGroups ? n : kG1AddGroups), 0,
+                    (cudaStream_t)stream>>>((const uint8_t*)p, (const uint8_t*)q,
+                                            (uint8_t*)out, n);
   return (int)cudaGetLastError();
 }
 

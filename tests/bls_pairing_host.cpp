@@ -1,23 +1,30 @@
 // Host harness of the warp-wide BLS12-381 kernels, for the CPU tests
 // (tests/test_torch_bls_pairing_lanes.py builds it with g++; the G2 sums'
-// tests, tests/test_torch_bls_g2_lanes.py, use the same build).
+// tests, tests/test_torch_bls_g2_lanes.py, and the G1 sums',
+// tests/test_torch_bls_g1_lanes.py, use the same build).
 //
 // It runs the same source as the card: the fq core, run_program and the
-// stage programs, miller_chunk_w, chunk_product_w, final_exp_w, g2_add_w
-// and g2_tree_w of ops/csrc/bls12_381_device.cuh, with 32 host threads
-// playing the lanes of a warp over one shared slot array (a G2 tree's
-// block: several such warps, and a barrier of all their threads for
-// __syncthreads). The warp's sync is a barrier of the 32
-// threads, so the lanes run in lock-step, a stage at a time. At each sync
-// the harness checks the stage that ends there:
+// stage programs, miller_chunk_w, chunk_product_w, final_exp_w, g2_add_w,
+// g2_tree_w, g1_add_g and g1_tree_g of ops/csrc/bls12_381_device.cuh, with
+// host threads playing the lanes: 32 a warp over one shared slot array,
+// or G a lane group of the G1 sums, each group over its own slots (a
+// tree's block: several such warps or groups, and a barrier of all their
+// threads for __syncthreads). A warp's or group's sync is a barrier of its
+// lanes, so they run in lock-step, a stage at a time. At each sync the
+// harness checks the stage that ends there:
 // - every lane arrives with the same tag (the call and the lane's count of
 //   syncs in it): a lane that ran a different number of stages, or left
 //   early, fails the call;
+// - every lane syncs with its group's mask: the bits of the group's own
+//   lanes in its warp (all 32 for a warp), as __syncwarp takes it;
 // - no slot was written by two lanes, or written by one lane and read by
 //   another, in the stage: on the card, such a read could see either value.
+// A lane that reads or writes a slot outside its group's region (on the
+// card, another group's slots) fails the call too.
 // It also exports the one-thread functions of the same header (fp_mul,
-// f12_mul, f12_sqr, ..., the Miller steps, jac_add<fp2>, jac_double<fp2>),
-// which the tests hold the warp functions against.
+// f12_mul, f12_sqr, ..., the Miller steps, jac_add<fp2>, jac_double<fp2>,
+// jac_add<fp>, jac_double<fp>), which the tests hold the lane functions
+// against.
 #include <stdint.h>
 #include <string.h>
 
@@ -33,49 +40,57 @@ using namespace bdev;
 
 namespace {
 
-constexpr int kLanes = 32;
 constexpr long kDone = -1;  // the tag of a lane that has returned
 
-struct Warp {
+// n lanes in lock-step over their own slots: a warp (n = 32) or a group
+struct Lanes {
+  const int n;
+  const unsigned want;  // the group's lanes in its warp, as __syncwarp's mask
   std::atomic<int> arrived{0};
   std::atomic<unsigned> gen{0};
   std::atomic<bool> failed{false};
+  std::atomic<bool> strayed{false};  // a lane touched a slot past the region
   std::vector<fq> sm;
-  std::vector<int> rd[kLanes], wr[kLanes];
-  long tag[kLanes];
+  std::vector<std::vector<int>> rd, wr;
+  std::vector<long> tag;
+  std::vector<unsigned> mask;
   std::vector<int> writer;
 
-  explicit Warp(int nslots) : sm(nslots), writer(nslots, -1) {
+  Lanes(int nlanes, unsigned want_mask, int nslots)
+      : n(nlanes), want(want_mask), sm(nslots), rd(nlanes), wr(nlanes),
+        tag(nlanes), mask(nlanes), writer(nslots, -1) {
     memset(sm.data(), 0xA5, sizeof(fq) * nslots);  // no slot starts as zero
   }
 
   // the stage's accesses, by the last lane to arrive
   void check_stage() {
-    for (int l = 1; l < kLanes; l++)
-      if (tag[l] != tag[0]) failed = true;
-    for (int l = 0; l < kLanes; l++)
+    if (strayed) failed = true;
+    for (int l = 0; l < n; l++)
+      if (tag[l] != tag[0] || mask[l] != want) failed = true;
+    for (int l = 0; l < n; l++)
       for (int s : wr[l]) {
         if (writer[s] != -1 && writer[s] != l) failed = true;
         writer[s] = l;
       }
-    for (int l = 0; l < kLanes; l++)
+    for (int l = 0; l < n; l++)
       for (int s : rd[l])
         if (writer[s] != -1 && writer[s] != l) failed = true;
-    for (int l = 0; l < kLanes; l++) {
+    for (int l = 0; l < n; l++) {
       for (int s : wr[l]) writer[s] = -1;
       rd[l].clear();
       wr[l].clear();
     }
   }
 
-  // a barrier of the 32 lanes, which sleep on the generation word; the
+  // a barrier of the n lanes, which sleep on the generation word; the
   // last to arrive checks the stage and wakes them. After a failure it no
   // longer waits, so every lane runs to its end.
-  void barrier(int lane, long t) {
+  void barrier(int lane, long t, unsigned m) {
     tag[lane] = t;
+    mask[lane] = m;
     if (failed) return;
     const unsigned g = gen.load(std::memory_order_acquire);
-    if (arrived.fetch_add(1, std::memory_order_acq_rel) == kLanes - 1) {
+    if (arrived.fetch_add(1, std::memory_order_acq_rel) == n - 1) {
       check_stage();
       arrived.store(0, std::memory_order_relaxed);
       gen.store(g + 1, std::memory_order_release);
@@ -86,44 +101,69 @@ struct Warp {
   }
 };
 
-struct HostWarp {
-  Warp* wp;
+// the lane type of the device functions: a lane of a warp (G = 32) or of a
+// group of G lanes, its sync __syncwarp(mask)
+template <int G>
+struct HostLanes {
+  static constexpr int kLanes = G;
+  Lanes* gp;
   int lane;
+  unsigned mask;
   long call = 0, seq = 0;
 
+  bool own(int s) {
+    if (s >= 0 && s < (int)gp->sm.size()) return true;
+    gp->strayed = true;  // another group's slots, on the card
+    return false;
+  }
   fq ld(int s) {
-    wp->rd[lane].push_back(s);
-    return wp->sm[s];
+    if (!own(s)) return fq{};
+    gp->rd[lane].push_back(s);
+    return gp->sm[s];
   }
   void st(int s, const fq& v) {
-    wp->wr[lane].push_back(s);
-    wp->sm[s] = v;
+    if (!own(s)) return;
+    gp->wr[lane].push_back(s);
+    gp->sm[s] = v;
   }
-  void sync() { wp->barrier(lane, (call << 32) | ++seq); }
+  void sync() { gp->barrier(lane, (call << 32) | ++seq, mask); }
 };
 
-// fn(w, warp, block_sync) on nwarps warps of 32 lanes, each warp in
-// lock-step over its own slots and ending with a last barrier with the tag
-// kDone, block_sync a barrier of every thread (the card's __syncthreads);
-// 0, or -1 if a warp fell out of lock-step or a stage's accesses clashed
-template <class F>
-int run_block(int nwarps, int nslots, F fn) {
-  std::vector<std::unique_ptr<Warp>> warps;
-  for (int i = 0; i < nwarps; i++) warps.emplace_back(new Warp(nslots));
-  std::barrier block(kLanes * nwarps);
+using HostWarp = HostLanes<32>;
+
+// fn(w, group, block_sync) on ngroups groups of G lanes (G = 32: warps),
+// 32 / G groups to a warp, each group in lock-step over its own slots and
+// ending with a last barrier with the tag kDone, block_sync a barrier of
+// every thread (the card's __syncthreads). A lane's mask is the kernels'
+// group_mask; the harness's own is the group's lanes in its warp. 0, or -1
+// if a group fell out of lock-step, synced with another mask, touched
+// another group's slots or let a stage's accesses clash
+template <int G, class F>
+int run_groups(int ngroups, int nslots, F fn) {
+  std::vector<std::unique_ptr<Lanes>> groups;
+  for (int g = 0; g < ngroups; g++)
+    groups.emplace_back(new Lanes(G, G == 32 ? ~0u : ((1u << (G & 31)) - 1u) << (G * g % 32),
+                                  nslots));
+  std::barrier block(G * ngroups);
   std::vector<std::thread> threads;
-  for (int t = 0; t < kLanes * nwarps; t++) {
+  for (int t = 0; t < G * ngroups; t++) {
     threads.emplace_back([&, t] {
-      const int warp = t / kLanes, lane = t % kLanes;
-      HostWarp w{warps[warp].get(), lane};
-      fn(w, warp, [&] { block.arrive_and_wait(); });
-      warps[warp]->barrier(lane, kDone);
+      const int g = t / G, lane = t % G;
+      HostLanes<G> w{groups[g].get(), lane, group_mask<G>(t % 32)};
+      fn(w, g, [&] { block.arrive_and_wait(); });
+      groups[g]->barrier(lane, kDone, w.mask);
     });
   }
   for (auto& t : threads) t.join();
-  for (auto& wp : warps)
-    if (wp->failed) return -1;
+  for (auto& gp : groups)
+    if (gp->failed || gp->strayed) return -1;
   return 0;
+}
+
+// fn(w, warp, block_sync) on nwarps warps
+template <class F>
+int run_block(int nwarps, int nslots, F fn) {
+  return run_groups<32>(nwarps, nslots, fn);
 }
 
 // fn(w) on one warp
@@ -179,6 +219,127 @@ int run_test_program(int first, int n, const uint8_t* x, const uint8_t* y,
       memcpy(out + 12 * l, v.l, 48);
     }
     w.sync();
+  });
+}
+
+// a lane under a fault of tm_host_g2_selftest
+struct FaultyWarp {
+  static constexpr int kLanes = 32;
+  HostWarp& w;
+  int fault, lane;
+  bool wrote = false;
+  fq ld(int s) {
+    fq v = w.ld(s);
+    if (s == prog::G2_H && fault == 2 && lane == 3) v.l[0] ^= 1u;
+    if (s == prog::G2_H && fault == 3 && lane == 6 && !wrote) {
+      w.st(s, v);
+      wrote = true;
+    }
+    return v;
+  }
+  void st(int s, const fq& v) { w.st(s, v); }
+  void sync() { w.sync(); }
+};
+
+// the G1 lane functions with groups of G lanes
+template <int G>
+int g1_ops(const uint8_t* p, const uint8_t* q, int n, uint32_t* words, uint8_t* bytes) {
+  for (int i = 0; i < n; i++) {
+    const uint8_t* pi = p + 144 * i;
+    const uint8_t* qi = q + 144 * i;
+    uint32_t* o = words + 4 * 36 * i;
+    jac<fp> a, b, r;
+    fp_load(a.x, pi);
+    fp_load(a.y, pi + 48);
+    fp_load(a.z, pi + 96);
+    fp_load(b.x, qi);
+    fp_load(b.y, qi + 48);
+    fp_load(b.z, qi + 96);
+    jac_add(r, a, b);
+    const fp* coords[3] = {&r.x, &r.y, &r.z};
+    for (int c = 0; c < 3; c++) {
+      words_of(o + 12 * c, *coords[c]);
+      fp_store(bytes + 288 * i + 48 * c, *coords[c]);
+    }
+    jac_double(r, a);
+    for (int c = 0; c < 3; c++) words_of(o + 72 + 12 * c, *coords[c]);
+  }
+  // pair i on group i, n groups at once: the groups of a warp take their
+  // own branches
+  return run_groups<G>(n, prog::G1_SLOTS, [&](HostLanes<G>& w, int i, auto) {
+    const uint8_t* pi = p + 144 * i;
+    const uint8_t* qi = q + 144 * i;
+    uint32_t* o = words + 4 * 36 * i;
+    const int l = w.lane;
+    g1_consts(w);
+    for (int c = l; c < 6; c += G) {
+      fq v;
+      fq_load(v, (c < 3 ? pi : qi) + 48 * (c % 3));
+      w.st(prog::G1_P + c, v);
+    }
+    w.sync();
+    const int sum = g1_add_g(w);
+    if (l < 3) memcpy(o + 36 + 12 * l, w.ld(sum + l).l, 48);
+    w.sync();
+    g1_dbl_g(w);
+    if (l < 3) memcpy(o + 108 + 12 * l, w.ld(prog::G1_O + l).l, 48);
+    w.sync();
+    g1_add_bytes_g(w, pi, qi, bytes + 288 * i + 144);
+  });
+}
+
+template <int G>
+int g1_aggregate(const uint8_t* in, int ntrees, int b, int nb, int nwarps, uint8_t* out) {
+  std::vector<fq> s(3 * (size_t)nb);
+  const int ngroups = nwarps * (32 / G);
+  for (int t = 0; t < ntrees; t++) {
+    if (run_groups<G>(ngroups, prog::G1_SLOTS, [&](HostLanes<G>& w, int group, auto block_sync) {
+          g1_tree_g(w, group, ngroups, in + 144 * (size_t)b * t, s.data(),
+                    out + 144 * t, b, nb, block_sync);
+        }) != 0)
+      return -1;
+  }
+  return 0;
+}
+
+// group 0's lanes under a fault of g1_selftest
+template <int G>
+struct FaultyLanes {
+  static constexpr int kLanes = G;
+  HostLanes<G>& w;
+  int fault, lane;
+  bool wrote = false;
+  fq ld(int s) {
+    if (s == prog::G1_H && fault == 2 && lane == 2) s += prog::G1_SLOTS;
+    fq v = w.ld(s);
+    if (s == prog::G1_H && fault == 4 && lane == 2 && !wrote) {
+      w.st(s, v);
+      wrote = true;
+    }
+    return v;
+  }
+  void st(int s, const fq& v) { w.st(s, v); }
+  void sync() { w.sync(); }
+};
+
+// g1_add_bytes_g of p + q on group 0 of two groups of G lanes (group 1
+// adds them too, cleanly) under a fault of group 0: 0 none; 1 lane 1
+// syncs once more than the others after it; 2 lane 2 reads the neighbour
+// group's h (a slot past its region) where the group tests h; 3 lane 1
+// syncs with the whole warp's mask; 4 lane 2 writes h in the stage where
+// every lane reads it. (A lane that took G1_ADD_FIN where its group runs
+// G1_DBL would pass these checks: both programs have 12 stages, and their
+// slots do not meet. The tests' limb-for-limb comparisons of every branch
+// catch it.)
+template <int G>
+int g1_selftest(const uint8_t* p, const uint8_t* q, int fault) {
+  return run_groups<G>(2, prog::G1_SLOTS, [&](HostLanes<G>& hw, int group, auto) {
+    const int f = group == 0 ? fault : 0;
+    if (f == 3 && hw.lane == 1) hw.mask = 0xffffffffu;
+    FaultyLanes<G> w{hw, f, hw.lane};
+    uint8_t out[144];
+    g1_add_bytes_g(w, p, q, out);
+    if (f == 1 && w.lane == 1) w.sync();
   });
 }
 
@@ -509,22 +670,6 @@ int tm_host_g2_aggregate(const uint8_t* in, int ntrees, int b, int nb,
 // warp-uniform); 3 lane 6 writes h in the stage where every lane reads it.
 // 0, or -1 when the run failed its checks.
 int tm_host_g2_selftest(const uint8_t* p, const uint8_t* q, int fault) {
-  struct FaultyWarp {
-    HostWarp& w;
-    int fault, lane;
-    bool wrote = false;
-    fq ld(int s) {
-      fq v = w.ld(s);
-      if (s == prog::G2_H && fault == 2 && lane == 3) v.l[0] ^= 1u;
-      if (s == prog::G2_H && fault == 3 && lane == 6 && !wrote) {
-        w.st(s, v);
-        wrote = true;
-      }
-      return v;
-    }
-    void st(int s, const fq& v) { w.st(s, v); }
-    void sync() { w.sync(); }
-  };
   return run_warp(prog::G2_SLOTS, [&](HostWarp& hw) {
     FaultyWarp w{hw, fault, hw.lane};
     uint8_t out[288];
@@ -550,6 +695,39 @@ int tm_host_lockstep_selftest(int fault) {
     w.sync();
     if (fault == 1 && l == 5) w.sync();
   });
+}
+
+// For n pairs of G1 points p, q of 144 bytes ([3][48], read mod p), on
+// groups of `lanes` (4 or 8) lanes, pair i on group i, all n groups at
+// once: words[n][4][36], the sum's Montgomery words by the one-thread
+// jac_add<fp>, by g1_add_g, then the double of p by the one-thread
+// jac_double<fp> and by g1_dbl_g; bytes[n][2][144], the sum's canonical
+// bytes by jac_add<fp> (fp_store) and by g1_add_bytes_g. 0, or -1 if a
+// group failed its checks.
+int tm_host_g1_ops(const uint8_t* p, const uint8_t* q, int n, int lanes,
+                   uint32_t* words, uint8_t* bytes) {
+  if (lanes == 4) return g1_ops<4>(p, q, n, words, bytes);
+  if (lanes == 8) return g1_ops<8>(p, q, n, words, bytes);
+  return -2;
+}
+
+// tm_g1_aggregate's body on host memory: ntrees trees of b points of 144
+// bytes at in, each padded to nb leaves and summed by g1_tree_g on nwarps
+// warps of groups of `lanes` lanes (one block a tree); the canonical sums
+// into out[ntrees][144]. 0, or -1.
+int tm_host_g1_aggregate(const uint8_t* in, int ntrees, int b, int nb,
+                         int nwarps, int lanes, uint8_t* out) {
+  if (lanes == 4) return g1_aggregate<4>(in, ntrees, b, nb, nwarps, out);
+  if (lanes == 8) return g1_aggregate<8>(in, ntrees, b, nb, nwarps, out);
+  return -2;
+}
+
+// The harness's checks on the G1 groups (g1_selftest). 0, or -1 when the
+// run failed its checks.
+int tm_host_g1_selftest(const uint8_t* p, const uint8_t* q, int lanes, int fault) {
+  if (lanes == 4) return g1_selftest<4>(p, q, fault);
+  if (lanes == 8) return g1_selftest<8>(p, q, fault);
+  return -2;
 }
 
 }  // extern "C"
