@@ -2,23 +2,24 @@
 """The redesigned kernels alone on one NVIDIA GPU, each against its plain
 PyTorch version and against the same kernel of another tree of this
 repository: the four-lane ed25519 kernels 3 (``tm_verify_table``, the
-small-tier verify), 6 (``tm_verify_bigcache``, the big-tier verify) and 5
+small-tier verify), 4 (``tm_verify_generic``, the cache-overflow verify), 6
+(``tm_verify_bigcache``, the big-tier verify) and 5
 (``tm_neg_pubkey_bigtable``, the big-tier table build), and the warp-wide
 BLS12-381 kernels: the G2 key sums, kernel 11 (``tm_g2_aggregate``, row
 11b) and kernel 13's G2 half (``tm_g2_add`` and the sharded sum), and the
 pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``).
 
-    python3 chip_kernels.py [--kernel 3 5 6 11 12 13] [--parent DIR] [--seed N]
+    python3 chip_kernels.py [--kernel 3 4 5 6 11 12 13] [--parent DIR] [--seed N]
 
-Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 3, 5,
-6) and ``bls_kernels.cu`` (kernels 11, 12, 13) with ``nvcc`` into plain shared
-libraries (no PyTorch headers) under ``tendermint_tpu_torch/_kbuild/``,
+Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 3, 4,
+5, 6) and ``bls_kernels.cu`` (kernels 11, 12, 13) with ``nvcc`` into plain
+shared libraries (no PyTorch headers) under ``tendermint_tpu_torch/_kbuild/``,
 with ``-Xptxas -v`` for each kernel's registers, stack and spills (the
 whole report beside the library, as ``chip_kernels_<tree>.ptxas.txt`` and
 ``chip_kernels_bls_<tree>.ptxas.txt``); with ``--parent``, the same files
 of the tree at DIR too (e.g. the parent commit unpacked with ``git
 archive``), all nvcc runs started together. Then, for each kernel asked
-for (all six by default), every build is held against the plain version
+for (all seven by default), every build is held against the plain version
 on the card and the host oracle, and timed (median of 20 launches between
 CUDA events) in turns parent, this tree, this tree, parent, so that both
 are measured on one card in one call:
@@ -27,6 +28,12 @@ are measured on one card in one call:
   flipped signature bits, s >= L, invalid keys, ``idx = -1`` and ``idx``
   past the store inside warps of live rows; 256 = the commit path's 150
   live rows padded to its bucket), timed at the buckets 8, 32, 128, 256;
+- kernel 4 at the same b (``chip_smoke.kernel4_rows``: the same kinds of
+  rows with a zero padding row and a valid signature under ``s_ok`` False
+  inside warps of live rows), timed at the same buckets, at 256 and
+  16,384 all-rejected rows (the prewarm's zero rows at two of its rungs)
+  and beside kernel 3 at 256 rows of each build (``kernel 3 at 256``), to
+  show kernel 3 unmoved;
 - kernel 6 on a store of 256 big tables at b = 1, 23 and 2,048 rows of the
   same kinds, and at 16,384 rows: the first 9,600 tiled from the 2,048
   (a blocksync window's live rows), the rest padding; timed at 2,048 (one
@@ -68,8 +75,12 @@ With ``--parent``, a child process per turn (``--turn-tree ROOT``)
 imports that tree's package, builds its kernels and times its main
 paths on the card as ``chip_smoke.py`` does: with kernel 3,
 ``ValidatorSet.verify_commit`` of 8 commits of a seeded 150-validator
-set; with kernel 5 or 6, the 64-commit x 150-validator blocksync window
-with host-hashed challenges through a started ``VerifyScheduler``, 3
+set; with kernel 4, 32 commits through
+``BatchVerifier(table_cache_capacity=64)`` (one generic launch a height,
+its count checked) and that verifier's
+``prewarm_buckets(tiers=("generic",))`` (without ``--parent``, one turn of
+this tree); with kernel 5 or 6, the 64-commit x 150-validator blocksync
+window with host-hashed challenges through a started ``VerifyScheduler``, 3
 times (the first builds the big tables), its verdicts and bitmap checked;
 with kernel 11 or 12, ``check_pairs`` at 2 pairs on the card (median
 of 5) beside the native host library's ``pairing_check`` on the same
@@ -77,12 +88,12 @@ pairs, and the 64-QC window over the 150 validators on the device route
 (``TM_TPU_BLS_PAIRING_DEVICE=1``): its assembly (``assemble_qc``, then
 each QC's signature and signer-key sums on the card, timed apart) and
 its check through a started ``VerifyScheduler``, twice, its verdicts
-checked (without ``--parent``, one turn of this tree). Prints a ``kernelN:`` line per kernel and build, a ``commit:``, a
-``blocksync:`` and a ``pairing:`` line per tree, every number again as one
-JSON object on a
-line of its own, the ``nvidia-smi`` name and power limit, and last the
-``{"ok": true, ...}`` object. Exits non-zero without CUDA or on any
-disagreement.
+checked (without ``--parent``, one turn of this tree). Prints a
+``kernelN:`` line per kernel and build, a ``commit:``, ``generic:``,
+``blocksync:`` and ``pairing:`` line per tree, every number again as one
+JSON object on a line of its own, the ``nvidia-smi`` name and power
+limit, and last the ``{"ok": true, ...}`` object. Exits non-zero without
+CUDA or on any disagreement.
 """
 
 from __future__ import annotations
@@ -100,6 +111,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "ed25519_kernels.cu")
 REPS = 20  # launches per median, as chip_smoke.py times its kernels
 COMMIT_HEIGHTS = 8  # commits a tree verifies in each commit turn
+GENERIC_HEIGHTS = 32  # commits a tree verifies on the generic kernel a turn
 WINDOW_REPS = 3  # blocksync windows a tree verifies in each turn
 N_VALS = 150
 # kernel 6: (rows, padding rows) checked, and the sizes timed
@@ -108,13 +120,15 @@ K6_LIVE, K6_BUCKET = 9600, 16384  # the blocksync window's rows and bucket
 # kernel 5: keys checked and timed
 K5_SIZES = (16, 256)
 BLS_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "bls_kernels.cu")
-KERNEL_NAMES = {3: ("verify_table_kernel",), 5: ("neg_pubkey_bigtable_kernel",),
+KERNEL_NAMES = {3: ("verify_table_kernel",),
+                4: ("verify_generic_kernel", "verify_table_kernel"),
+                5: ("neg_pubkey_bigtable_kernel",),
                 6: ("verify_bigcache_kernel",),
                 11: ("g1_aggregate_kernel", "g2_aggregate_kernel"),
                 12: ("miller_kernel", "chunk_product_kernel", "final_exp_kernel"),
                 13: ("g1_add_kernel", "g2_add_kernel")}
 BLS_KERNELS = (11, 12, 13)  # the kernels of bls_kernels.cu
-ALL_KERNELS = (3, 5, 6, 11, 12, 13)
+ALL_KERNELS = (3, 4, 5, 6, 11, 12, 13)
 PAIRING_REPS = 5  # check_pairs and native pairing_check calls per turn
 # kernel 12's time split: builds of this tree's bls_kernels.cu with one part
 # of run_program (bls12_381_device.cuh) emptied, timed beside the full one
@@ -221,6 +235,7 @@ class Build:
         vp, i = ctypes.c_void_p, ctypes.c_int
         sigs = {
             "tm_verify_table": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+            "tm_verify_generic": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
             "tm_verify_bigcache": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
             "tm_neg_pubkey_bigtable": [vp, vp, vp, vp, i, vp],
             "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
@@ -253,6 +268,16 @@ class Build:
             idx.data_ptr(), r.data_ptr(), s.data_ptr(), k.data_ptr(),
             s_ok.data_ptr(), base.data_ptr(), kc.data_ptr(), out.data_ptr(),
             idx.shape[0], torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
+    def generic(self, torch, pub, r, s, k, s_ok, base, kc):
+        """tm_verify_generic -> [b] bool."""
+        out = torch.empty(pub.shape[0], dtype=torch.bool, device=pub.device)
+        self._check(self.lib.tm_verify_generic(
+            pub.data_ptr(), r.data_ptr(), s.data_ptr(), k.data_ptr(),
+            s_ok.data_ptr(), base.data_ptr(), kc.data_ptr(), out.data_ptr(),
+            pub.shape[0], torch.cuda.current_stream().cuda_stream,
         ))
         return out
 
@@ -352,13 +377,15 @@ def _validator_set(tree: str, seed: int):
     return types, host, vset, by_addr, rng
 
 
-def commit_ms(types, vset, by_addr, rng, chain_id: str) -> list[float]:
-    """ms of each ValidatorSet.verify_commit of COMMIT_HEIGHTS commits."""
+def commit_ms(types, vset, by_addr, rng, chain_id: str, verifier=None,
+              heights: int = COMMIT_HEIGHTS) -> list[float]:
+    """ms of each ValidatorSet.verify_commit of `heights` commits, through
+    `verifier` (the process default when None)."""
     from tendermint_tpu_torch.crypto import batch_verifier as bv
 
-    assert bv.default_verifier().device.type == "cuda"
+    assert (verifier or bv.default_verifier()).device.type == "cuda"
     out = []
-    for h in range(1, COMMIT_HEIGHTS + 1):
+    for h in range(1, heights + 1):
         bid = types.BlockID(
             hash=rng.bytes(32),
             part_set_header=types.PartSetHeader(total=1, hash=rng.bytes(32)),
@@ -370,9 +397,31 @@ def commit_ms(types, vset, by_addr, rng, chain_id: str) -> list[float]:
         for i, v in enumerate(vset.validators):
             sigs[i].signature = by_addr[v.address].sign(commit.vote_sign_bytes(chain_id, i))
         t0 = time.perf_counter()
-        vset.verify_commit(chain_id, bid, h, commit)
+        vset.verify_commit(chain_id, bid, h, commit, verifier=verifier)
         out.append((time.perf_counter() - t0) * 1e3)
     return out
+
+
+def generic_turn(types, vset, by_addr, rng, chain_id: str) -> dict:
+    """Kernel 4's main paths: commit_ms of GENERIC_HEIGHTS commits through a
+    BatchVerifier whose table cache holds 64 keys (each 150-row round on
+    the generic kernel, one launch a height), then that verifier's
+    prewarm_buckets on the generic tier alone (one launch a rung,
+    all-rejected rows): ms a height, the prewarm's wall ms and each
+    launch's (bucket, ms)."""
+    from tendermint_tpu_torch.crypto import batch_verifier as bv
+    from tendermint_tpu_torch.ops import ed25519_batch as eb
+
+    verifier = bv.BatchVerifier(table_cache_capacity=64)
+    n0 = eb.verify_prehashed.launches
+    commit = commit_ms(types, vset, by_addr, rng, chain_id, verifier, GENERIC_HEIGHTS)
+    assert eb.verify_prehashed.launches - n0 == GENERIC_HEIGHTS, "not the generic kernel"
+    t0 = time.perf_counter()
+    entries = verifier.prewarm_buckets(tiers=("generic",))
+    wall = (time.perf_counter() - t0) * 1e3
+    assert entries and all(e["tier"] == "generic" for e in entries), entries
+    return {"commit": commit, "prewarm_ms": wall,
+            "prewarm": [[e["bucket"], e["seconds"] * 1e3] for e in entries]}
 
 
 def blocksync_ms(types, host, vset, by_addr, rng, chain_id: str) -> dict:
@@ -486,6 +535,8 @@ def turn(tree: str, seed: int, what: list[str]) -> dict:
     out = {}
     if "commit" in what:
         out["commit"] = commit_ms(types, vset, by_addr, rng, "chip-kernels")
+    if "generic" in what:
+        out["generic"] = generic_turn(types, vset, by_addr, rng, "chip-kernels")
     if "blocksync" in what:
         out["blocksync"] = blocksync_ms(types, host, vset, by_addr, rng, "chip-kernels")
     if "pairing" in what:
@@ -835,6 +886,44 @@ def main() -> int:
         print(f"time: verify_prehashed_table_plain at 256 rows {plain_ms:.2f} ms | {smi}")
         result["kernel3"] = {"checks": checks, "plain_ms_256": plain_ms, "ms": times}
 
+    if 4 in args.kernel:
+        checks = []
+        for b, n_pad in cs.KERNEL3_SIZES:
+            ops_b, want = cs.kernel4_rows(torch, host, keys, pubs, b, n_pad,
+                                          b"k4-%d" % b, dev)
+            plain = eb.verify_prehashed_plain(*ops_b)
+            for tag, bld in built.items():
+                got = bld.generic(torch, *ops_b, base, kc)
+                torch.cuda.synchronize()
+                assert cs.max_abs_err(got, plain) == 0, f"{tag}: kernel 4 != plain at b={b}"
+                assert got.cpu().tolist() == want, f"{tag}: kernel 4 != host oracle at b={b}"
+            checks.append({"b": b, "padding": n_pad, "accepted": sum(want)})
+        print(f"kernel-vs-plain: kernel 4 of {sorted(built)} equal to the plain "
+              f"version and the host oracle at b = {[b for b, _ in cs.KERNEL3_SIZES]} "
+              f"(tolerance: exact) {json.dumps(checks)}")
+        ops4, _ = cs.kernel4_rows(torch, host, keys, pubs, 256, 8, b"k4-time", dev)
+        rejected = {n: tuple(torch.zeros((n, *t.shape[1:]), dtype=t.dtype, device=dev)
+                             for t in ops4) for n in (256, 16384)}
+        k3_tables, k3_tvalid = eb.neg_pubkey_table_plain(pub_d)
+        ops3, _ = cs.kernel3_rows(torch, host, keys, pubs, k3_tables.contiguous(),
+                                  k3_tvalid, 256, 8, b"k3-time")
+        plain_ms = cs.time_cuda(torch, lambda: eb.verify_prehashed_plain(*ops4), 3)
+        sizes = [*cs.KERNEL3_BUCKETS, "256 rejected", "16384 rejected", "kernel 3 at 256"]
+
+        def call4(bld, n):
+            if n == "kernel 3 at 256":
+                return bld.verify("tm_verify_table", torch, *ops3, base, kc)
+            ops = (rejected[int(n.split()[0])] if str(n).endswith("rejected")
+                   else tuple(t[:n] for t in ops4))
+            return bld.generic(torch, *ops, base, kc)
+
+        times = timed_turns(sizes, call4)
+        report(4, "buckets", times,
+               f"critical path {cs.FE_VERIFY_GENERIC_PATH} (one thread: "
+               f"{cs.FE_VERIFY_GENERIC}); kernel 3's {cs.FE_VERIFY_TABLE_PATH}")
+        print(f"time: verify_prehashed_plain at 256 rows {plain_ms:.2f} ms | {smi}")
+        result["kernel4"] = {"checks": checks, "plain_ms_256": plain_ms, "ms": times}
+
     if 6 in args.kernel:
         bt, bv = eb.neg_pubkey_bigtable_plain(pub_d)
         bt = bt.contiguous()
@@ -971,8 +1060,9 @@ def main() -> int:
                                           {"g1": lane_builds, "g2": {}},
                                           timed_turns, report, smi)
 
-    if "parent" in trees or {11, 12, 13} & set(args.kernel):
+    if "parent" in trees or {4, 11, 12, 13} & set(args.kernel):
         what = (["commit"] if 3 in args.kernel and "parent" in trees else []) + (
+            ["generic"] if 4 in args.kernel else []) + (
             ["blocksync"] if {5, 6} & set(args.kernel) and "parent" in trees else []) + (
             ["pairing"] if {11, 12} & set(args.kernel) else []) + (
             ["sharded"] if 13 in args.kernel else [])
@@ -992,6 +1082,15 @@ def main() -> int:
                 print(f"commit: {tag} tree, verify_commit at {N_VALS} validators ms a "
                       f"height per turn {json.dumps([[round(x, 3) for x in t['commit']] for t in ts])} "
                       f"(the first of a turn builds the key tables) | {smi}")
+            if "generic" in what:
+                gr = [t["generic"] for t in ts]
+                print(f"generic: {tag} tree, verify_commit at {N_VALS} validators "
+                      f"through BatchVerifier(table_cache_capacity=64), one generic "
+                      f"launch a height, ms a height per turn "
+                      f"{json.dumps([[round(x, 3) for x in t['commit']] for t in gr])}; "
+                      f"prewarm_buckets(tiers=('generic',)) wall ms per turn "
+                      f"{json.dumps([round(t['prewarm_ms'], 2) for t in gr])}, "
+                      f"[bucket, ms] a launch {json.dumps(gr[-1]['prewarm'])} | {smi}")
             if "pairing" in what:
                 pr = [t["pairing"] for t in ts]
                 print(f"pairing: {tag} tree, check_pairs at 2 pairs on the card ms per "

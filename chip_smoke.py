@@ -27,7 +27,9 @@ Phases (any failure raises and the exit code is non-zero):
    (``KERNEL3_SIZES``: b = 1, 23, 150 and 256, the last the commit path's
    150 rows padded to its bucket), with ``idx = -1``, ``idx`` past the
    store and padding rows inside warps of live rows, against its plain
-   version and the host oracle.
+   version and the host oracle; the four-lane ``verify_prehashed`` at
+   the same shapes (``kernel4_rows``: a zero padding row and a valid
+   signature with ``s_ok`` False inside warps of live rows).
 3. Drive the main paths through their entry points, each with the launch
    counts zeroed just before and read just after:
    - commit verification: a seeded 150-validator ``ValidatorSet``
@@ -54,10 +56,10 @@ Phases (any failure raises and the exit code is non-zero):
    height (beside its figure with the one-thread kernel 3), and the bulk
    window's wall time with its host and device shares; work out each
    kernel's bound. Kernel 3 also at the buckets 8, 32, 128 and 256 (the
-   ``kernel3:`` line), kernel 6 at 2,048 rows and the window's 16,384
-   (``kernel6:``) and kernel 5 at 256 adversarial keys and the window's
-   build (``kernel5:``), each line with the four-lane critical path and
-   ``ptxas`` usage.
+   ``kernel3:`` line), kernel 4 likewise (``kernel4:``), kernel 6 at 2,048
+   rows and the window's 16,384 (``kernel6:``) and kernel 5 at 256
+   adversarial keys and the window's build (``kernel5:``), each line with
+   the four-lane critical path and ``ptxas`` usage.
 5. The quorum-certificate path (``qc_phase``): ``g1_aggregate`` and
    ``g2_aggregate`` on 256 points with duplicates, opposites and the
    identity and at the device route's shapes (150 signatures; 150 keys),
@@ -222,6 +224,11 @@ FE_VERIFY_TABLE = FE_VAR_MULT + FE_BASE_MULT + FE_FINISH
 # point operation (64 x 5 in [k](-A), 32 in [s]B, 1 in the finish), and
 # the finish's to_cached, inversion and two products
 FE_VERIFY_TABLE_PATH = 2 * (64 * 5 + 32 + 1) + 1 + FE_INVERT + 2
+FE_VERIFY_GENERIC = FE_DECOMPRESS + FE_TABLE_BUILD + FE_VERIFY_TABLE
+# one row of the four-lane kernel 4: the decompression (every lane alike),
+# to_cached(-A), the table's 14 cached adds of 2, the last entry's
+# to_cached, then kernel 3's chain
+FE_VERIFY_GENERIC_PATH = FE_DECOMPRESS + 1 + 14 * 2 + 1 + FE_VERIFY_TABLE_PATH
 FE_DBL = 8
 # the big table of one key: decompress, to_cached(-A), 14 cached adds for
 # row 0, 63 x 4 doublings of the 16 columns, 64 x 16 to_cached (the work
@@ -406,6 +413,27 @@ def kernel3_rows(torch, host, keys, pubs, tables, tvalid, b: int, n_pad: int,
             idx[row], want[row] = v, False
     R, S, K, ok, idx_t = row_tensors(torch, host, items, idx, n_pad, tables.device)
     return (tables, tvalid, idx_t, R, S, K, ok), want
+
+
+def kernel4_rows(torch, host, keys, pubs, b: int, n_pad: int, tag: bytes, dev):
+    """Kernel 4's operands (pubkeys, R, S, K, s_ok) for b rows of
+    mixed_rows on dev, the last n_pad padding (zero rows, s_ok False, as
+    the bucket pads); where live, row 3 is such a padding row and row 8
+    keeps its valid signature under s_ok False, inside warps of live rows
+    (a warp holds 8 row groups of 4 lanes). Returns (operands, the host
+    oracle's verdicts)."""
+    items, idx, want = mixed_rows(host, keys, pubs, b, n_pad, tag)
+    pad = list(range(b - n_pad, b)) + ([3] if 3 < b - n_pad else [])
+    for i in pad:
+        items[i], want[i] = (bytes(32), b"", bytes(64)), False
+    R, S, K, ok, _ = row_tensors(torch, host, items, idx, n_pad, dev)
+    K[pad] = 0
+    ok[pad] = False
+    if 8 < b - n_pad:
+        assert want[8], "row 8 is a valid signature"
+        ok[8], want[8] = False, False
+    pub = torch.tensor([list(p) for p, _, _ in items], dtype=torch.uint8, device=dev)
+    return (pub, R, S, K, ok), want
 
 
 def signed_window(host, types, vset, by_addr, chain_id, n_commits, bad_height, rng):
@@ -2327,6 +2355,21 @@ def main() -> int:
     errs["verify_prehashed"] = max_abs_err(vg, vg_plain)
     assert errs["verify_prehashed"] == 0, "verify_prehashed: kernel != plain"
     assert vg.cpu().tolist() == want, "verify_prehashed != host oracle"
+    k4_checks = []
+    for b, n_pad in KERNEL3_SIZES:
+        k4_ops, k4_want = kernel4_rows(torch, host, keys, pubs, b, n_pad, b"k4-%d" % b, dev)
+        got = eb.verify_prehashed(*k4_ops)
+        plain = eb.verify_prehashed_plain(*k4_ops)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        errs["verify_prehashed"] = max(errs["verify_prehashed"], err)
+        assert err == 0, f"verify_prehashed: kernel != plain at b={b}"
+        assert got.cpu().tolist() == k4_want, f"verify_prehashed != host oracle at b={b}"
+        k4_checks.append({"b": b, "padding": n_pad, "accepted": sum(k4_want)})
+    print(f"kernel-vs-plain: verify_prehashed (four lanes a row) on 256 mixed "
+          f"rows and at the small-tier shapes, padding rows and s_ok False "
+          f"inside warps of live rows: equal to its plain version and the host "
+          f"oracle (tolerance: exact) {json.dumps(k4_checks)}")
 
     # the big tier: 256 tables, 2048 rows (the last 64 padding)
     btables, bvalid = eb.neg_pubkey_bigtable(pub_d)
@@ -2636,7 +2679,7 @@ def main() -> int:
             lambda: eb.verify_prehashed(G_pub, R, S, K, s_ok),
             lambda: eb.verify_prehashed_plain(G_pub, R, S, K, s_ok),
             4 * 32 * n_rows + 2 * n_rows + base_bytes + 96,
-            (n_rows * FE_DECOMPRESS
+            (int(s_ok.sum()) * FE_DECOMPRESS
              + active_generic * (FE_TABLE_BUILD + FE_VERIFY_TABLE)) * IMAD_PER_FE_MUL,
             "tendermint_tpu/ops/ed25519_batch.py:36", SOURCE,
         ),
@@ -2699,6 +2742,16 @@ def main() -> int:
           f"multiplications a row (one thread a row: {FE_VERIFY_TABLE}); "
           f"checked at b = {[b for b, _ in KERNEL3_SIZES]}; ptxas: "
           f"{usages.get('verify_table_kernel', 'not reported')} | {smi}")
+    k4_ms = {}
+    for b in KERNEL3_BUCKETS:
+        k4_b = tuple(t[:b] for t in (G_pub, R, S, K, s_ok))
+        k4_ms[b] = time_cuda(torch, lambda: eb.verify_prehashed(*k4_b), 20)
+    print(f"kernel4: verify_generic_kernel, four lanes a row, median ms of 20 "
+          f"launches at buckets {json.dumps(k4_ms)} (the first b of the 256 "
+          f"mixed rows); critical path {FE_VERIFY_GENERIC_PATH} dependent field "
+          f"multiplications a row (one thread a row: {FE_VERIFY_GENERIC}); "
+          f"checked at b = {[b for b, _ in KERNEL3_SIZES]}; ptxas: "
+          f"{usages.get('verify_generic_kernel', 'not reported')} | {smi}")
     k6_2048 = time_cuda(torch, lambda: eb.verify_prehashed_bigcache(*big_args), 20)
     k6_win = next(r["ms"] for r in rows if r["name"] == "verify_prehashed_bigcache")
     print(f"kernel6: verify_bigcache_kernel, four lanes a row, median ms of 20 "

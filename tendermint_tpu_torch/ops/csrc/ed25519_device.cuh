@@ -18,9 +18,9 @@
 //
 // The header is plain C++ over stdint types, so g++ also builds it: the
 // CPU tests run the four-lane row code (verify_table_x4,
-// verify_bigcache_x4, neg_pubkey_bigtable_x4) through a host harness,
-// tests/ed25519_lanes_host.cpp. Outside nvcc the device qualifiers below
-// become plain inline functions.
+// verify_generic_x4, verify_bigcache_x4, neg_pubkey_bigtable_x4) through
+// a host harness, tests/ed25519_lanes_host.cpp. Outside nvcc the device
+// qualifiers below become plain inline functions.
 #pragma once
 
 #include <stdint.h>
@@ -471,13 +471,89 @@ __device__ __forceinline__ void ge_to_cached_lane(fe& c, const ge& p,
   fe_pick(c, lane, ymx, ypx, t2d, z2);
 }
 
+// How a lane reads its component of entry j (0..15) of the 16-entry
+// cached window table of -A, tab(e, j):
+// - TableBytes (kernel 3): the lane's 32 canonical bytes of a stored
+//   table, at tab + j * 128 (tab = the key's table + lane * 32);
+// - TableLimbs<S> (kernel 4): the 5 loose limbs the lane wrote itself
+//   (neg_table_x4), limb l of entry j at p[(j * 5 + l) * S]. On the card p
+//   is the thread's column of a shared-memory array laid out [entry][limb]
+//   [thread], S the block's threads; in the host harness a lane's column
+//   of a host array.
+struct TableBytes {
+  const uint8_t* tab;
+  __device__ __forceinline__ void operator()(fe& e, int j) const {
+    fe_frombytes(e, tab + j * 128);
+  }
+};
+
+template <int S>
+struct TableLimbs {
+  uint64_t* p;
+  __device__ __forceinline__ void operator()(fe& e, int j) const {
+#pragma unroll
+    for (int l = 0; l < 5; l++) e.v[l] = p[(j * 5 + l) * S];
+  }
+  __device__ __forceinline__ void store(int j, const fe& c) const {
+#pragma unroll
+    for (int l = 0; l < 5; l++) p[(j * 5 + l) * S] = c.v[l];
+  }
+};
+
+// The points of one small-tier or generic row by one lane of its group:
+// acc = [k](-A) (64 windows of 4 doublings and a cached add of entry
+// nibble w of k, MSB first), sb = [s]B (32 cached adds over the byte-digit
+// base table), q = sb + acc. The one-thread kernel's operations in its
+// order, so with the one-thread table every lane ends with its limbs.
+template <class Ex, class Tab>
+__device__ __forceinline__ void table_points_x4(
+    ge& acc, ge& sb, ge& q, const Tab& tab, const uint8_t* ki,
+    const uint8_t* si, const uint8_t* base, const consts& kc, int lane,
+    Ex& ex) {
+  fe e;
+  ge_identity(acc);
+  for (int w = 63; w >= 0; w--) {
+    ge_dbl_x4(acc, acc, lane, ex);
+    ge_dbl_x4(acc, acc, lane, ex);
+    ge_dbl_x4(acc, acc, lane, ex);
+    ge_dbl_x4(acc, acc, lane, ex);
+    tab(e, nibble(ki, w));
+    ge_add_cached_x4(acc, acc, e, lane, ex);
+  }
+  ge_identity(sb);
+  for (int j = 0; j < 32; j++) {
+    fe_frombytes(e, base + ((size_t)j * 256 + si[j]) * 128 + lane * 32);
+    ge_add_cached_x4(sb, sb, e, lane, ex);
+  }
+  ge_to_cached_lane(e, acc, kc, lane);
+  ge_add_cached_x4(q, sb, e, lane, ex);
+}
+
+// encode([s]B + [k](-A)) == R for row i: table_points_x4, then the
+// compression, whose inversion runs on every lane alike
+template <class Ex, class Tab>
+__device__ __forceinline__ bool verify_chain_x4(
+    int i, int lane, Ex& ex, const Tab& tab, const uint8_t* r,
+    const uint8_t* s, const uint8_t* k, const uint8_t* base,
+    const consts& kc) {
+  ge acc, sb, q;
+  table_points_x4(acc, sb, q, tab, k + (size_t)i * 32, s + (size_t)i * 32,
+                  base, kc, lane, ex);
+  uint8_t enc[32];
+  ge_compress(enc, q);
+  const uint8_t* ri = r + (size_t)i * 32;
+  bool eq = true;
+  for (int j = 0; j < 32; j++) eq &= (enc[j] == ri[j]);
+  return eq;
+}
+
 // The small-tier verify of row i by one lane of its group, with the row
 // gather of the JAX package's _verify_cached_small:
 // encode([s]B + [k](-A)) == R, -A from the key's 16-entry cached window
 // table. A row whose verdict is already decided (idx < 0 or past the
 // store, invalid key, s >= L) returns at once; all 4 lanes share i, so
 // the group exits together. Each lane reads only its quarter of a cached
-// entry. The inversion in ge_compress runs on every lane alike.
+// entry.
 template <class Ex>
 __device__ __forceinline__ bool verify_table_x4(
     int i, int lane, Ex& ex, const uint8_t* tables, const uint8_t* tvalid,
@@ -488,36 +564,50 @@ __device__ __forceinline__ bool verify_table_x4(
   if (row < 0 || row >= rows || !tvalid[row] || !s_ok[i]) return false;
   consts kc;
   load_consts(kc, kbytes);
-  const uint8_t* tab = tables + (size_t)row * 16 * 128 + lane * 32;
-  const uint8_t* ki = k + (size_t)i * 32;
-  const uint8_t* si = s + (size_t)i * 32;
-  ge acc, sb;
-  fe e;
-  // [k](-A): 64 windows of 4 doublings and a cached add, MSB first
-  ge_identity(acc);
-  for (int w = 63; w >= 0; w--) {
-    ge_dbl_x4(acc, acc, lane, ex);
-    ge_dbl_x4(acc, acc, lane, ex);
-    ge_dbl_x4(acc, acc, lane, ex);
-    ge_dbl_x4(acc, acc, lane, ex);
-    fe_frombytes(e, tab + nibble(ki, w) * 128);
-    ge_add_cached_x4(acc, acc, e, lane, ex);
+  const TableBytes tab{tables + (size_t)row * 16 * 128 + lane * 32};
+  return verify_chain_x4(i, lane, ex, tab, r, s, k, base, kc);
+}
+
+// The 16-entry cached window table of a = -A by one lane of its group, in
+// the one-thread kernel's order: the identity, a, then 14 cached adds of
+// cached(a). Lane l stores only component l (YmX, YpX, T2d, Z2) of each
+// entry, as the loose limbs of ge_to_cached_lane: the one-thread
+// table's limbs.
+template <class Ex, int S>
+__device__ __forceinline__ void neg_table_x4(const TableLimbs<S>& tbl,
+                                             const ge& a, const consts& kc,
+                                             int lane, Ex& ex) {
+  fe ac, c;
+  ge_to_cached_lane(ac, a, kc, lane);
+  ge cur;
+  ge_identity(cur);
+  for (int j = 0; j < 16; j++) {
+    if (j == 1) cur = a;
+    else if (j > 1) ge_add_cached_x4(cur, cur, ac, lane, ex);
+    ge_to_cached_lane(c, cur, kc, lane);
+    tbl.store(j, c);
   }
-  // [s]B from the 32 x 256 byte-digit table of cached basepoint multiples
-  ge_identity(sb);
-  for (int j = 0; j < 32; j++) {
-    fe_frombytes(e, base + ((size_t)j * 256 + si[j]) * 128 + lane * 32);
-    ge_add_cached_x4(sb, sb, e, lane, ex);
-  }
-  ge q;
-  ge_to_cached_lane(e, acc, kc, lane);
-  ge_add_cached_x4(q, sb, e, lane, ex);
-  uint8_t enc[32];
-  ge_compress(enc, q);
-  const uint8_t* ri = r + (size_t)i * 32;
-  bool eq = true;
-  for (int j = 0; j < 32; j++) eq &= (enc[j] == ri[j]);
-  return eq;
+}
+
+// The generic verify of row i by one lane of its group (the JAX package's
+// verify_prehashed): a_valid & s_ok & encode([s]B + [k](-A)) == R, with
+// the table of -A built by the group into tbl. A row with s >= L (or a
+// padding row) returns before the decompression, one with an invalid key
+// after it; all 4 lanes share i, so the group exits together. A lane
+// reads only the table slots it wrote.
+template <class Ex, int S>
+__device__ __forceinline__ bool verify_generic_x4(
+    int i, int lane, Ex& ex, const TableLimbs<S>& tbl, const uint8_t* pub,
+    const uint8_t* r, const uint8_t* s, const uint8_t* k,
+    const uint8_t* s_ok, const uint8_t* base, const uint8_t* kbytes) {
+  if (!s_ok[i]) return false;
+  consts kc;
+  load_consts(kc, kbytes);
+  ge a;
+  if (!ge_decompress(a, pub + (size_t)i * 32, kc)) return false;
+  ge_neg(a);
+  neg_table_x4(tbl, a, kc, lane, ex);
+  return verify_chain_x4(i, lane, ex, tbl, r, s, k, base, kc);
 }
 
 // Two independent ge_add_cached_x4 in one pass: p += c and q += d, each

@@ -53,12 +53,28 @@
 // (to_cached) + 504 (63 x 4 doublings) = ~870 against ~2,470; each lane
 // writes its quarter of every entry.
 //
+// tm_verify_generic (verify_generic_x4) is four lanes per row too: the
+// group decompresses A (every lane alike), builds the 16-entry cached
+// table of -A with 14 four-lane cached adds, then runs kernel 3's chain
+// (verify_chain_x4, the same code as tm_verify_table's) reading the table
+// from shared memory instead of a stored table. Critical path 275
+// (decompress) + 1 + 14 x 2 + 1 + 974 = 1,279 multiplications against
+// 3,496 on one thread. Each lane keeps only its component of each entry,
+// as 5 loose limbs (the one-thread table's), 16 x 5 x 8 = 640 bytes a
+// thread, laid out [entry][limb][thread]: a warp's 8-byte loads then fall
+// on distinct banks whatever entry each group reads, and a lane reads only
+// what it wrote, so no barrier is needed and a group may leave early. The
+// block is kGenericThreads = 64 threads, 40 KiB of static shared memory:
+// under the 48 KiB a block gets without an opt-in, and an SM's 228 KiB
+// hold 5 such blocks (320 threads), where 128-thread blocks at 80 KiB
+// would need the dynamic-shared-memory attribute and fit 2 (256
+// threads). A row with s >= L or a padding row (s_ok False, as the
+// prewarm's rows) leaves before the decompression.
+//
 // The other kernels run one thread per signature (per point for
-// dbl_chain), limbs in registers, no shared memory. The generic kernel's
-// 16-entry cached table (2.5 KiB per thread) lives in local memory. Rows
-// whose verdict is already decided (invalid key, s >= L, padding, idx < 0
-// or past the store) skip the arithmetic, and no row reads outside its
-// inputs.
+// dbl_chain), limbs in registers, no shared memory. Rows whose verdict is
+// already decided (invalid key, s >= L, padding, idx < 0 or past the
+// store) skip the arithmetic, and no row reads outside its inputs.
 //
 // Plain C interface: no PyTorch headers here, so nvcc builds this file in
 // seconds. Launchers run on the caller's stream, allocate nothing, and
@@ -73,32 +89,10 @@ using namespace edev;
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kGenericThreads = 64;
 
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-// [s]B from the 32 x 256 byte-digit table of cached basepoint multiples
-__device__ __forceinline__ void scalar_mult_base(ge& acc, const uint8_t* s,
-                                                 const uint8_t* base) {
-  ge_identity(acc);
-  ge_cached e;
-  for (int i = 0; i < 32; i++) {
-    ge_cached_frombytes(e, base + ((size_t)i * 256 + s[i]) * 128);
-    ge_add_cached(acc, acc, e);
-  }
-}
-
-// [s]B + [k](-A) encoded and compared with R
-__device__ __forceinline__ bool finish(const ge& sb, const ge& ka,
-                                       const uint8_t* r, const consts& kc) {
-  ge_cached c;
-  ge q;
-  ge_to_cached(c, ka, kc);
-  ge_add_cached(q, sb, c);
-  uint8_t enc[32];
-  ge_compress(enc, q);
-  bool eq = true;
-  for (int j = 0; j < 32; j++) eq &= (enc[j] == r[j]);
-  return eq;
+inline int blocks_for(int n, int threads = kThreads) {
+  return (n + threads - 1) / threads;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -168,7 +162,9 @@ verify_table_kernel(const uint8_t* __restrict__ tables,
   if (lane == 0) out[i] = ok ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 4 * b threads in blocks of kGenericThreads, grouped as in
+// verify_table_kernel; thread t's table column is tbl + threadIdx.x.
+__global__ void __launch_bounds__(kGenericThreads)
 verify_generic_kernel(const uint8_t* __restrict__ pub,
                       const uint8_t* __restrict__ r,
                       const uint8_t* __restrict__ s,
@@ -177,41 +173,15 @@ verify_generic_kernel(const uint8_t* __restrict__ pub,
                       const uint8_t* __restrict__ base,
                       const uint8_t* __restrict__ kbytes,
                       uint8_t* __restrict__ out, int b) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  consts kc;
-  load_consts(kc, kbytes);
-  ge a;
-  const bool a_ok = ge_decompress(a, pub + (size_t)i * 32, kc);
-  if (!a_ok || !s_ok[i]) {
-    out[i] = 0;
-    return;
-  }
-  ge_neg(a);
-  // cached(0, -A, ..., -15A) in local memory
-  ge_cached tbl[16];
-  ge_cached ac;
-  ge_to_cached(ac, a, kc);
-  ge cur;
-  ge_identity(cur);
-  for (int j = 0; j < 16; j++) {
-    if (j == 1) cur = a;
-    else if (j > 1) ge_add_cached(cur, cur, ac);
-    ge_to_cached(tbl[j], cur, kc);
-  }
-  const uint8_t* ki = k + (size_t)i * 32;
-  ge acc;
-  ge_identity(acc);
-  for (int w = 63; w >= 0; w--) {
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_add_cached(acc, acc, tbl[nibble(ki, w)]);
-  }
-  ge sb;
-  scalar_mult_base(sb, s + (size_t)i * 32, base);
-  out[i] = finish(sb, acc, r + (size_t)i * 32, kc) ? 1 : 0;
+  __shared__ uint64_t tbl[16 * 5 * kGenericThreads];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 4 * b) return;
+  const int i = t >> 2, lane = t & 3;
+  Shfl4 ex{0xFu << (threadIdx.x & 28)};
+  const TableLimbs<kGenericThreads> tab{tbl + threadIdx.x};
+  const bool ok = verify_generic_x4(i, lane, ex, tab, pub, r, s, k, s_ok,
+                                    base, kbytes);
+  if (lane == 0) out[i] = ok ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -309,8 +279,8 @@ int tm_verify_generic(const void* pub, const void* r, const void* s,
                       const void* k, const void* s_ok, const void* base,
                       const void* kbytes, void* out, int b, void* stream) {
   if (b > 0)
-    verify_generic_kernel<<<blocks_for(b), kThreads, 0,
-                            (cudaStream_t)stream>>>(
+    verify_generic_kernel<<<blocks_for(4 * b, kGenericThreads),
+                            kGenericThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)pub, (const uint8_t*)r, (const uint8_t*)s,
         (const uint8_t*)k, (const uint8_t*)s_ok, (const uint8_t*)base,
         (const uint8_t*)kbytes, (uint8_t*)out, b);

@@ -1,18 +1,21 @@
 // Host harness of the four-lane ed25519 kernels, for the CPU tests
-// (tests/test_torch_ed25519_lanes.py and test_torch_ed25519_big_lanes.py
-// build it with g++): the small-tier verify (kernel 3), the big-tier
-// verify (kernel 6) and the big-tier table build (kernel 5).
+// (tests/test_torch_ed25519_lanes.py, test_torch_ed25519_big_lanes.py and
+// test_torch_ed25519_generic_lanes.py build it with g++): the small-tier
+// verify (kernel 3), the generic verify (kernel 4), the big-tier verify
+// (kernel 6) and the big-tier table build (kernel 5).
 //
 // It runs the same source as the card: verify_table_x4,
-// verify_bigcache_x4, neg_pubkey_bigtable_x4 and the _x4 point operations
-// of ed25519_device.cuh. Four host threads play the 4 lanes of a group and
-// walk the groups (rows, or key columns) in order, as a group of the
-// kernel does; the exchange is a slot array the 4 lanes fill, with a
-// barrier on each side, so the lanes run in lock-step. Each exchange also
-// carries the group and the lane's count of exchanges in that group:
-// lanes that disagree (one lane left a group early, or called a different
-// number of stages) fail the call instead of reading another lane's stale
-// slot.
+// verify_generic_x4, verify_bigcache_x4, neg_pubkey_bigtable_x4 and the
+// _x4 point operations of ed25519_device.cuh. Four host threads play the
+// 4 lanes of a group and walk the groups (rows, or key columns) in order,
+// as a group of the kernel does; the exchange is a slot array the 4 lanes
+// fill, with a barrier on each side, so the lanes run in lock-step. Each
+// exchange also carries the group and the lane's count of exchanges in
+// that group: lanes that disagree (one lane left a group early, or called
+// a different number of stages) fail the call instead of reading another
+// lane's stale slot. Kernel 4's shared-memory table is a host array laid
+// out as on the card, [entry][limb][lane], each lane reading its own
+// column.
 #include <stdint.h>
 #include <string.h>
 
@@ -123,6 +126,37 @@ int tm_host_verify_table(const uint8_t* tables, const uint8_t* tvalid,
   });
 }
 
+// The generic table of the 4 lanes, laid out as the card's shared array
+// with a block of 4 threads: lane l's column starts at l
+struct GenericTable {
+  uint64_t limbs[16 * 5 * 4];
+  TableLimbs<4> lane(int l) { return TableLimbs<4>{limbs + l}; }
+};
+
+// tm_verify_generic's operands on host memory, lane 0's verdicts in out;
+// run_groups' return codes. With fault 1, lane 3 leaves row 0 before its
+// table; with fault 2, lane 3 makes one exchange more on row 0 (both for
+// the test that the harness fails them).
+int tm_host_verify_generic(const uint8_t* pub, const uint8_t* r,
+                           const uint8_t* s, const uint8_t* k,
+                           const uint8_t* s_ok, const uint8_t* base,
+                           const uint8_t* kbytes, uint8_t* out, int b,
+                           int fault) {
+  GenericTable tbl;
+  return run_groups(b, out, [&](int i, int lane, HostX4& ex) {
+    const bool faulty = fault && i == 0 && lane == 3;
+    if (faulty && fault == 1) return 0;
+    const bool ok = verify_generic_x4(i, lane, ex, tbl.lane(lane), pub, r, s,
+                                      k, s_ok, base, kbytes);
+    if (faulty && fault == 2) {
+      fe x;
+      fe_0(x);
+      ex.all(x, x, x, x, x);
+    }
+    return ok ? 1 : 0;
+  });
+}
+
 // tm_verify_bigcache's operands on host memory, likewise
 int tm_host_verify_bigcache(const uint8_t* tables, const uint8_t* tvalid,
                             int rows, const int32_t* idx, const uint8_t* r,
@@ -190,6 +224,76 @@ int tm_host_bigcache_points(const uint8_t* tables, const int32_t* idx,
                        k + (size_t)i * 32, s + (size_t)i * 32, base, kc,
                        lane, ex);
     uint64_t* o = out + i * stride + (3 + 3 * lane) * 20;
+    memcpy(o, &acc, sizeof acc);
+    memcpy(o + 20, &sb, sizeof sb);
+    memcpy(o + 40, &q, sizeof q);
+    return 0;
+  });
+}
+
+// For b rows whose key decompresses, out[b][47][20] uint64 limbs: slots
+// 0-15 the one-thread kernel's table of -A (ge_to_cached of the identity,
+// -A, then 14 ge_add_cached of cached(-A)), 16-18 acc, sb and q by the
+// one-thread ge_dbl and ge_add_cached in its order (64 windows of 4
+// doublings and an add, MSB first; 32 base adds; to_cached(acc) added to
+// sb); slots 19-34 the table the 4 lanes built (neg_table_x4), component
+// l of entry j from lane l; 35 + 3l .. 37 + 3l lane l's acc, sb and q of
+// table_points_x4 over it. 0, -1 if the lanes fell out of lock-step, -3
+// if a key does not decompress.
+int tm_host_generic_points(const uint8_t* pub, const uint8_t* s,
+                           const uint8_t* k, const uint8_t* base,
+                           const uint8_t* kbytes, uint64_t* out, int b) {
+  consts kc;
+  load_consts(kc, kbytes);
+  const size_t stride = 47 * 20;
+  for (int i = 0; i < b; i++) {
+    ge a, cur, acc, sb, q;
+    if (!ge_decompress(a, pub + (size_t)i * 32, kc)) return -3;
+    ge_neg(a);
+    ge_cached tbl[16], ac, e;
+    ge_to_cached(ac, a, kc);
+    ge_identity(cur);
+    for (int j = 0; j < 16; j++) {
+      if (j == 1) cur = a;
+      else if (j > 1) ge_add_cached(cur, cur, ac);
+      ge_to_cached(tbl[j], cur, kc);
+    }
+    const uint8_t* ki = k + (size_t)i * 32;
+    const uint8_t* si = s + (size_t)i * 32;
+    ge_identity(acc);
+    for (int w = 63; w >= 0; w--) {
+      for (int d = 0; d < 4; d++) ge_dbl(acc, acc);
+      ge_add_cached(acc, acc, tbl[nibble(ki, w)]);
+    }
+    ge_identity(sb);
+    for (int j = 0; j < 32; j++) {
+      ge_cached_frombytes(e, base + ((size_t)j * 256 + si[j]) * 128);
+      ge_add_cached(sb, sb, e);
+    }
+    ge_to_cached(e, acc, kc);
+    ge_add_cached(q, sb, e);
+    uint64_t* o = out + i * stride;
+    memcpy(o, tbl, sizeof tbl);
+    memcpy(o + 16 * 20, &acc, sizeof acc);
+    memcpy(o + 17 * 20, &sb, sizeof sb);
+    memcpy(o + 18 * 20, &q, sizeof q);
+  }
+  GenericTable tbl;
+  return run_groups(b, nullptr, [&](int i, int lane, HostX4& ex) {
+    ge a, acc, sb, q;
+    ge_decompress(a, pub + (size_t)i * 32, kc);
+    ge_neg(a);
+    const TableLimbs<4> tab = tbl.lane(lane);
+    neg_table_x4(tab, a, kc, lane, ex);
+    table_points_x4(acc, sb, q, tab, k + (size_t)i * 32, s + (size_t)i * 32,
+                    base, kc, lane, ex);
+    uint64_t* o = out + i * stride;
+    fe c;
+    for (int j = 0; j < 16; j++) {
+      tab(c, j);
+      memcpy(o + (19 + j) * 20 + lane * 5, &c, sizeof c);
+    }
+    o += (35 + 3 * lane) * 20;
     memcpy(o, &acc, sizeof acc);
     memcpy(o + 20, &sb, sizeof sb);
     memcpy(o + 40, &q, sizeof q);
