@@ -7,19 +7,22 @@ small-tier verify), 4 (``tm_verify_generic``, the cache-overflow verify), 6
 (``tm_neg_pubkey_bigtable``, the big-tier table build), and the warp-wide
 BLS12-381 kernels: the G2 key sums, kernel 11 (``tm_g2_aggregate``, row
 11b) and kernel 13's G2 half (``tm_g2_add`` and the sharded sum), and the
-pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``).
+pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``); and the four-lane
+secp256k1 verify, kernel 10 (``tm_secp_verify``).
 
-    python3 chip_kernels.py [--kernel 3 4 5 6 11 12 13] [--parent DIR] [--seed N]
+    python3 chip_kernels.py [--kernel 3 4 5 6 10 11 12 13] [--parent DIR] [--seed N]
 
 Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 3, 4,
-5, 6) and ``bls_kernels.cu`` (kernels 11, 12, 13) with ``nvcc`` into plain
+5, 6), ``secp256k1_kernels.cu`` (kernel 10) and ``bls_kernels.cu``
+(kernels 11, 12, 13) with ``nvcc`` into plain
 shared libraries (no PyTorch headers) under ``tendermint_tpu_torch/_kbuild/``,
 with ``-Xptxas -v`` for each kernel's registers, stack and spills (the
-whole report beside the library, as ``chip_kernels_<tree>.ptxas.txt`` and
+whole report beside the library, as ``chip_kernels_<tree>.ptxas.txt``,
+``chip_kernels_secp_<tree>.ptxas.txt`` and
 ``chip_kernels_bls_<tree>.ptxas.txt``); with ``--parent``, the same files
 of the tree at DIR too (e.g. the parent commit unpacked with ``git
 archive``), all nvcc runs started together. Then, for each kernel asked
-for (all seven by default), every build is held against the plain version
+for (all eight by default), every build is held against the plain version
 on the card and the host oracle, and timed (median of 20 launches between
 CUDA events) in turns parent, this tree, this tree, parent, so that both
 are measured on one card in one call:
@@ -41,6 +44,18 @@ are measured on one card in one call:
 - kernel 5 on 16 and 256 keys (valid, small order, non-canonical, no
   square root), its tables byte for byte against the plain version and
   its validity against the host oracle; timed at both sizes;
+- kernel 10 on ``chip_smoke.secp_crafted_rows``' 64 rows (each build
+  against the plain version and the JAX package's rule) and at the mixed
+  window's shape (``K10_LIVE`` = 3,200 live rows, 400 seeded signatures
+  of 50 keys tiled 8 times, a quarter of them invalid, padded to
+  ``K10_BUCKET`` = 8,192; against the plain version and the host
+  oracle), timed at 64, 1,024 (400 live, a mesh shard's share) and 8,192
+  rows and at 8,192 all-rejected rows. Where its time goes: this tree's
+  ``secp256k1_kernels.cu`` built with the product stages, then the
+  addition stages of ``run_program`` emptied (``SECP_SPLITS``), timed at
+  8,192 rows beside the full build (the ``kernel10 split:`` line), and the
+  latency of one ``fs_mul`` and one ``fs_add_sub`` in a dependent chain on
+  one warp (``kernel10 latency:``);
 - kernel 12: ``tm_miller`` at the 2-pair verify shape (one chunk) and the
   65-pair RLC shape (64 chunks), ``tm_final_exp`` on one element, each
   byte for byte against its plain version, the products against the host
@@ -82,7 +97,9 @@ its count checked) and that verifier's
 this tree); with kernel 5 or 6, the 64-commit x 150-validator blocksync
 window with host-hashed challenges through a started ``VerifyScheduler``, 3
 times (the first builds the big tables), its verdicts and bitmap checked;
-with kernel 11 or 12, ``check_pairs`` at 2 pairs on the card (median
+with kernel 10, the 3,200 rows through ``BatchVerifier._verify_secp_device``
+(host prep, copies, the kernel; median of 3 after a first call, the
+verdicts checked); with kernel 11 or 12, ``check_pairs`` at 2 pairs on the card (median
 of 5) beside the native host library's ``pairing_check`` on the same
 pairs, and the 64-QC window over the 150 validators on the device route
 (``TM_TPU_BLS_PAIRING_DEVICE=1``): its assembly (``assemble_qc``, then
@@ -90,7 +107,7 @@ each QC's signature and signer-key sums on the card, timed apart) and
 its check through a started ``VerifyScheduler``, twice, its verdicts
 checked (without ``--parent``, one turn of this tree). Prints a
 ``kernelN:`` line per kernel and build, a ``commit:``, ``generic:``,
-``blocksync:`` and ``pairing:`` line per tree, every number again as one
+``secp:``, ``blocksync:`` and ``pairing:`` line per tree, every number again as one
 JSON object on a line of its own, the ``nvidia-smi`` name and power
 limit, and last the ``{"ok": true, ...}`` object. Exits non-zero without
 CUDA or on any disagreement.
@@ -100,9 +117,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -120,15 +139,21 @@ K6_LIVE, K6_BUCKET = 9600, 16384  # the blocksync window's rows and bucket
 # kernel 5: keys checked and timed
 K5_SIZES = (16, 256)
 BLS_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "bls_kernels.cu")
+SECP_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "secp256k1_kernels.cu")
+# kernel 10: the mixed window's live rows and bucket, the distinct signed
+# rows tiled to them, a shard's rows, and the _verify_secp_device calls a turn
+K10_LIVE, K10_BUCKET, K10_SIGNED, K10_SHARD = 3200, 8192, 400, 1024
+SECP_REPS = 3
 KERNEL_NAMES = {3: ("verify_table_kernel",),
                 4: ("verify_generic_kernel", "verify_table_kernel"),
                 5: ("neg_pubkey_bigtable_kernel",),
                 6: ("verify_bigcache_kernel",),
+                10: ("secp_verify_kernel",),
                 11: ("g1_aggregate_kernel", "g2_aggregate_kernel"),
                 12: ("miller_kernel", "chunk_product_kernel", "final_exp_kernel"),
                 13: ("g1_add_kernel", "g2_add_kernel")}
 BLS_KERNELS = (11, 12, 13)  # the kernels of bls_kernels.cu
-ALL_KERNELS = (3, 4, 5, 6, 11, 12, 13)
+ALL_KERNELS = (3, 4, 5, 6, 10, 11, 12, 13)
 PAIRING_REPS = 5  # check_pairs and native pairing_check calls per turn
 # kernel 12's time split: builds of this tree's bls_kernels.cu with one part
 # of run_program (bls12_381_device.cuh) emptied, timed beside the full one
@@ -145,6 +170,40 @@ SPLITS = {
     "inversion emptied": [
         (DEVICE_H, "      fq_inv(r, w.ld(job_a(j0)));", "      r = w.ld(job_a(j0));")],
 }
+# kernel 10's time split: builds of this tree's secp256k1_kernels.cu with
+# the product or the addition stages of run_program (secp256k1_device.cuh)
+# emptied, timed beside the full one
+SECP_DEVICE_H = "secp256k1_device.cuh"
+SECP_SPLITS = {
+    "product stages emptied": [
+        (SECP_DEVICE_H, "      fs_mul(r, w.ld(job_a(j0)), w.ld(job_b(j0)));",
+         "      r = w.ld(job_a(j0));")],
+    "addition stages emptied": [
+        (SECP_DEVICE_H, "    alu_chain<st, 0>(w, l);\n", "")],
+}
+# kernel 10's latencies: one warp, each lane a chain of LATENCY_OPS dependent
+# fs_mul (v 0) or fs_add_sub (v 1) of secp256k1_device.cuh, to set a
+# product stage's and an addition stage's cost beside their arithmetic
+LATENCY_OPS = 4096
+SECP_LATENCY_CU = r"""
+#include <cuda_runtime.h>
+#include "{header}"
+using namespace sdev;
+template <int V>
+__global__ void chain(fs* io, int n) {{
+  fs x = io[threadIdx.x], y = io[32 + threadIdx.x];
+  for (int k = 0; k < n; k++) {{
+    if (V == 0) fs_mul(x, x, y);
+    else fs_add_sub(x, x, y, k & 1);
+  }}
+  io[threadIdx.x] = x;
+}}
+extern "C" int tm_secp_latency(void* io, int n, int v, void* stream) {{
+  if (v == 0) chain<0><<<1, 32, 0, (cudaStream_t)stream>>>((fs*)io, n);
+  else chain<1><<<1, 32, 0, (cudaStream_t)stream>>>((fs*)io, n);
+  return (int)cudaGetLastError();
+}}
+"""
 # kernel 11's warps a tree: builds of this tree's bls_kernels.cu with
 # kG2TreeWarps set to each, checked and timed beside the full build
 TREE_WARPS = (8, 32)
@@ -188,11 +247,12 @@ def start_build(torch_build, src: str, tag: str):
     return shared, cubin, so
 
 
-def start_variant_builds(torch_build, variants: dict, tag: str) -> dict:
-    """{variant: (nvcc process, .so path)}: this tree's bls_kernels.cu with
-    each variant's patches (file, old, new), each in a directory of its own
-    under _kbuild."""
-    csrc = os.path.join(ROOT, os.path.dirname(BLS_KERNEL))
+def start_variant_builds(torch_build, variants: dict, tag: str,
+                         kernel: str = BLS_KERNEL) -> dict:
+    """{variant: (nvcc process, .so path)}: this tree's `kernel` (a .cu
+    file of ops/csrc) with each variant's patches (file, old, new), each in
+    a directory of its own under _kbuild."""
+    csrc = os.path.join(ROOT, os.path.dirname(kernel))
     procs = {}
     for i, (name, patches) in enumerate(variants.items()):
         d = os.path.join(torch_build.BUILD_DIR, f"chip_kernels_{tag}{i}")
@@ -211,15 +271,75 @@ def start_variant_builds(torch_build, variants: dict, tag: str) -> dict:
         so = os.path.join(d, "variant.so")
         procs[name] = (subprocess.Popen(
             [torch_build._nvcc(), torch_build.ARCH, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-o", so, os.path.join(d, "bls_kernels.cu")],
+             "-Xcompiler", "-fPIC", "-o", so, os.path.join(d, os.path.basename(kernel))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     return procs
 
 
+def bind(lib):
+    """Set the argument and result types of the launchers `lib` has."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    sigs = {
+        "tm_verify_table": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+        "tm_verify_generic": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+        "tm_verify_bigcache": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+        "tm_neg_pubkey_bigtable": [vp, vp, vp, vp, i, vp],
+        "tm_secp_verify": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
+        "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
+        "tm_final_exp": [vp, vp, i, vp],
+        "tm_g1_aggregate": [vp, vp, vp, i, i, i, vp],
+        "tm_g1_add": [vp, vp, vp, i, vp],
+        "tm_g2_aggregate": [vp, vp, vp, i, i, i, vp],
+        "tm_g2_add": [vp, vp, vp, i, vp],
+    }
+    for name, args in sigs.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i
+    if hasattr(lib, "tm_error_string"):
+        lib.tm_error_string.argtypes = [i]
+        lib.tm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def start_latency_build(torch_build):
+    """(nvcc process, .so path) of SECP_LATENCY_CU over this tree's
+    secp256k1_device.cuh, in _kbuild."""
+    os.makedirs(torch_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(torch_build.BUILD_DIR, "chip_kernels_secp_latency.cu")
+    with open(src, "w") as f:
+        f.write(SECP_LATENCY_CU.format(header=os.path.join(
+            ROOT, os.path.dirname(SECP_KERNEL), SECP_DEVICE_H)))
+    so = src[:-3] + ".so"
+    return subprocess.Popen(
+        [torch_build._nvcc(), torch_build.ARCH, "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-o", so, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
+
+
+def secp_latency_ns(torch, proc, so: str, cs) -> dict:
+    """ns a dependent fs_mul and fs_add_sub on one warp (median of REPS
+    launches of LATENCY_OPS each, CUDA events)."""
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{out}")
+    lib = ctypes.CDLL(so)
+    lib.tm_secp_latency.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    io = torch.randint(0, 1 << 31, (64 * 8,), dtype=torch.int32, device="cuda")
+    ns = {}
+    for v, name in enumerate(("fs_mul", "fs_add_sub")):
+        def run():
+            assert lib.tm_secp_latency(io.data_ptr(), LATENCY_OPS, v,
+                                       torch.cuda.current_stream().cuda_stream) == 0
+        ns[name] = cs.time_cuda(torch, run, REPS) * 1e6 / LATENCY_OPS
+    return ns
+
+
 class Build:
-    """One tree's build of ed25519_kernels.cu (kernels 3, 6, 5) or
-    bls_kernels.cu (kernels 11, 12, 13), loaded: its launchers on torch
-    tensors, and each kernel's ptxas line."""
+    """One tree's build of ed25519_kernels.cu (kernels 3, 6, 5),
+    secp256k1_kernels.cu (kernel 10) or bls_kernels.cu (kernels 11, 12,
+    13), loaded: its launchers on torch tensors, and each kernel's ptxas
+    line."""
 
     def __init__(self, shared, cubin, so: str, ptxas_usage, kernels):
         outs = [proc.communicate()[0] for proc in (shared, cubin)]
@@ -231,28 +351,7 @@ class Build:
         usage = ptxas_usage(outs[1])
         self.ptxas = {n: "; ".join(f"{name}: {usage.get(name, 'not reported')}"
                                    for name in KERNEL_NAMES[n]) for n in kernels}
-        lib = ctypes.CDLL(so)
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        sigs = {
-            "tm_verify_table": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
-            "tm_verify_generic": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
-            "tm_verify_bigcache": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
-            "tm_neg_pubkey_bigtable": [vp, vp, vp, vp, i, vp],
-            "tm_miller": [vp, vp, vp, vp, vp, vp, vp, i, vp],
-            "tm_final_exp": [vp, vp, i, vp],
-            "tm_g1_aggregate": [vp, vp, vp, i, i, i, vp],
-            "tm_g1_add": [vp, vp, vp, i, vp],
-            "tm_g2_aggregate": [vp, vp, vp, i, i, i, vp],
-            "tm_g2_add": [vp, vp, vp, i, vp],
-        }
-        for name, args in sigs.items():
-            if hasattr(lib, name):
-                getattr(lib, name).argtypes = args
-                getattr(lib, name).restype = i
-        if hasattr(lib, "tm_error_string"):
-            lib.tm_error_string.argtypes = [i]
-            lib.tm_error_string.restype = ctypes.c_char_p
-        self.lib = lib
+        self.lib = bind(ctypes.CDLL(so))
 
     def _check(self, err: int) -> None:
         if err:
@@ -278,6 +377,16 @@ class Build:
             pub.data_ptr(), r.data_ptr(), s.data_ptr(), k.data_ptr(),
             s_ok.data_ptr(), base.data_ptr(), kc.data_ptr(), out.data_ptr(),
             pub.shape[0], torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
+    def secp(self, torch, qx, qy, u1, u2, r, ok_in, gtab):
+        """tm_secp_verify on ops/secp256k1_kernel's operands -> [b] bool."""
+        out = torch.empty(qx.shape[0], dtype=torch.bool, device=qx.device)
+        self._check(self.lib.tm_secp_verify(
+            qx.data_ptr(), qy.data_ptr(), u1.data_ptr(), u2.data_ptr(), r.data_ptr(),
+            ok_in.data_ptr(), gtab.data_ptr(), out.data_ptr(), qx.shape[0],
+            torch.cuda.current_stream().cuda_stream,
         ))
         return out
 
@@ -340,21 +449,15 @@ class Build:
 
 
 class VariantBuild(Build):
-    """A SPLITS, WARP_VARIANTS or LANE_VARIANTS build of bls_kernels.cu,
-    loaded: Build's BLS launchers."""
+    """A SPLITS, WARP_VARIANTS or LANE_VARIANTS build of bls_kernels.cu, or
+    a SECP_SPLITS build of secp256k1_kernels.cu, loaded: Build's
+    launchers."""
 
     def __init__(self, proc, so: str):
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{out}")
-        lib = ctypes.CDLL(so)
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.tm_miller.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, vp]
-        lib.tm_final_exp.argtypes = [vp, vp, i, vp]
-        for g in ("g1", "g2"):
-            getattr(lib, f"tm_{g}_aggregate").argtypes = [vp, vp, vp, i, i, i, vp]
-            getattr(lib, f"tm_{g}_add").argtypes = [vp, vp, vp, i, vp]
-        self.lib = lib
+        self.lib = bind(ctypes.CDLL(so))
 
 
 def _validator_set(tree: str, seed: int):
@@ -529,6 +632,54 @@ def sharded_turn(rng) -> dict:
     return out
 
 
+def secp_signed(rng) -> tuple[list, list[bool]]:
+    """K10_SIGNED seeded secp256k1 rows (pubkey, msg, sig) of 50 keys, one
+    in four invalid (a flipped s, a wrong message, another key), and each
+    row's verdict by the host oracle."""
+    from tendermint_tpu_torch.crypto import secp256k1 as host
+
+    keys = [host.PrivKey.from_secret(rng.bytes(32)) for _ in range(50)]
+    rows, want = [], []
+    for i in range(K10_SIGNED):
+        k = keys[i % 50]
+        msg = rng.bytes(40)
+        sig = k.sign(msg)
+        pub = k.public_key().data
+        if i % 8 == 1:
+            sig = sig[:60] + bytes([sig[60] ^ 4]) + sig[61:]
+        elif i % 8 == 3:
+            msg += b"!"
+        elif i % 8 == 5:
+            pub = keys[(i + 1) % 50].public_key().data
+        rows.append((pub, msg, sig))
+        want.append(host.PubKey(pub).verify(msg, sig))
+    return rows, want
+
+
+def secp_turn(rng) -> dict:
+    """Kernel 10's main path: the K10_LIVE rows (secp_signed tiled) through
+    BatchVerifier._verify_secp_device (host prep, padding to the shape
+    registry's bucket, copies, tm_secp_verify), once, then SECP_REPS timed
+    calls, each checked against the host oracle, one launch each."""
+    from tendermint_tpu_torch.crypto import batch_verifier as bv
+    from tendermint_tpu_torch.ops import secp256k1_kernel as sk
+
+    signed, want = secp_signed(rng)
+    reps = K10_LIVE // K10_SIGNED
+    items = [bv.SigItem(pub, msg, sig, "secp256k1") for pub, msg, sig in signed] * reps
+    verifier = bv.BatchVerifier()
+    n0 = sk.verify_prehashed.launches
+    assert verifier._verify_secp_device(items).tolist() == want * reps
+    ms = []
+    for _ in range(SECP_REPS):
+        t0 = time.perf_counter()
+        out = verifier._verify_secp_device(items)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        assert out.tolist() == want * reps
+    assert sk.verify_prehashed.launches - n0 == SECP_REPS + 1, "not one launch a call"
+    return {"ms": ms, "bucket": verifier._registry.bucket_for(len(items))}
+
+
 def turn(tree: str, seed: int, what: list[str]) -> dict:
     """One child's turn: the main paths of the tree at `tree`."""
     types, host, vset, by_addr, rng = _validator_set(tree, seed)
@@ -537,6 +688,8 @@ def turn(tree: str, seed: int, what: list[str]) -> dict:
         out["commit"] = commit_ms(types, vset, by_addr, rng, "chip-kernels")
     if "generic" in what:
         out["generic"] = generic_turn(types, vset, by_addr, rng, "chip-kernels")
+    if "secp" in what:
+        out["secp"] = secp_turn(rng)
     if "blocksync" in what:
         out["blocksync"] = blocksync_ms(types, host, vset, by_addr, rng, "chip-kernels")
     if "pairing" in what:
@@ -748,6 +901,81 @@ def run_kernel13(torch, cs, sums, bls_built, variants, timed_turns, report, smi)
     return out
 
 
+def run_kernel10(torch, np, cs, rng, dev, secp_built, secp_splits, timed_turns, report,
+                 smi) -> dict:
+    """Kernel 10: each build against the plain version and the JAX
+    package's rule on the crafted rows, and against the plain version and
+    the host oracle at the window's shape; timed in turns at 64, 1,024
+    (400 live) and 8,192 rows and 8,192 all-rejected rows; the split."""
+    from tendermint_tpu_torch.crypto import secp256k1 as host
+    from tendermint_tpu_torch.crypto import secp_native
+    from tendermint_tpu_torch.ops import secp256k1_kernel as sk
+
+    gtab = sk._G_WORDS.get(dev)
+
+    def operands(rows):
+        return tuple(torch.from_numpy(a).to(dev) for a in cs.secp_row_arrays(np, sk.fe, rows))
+
+    crafted, crafted_want = cs.secp_crafted_rows(host, secp_native, rng)
+    signed, signed_want = secp_signed(rng)
+    live = []
+    for pub, msg, sig in signed:
+        prep = secp_native.prep_digest_item(pub, hashlib.sha256(msg).digest(), sig)
+        live.append(((0, 0), 0, 0, 0, False) if prep is None
+                    else (prep[1], prep[2], prep[3], prep[0], True))
+    reps = K10_LIVE // K10_SIGNED
+    pad = ((0, 0), 0, 0, 0, False)
+    shard_live = K10_LIVE * K10_SHARD // K10_BUCKET
+    shapes = {
+        64: (operands(crafted), crafted_want),
+        K10_SHARD: (operands(live * (shard_live // K10_SIGNED) + live[:shard_live % K10_SIGNED]
+                             + [pad] * (K10_SHARD - shard_live)),
+                    (signed_want * reps)[:shard_live] + [False] * (K10_SHARD - shard_live)),
+        K10_BUCKET: (operands(live * reps + [pad] * (K10_BUCKET - K10_LIVE)),
+                     signed_want * reps + [False] * (K10_BUCKET - K10_LIVE)),
+    }
+    plain_ms = {}
+    for n, (ops, want) in shapes.items():
+        t0 = time.perf_counter()
+        plain = sk.verify_prehashed_plain(*ops)
+        torch.cuda.synchronize()
+        plain_ms[n] = (time.perf_counter() - t0) * 1e3
+        assert plain.cpu().tolist() == want, f"plain != the rule at {n} rows"
+        for tag, bld in secp_built.items():
+            got = bld.secp(torch, *ops, gtab)
+            torch.cuda.synchronize()
+            assert cs.max_abs_err(got, plain) == 0, f"{tag}: kernel 10 != plain at {n} rows"
+    print(f"kernel-vs-plain: kernel 10 of {sorted(secp_built)} equal to the plain version "
+          f"and the rule (the JAX package's on the crafted rows, the host oracle's on "
+          f"the signed ones) at {list(shapes)} rows (tolerance: exact); accepted "
+          f"{[sum(w) for _, w in shapes.values()]}")
+    rejected = tuple(torch.zeros_like(t) for t in shapes[K10_BUCKET][0])
+    sizes = [64, K10_SHARD, K10_BUCKET, f"{K10_BUCKET} rejected"]
+
+    def call(bld, n):
+        return bld.secp(torch, *(rejected if isinstance(n, str) else shapes[n][0]), gtab)
+
+    times = timed_turns(sizes, call, secp_built)
+    lane = [cs.secp_lane_path(r[1], r[2]) for r in live if r[4]]
+    thread = [cs.secp_fe_muls(r[1], r[2]) for r in live if r[4]]
+    report(10, "rows", times,
+           f"{K10_LIVE} live rows of {K10_BUCKET} ({K10_SIGNED} signed tiled), "
+           f"{shard_live} of {K10_SHARD}; critical path {statistics.mean(lane):.1f} "
+           f"dependent product stages a row (one thread: {statistics.mean(thread):.1f} "
+           f"dependent multiplications)", secp_built)
+    print(f"time: verify_prehashed_plain on the card, one call, ms "
+          f"{json.dumps({n: round(v, 2) for n, v in plain_ms.items()})} | {smi}")
+    split = {"full": secp_built["this"], **secp_splits}
+    split_ms = {name: cs.time_cuda(torch, lambda: call(bld, K10_BUCKET), REPS)
+                for name, bld in split.items()}
+    print(f"kernel10 split: this tree, median ms of {REPS} launches at {K10_BUCKET} rows "
+          f"({K10_LIVE} live), the full build and builds with one part of run_program "
+          f"emptied (their values wrong; each difference from the full build is that "
+          f"part's time): " + "; ".join(f"{name} {t:.4f}" for name, t in split_ms.items())
+          + f" | {smi}")
+    return {"plain_ms": plain_ms, "ms": times, "split_ms": split_ms}
+
+
 def tile_rows(torch, ops, want, live: int, total: int):
     """ops (tables, tvalid, idx, R, S, K, s_ok) of b rows tiled to `live`
     rows, then padding (idx -1, s_ok False) to `total`."""
@@ -797,11 +1025,15 @@ def main() -> int:
     if args.parent:
         trees["parent"] = os.path.abspath(args.parent)
     t0 = time.perf_counter()
-    ed_kernels = [k for k in args.kernel if k not in BLS_KERNELS]
+    ed_kernels = [k for k in args.kernel if k not in BLS_KERNELS and k != 10]
     bls_kernels = [k for k in args.kernel if k in BLS_KERNELS]
     procs = {}
     if ed_kernels:
         procs.update({tag: start_build(_build, os.path.join(root, KERNEL), tag)
+                      for tag, root in trees.items()})
+    if 10 in args.kernel:
+        procs.update({"secp_" + tag: start_build(_build, os.path.join(root, SECP_KERNEL),
+                                                 "secp_" + tag)
                       for tag, root in trees.items()})
     if bls_kernels:
         procs.update({"bls_" + tag: start_build(_build, os.path.join(root, BLS_KERNEL),
@@ -812,16 +1044,27 @@ def main() -> int:
                    if 11 in args.kernel else {})
     lane_builds = (start_variant_builds(_build, LANE_VARIANTS, "lanes")
                    if {11, 13} & set(args.kernel) else {})
-    builds = {tag: Build(*p, cs.ptxas_usage, bls_kernels if tag.startswith("bls_") else ed_kernels)
-              for tag, p in procs.items()}
+    secp_splits = (start_variant_builds(_build, SECP_SPLITS, "secpsplit", SECP_KERNEL)
+                   if 10 in args.kernel else {})
+    latency = start_latency_build(_build) if 10 in args.kernel else None
+
+    def kernels_of(tag):
+        return (bls_kernels if tag.startswith("bls_") else [10] if tag.startswith("secp_")
+                else ed_kernels)
+
+    builds = {tag: Build(*p, cs.ptxas_usage, kernels_of(tag)) for tag, p in procs.items()}
     splits = {name: VariantBuild(*p) for name, p in splits.items()}
     warp_builds = {name: VariantBuild(*p) for name, p in warp_builds.items()}
     lane_builds = {name: VariantBuild(*p) for name, p in lane_builds.items()}
-    built = {tag: b for tag, b in builds.items() if not tag.startswith("bls_")}
+    secp_splits = {name: VariantBuild(*p) for name, p in secp_splits.items()}
+    built = {tag: b for tag, b in builds.items() if not tag.startswith(("bls_", "secp_"))}
     bls_built = {tag[4:]: b for tag, b in builds.items() if tag.startswith("bls_")}
-    print(f"build: {len(builds) + len(splits) + len(warp_builds) + len(lane_builds)} "
-          f"nvcc builds of "
-          f"{' and '.join(src for src, on in ((KERNEL, ed_kernels), (BLS_KERNEL, bls_built)) if on)}"
+    secp_built = {tag[5:]: b for tag, b in builds.items() if tag.startswith("secp_")}
+    n_builds = (len(builds) + len(splits) + len(warp_builds) + len(lane_builds)
+                + len(secp_splits))
+    sources = ((KERNEL, ed_kernels), (SECP_KERNEL, secp_built), (BLS_KERNEL, bls_built))
+    print(f"build: {n_builds} nvcc builds of "
+          f"{' and '.join(src for src, on in sources if on)}"
           f" in parallel, {time.perf_counter() - t0:.1f} s | {smi}")
     order = ["parent", "this", "this", "parent"] if "parent" in trees else ["this"]
 
@@ -980,6 +1223,15 @@ def main() -> int:
         print(f"time: neg_pubkey_bigtable_plain at 256 keys {plain_ms:.2f} ms | {smi}")
         result["kernel5"] = {"plain_ms_256": plain_ms, "ms": times}
 
+    if 10 in args.kernel:
+        result["kernel10"] = run_kernel10(torch, np, cs, rng, dev, secp_built, secp_splits,
+                                          timed_turns, report, smi)
+        ns = secp_latency_ns(torch, *latency, cs)
+        result["kernel10"]["latency_ns"] = ns
+        print(f"kernel10 latency: this tree, one warp, each lane a chain of {LATENCY_OPS} "
+              f"dependent operations, median of {REPS} launches: fs_mul {ns['fs_mul']:.2f} ns, "
+              f"fs_add_sub {ns['fs_add_sub']:.2f} ns an operation | {smi}")
+
     if 12 in args.kernel:
         from tendermint_tpu_torch.crypto import bls12_381 as c
         from tendermint_tpu_torch.crypto import bls_signatures as bls
@@ -1060,9 +1312,10 @@ def main() -> int:
                                           {"g1": lane_builds, "g2": {}},
                                           timed_turns, report, smi)
 
-    if "parent" in trees or {4, 11, 12, 13} & set(args.kernel):
+    if "parent" in trees or {4, 10, 11, 12, 13} & set(args.kernel):
         what = (["commit"] if 3 in args.kernel and "parent" in trees else []) + (
             ["generic"] if 4 in args.kernel else []) + (
+            ["secp"] if 10 in args.kernel else []) + (
             ["blocksync"] if {5, 6} & set(args.kernel) and "parent" in trees else []) + (
             ["pairing"] if {11, 12} & set(args.kernel) else []) + (
             ["sharded"] if 13 in args.kernel else [])
@@ -1091,6 +1344,14 @@ def main() -> int:
                       f"prewarm_buckets(tiers=('generic',)) wall ms per turn "
                       f"{json.dumps([round(t['prewarm_ms'], 2) for t in gr])}, "
                       f"[bucket, ms] a launch {json.dumps(gr[-1]['prewarm'])} | {smi}")
+            if "secp" in what:
+                sr = [t["secp"] for t in ts]
+                print(f"secp: {tag} tree, {K10_LIVE} secp256k1 rows through "
+                      f"_verify_secp_device (host prep, padding to {sr[0]['bucket']}, "
+                      f"copies, one tm_secp_verify launch), ms per call per turn "
+                      f"{json.dumps([[round(x, 2) for x in t['ms']] for t in sr])}, median "
+                      f"per turn {json.dumps([round(statistics.median(t['ms']), 2) for t in sr])}"
+                      f" | {smi}")
             if "pairing" in what:
                 pr = [t["pairing"] for t in ts]
                 print(f"pairing: {tag} tree, check_pairs at 2 pairs on the card ms per "

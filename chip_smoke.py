@@ -120,7 +120,12 @@ Phases (any failure raises and the exit code is non-zero):
    Launch counts are read after each path; timings: both kernels (median
    of 20) at the path's shapes with their bounds, the per-height and
    window walls, the native and device routes of the 3,200 rows, the
-   merkle block by the card (``pad_messages`` apart) and by hashlib.
+   merkle block by the card (``pad_messages`` apart) and by hashlib. The
+   ``kernel10:`` line gives the secp256k1 kernel (four lanes a row) at the
+   window's 8,192 rows and at a mesh shard's 1,024 (400 live, the window's
+   share of live rows), its critical path against one thread a row
+   (``secp_lane_path``, ``secp_fe_muls``, the mean over the window's live
+   rows) and ``ptxas`` usage.
 7. The in-process consensus net (``consensus_phase``): ``NET_VALIDATORS``
    (32) validators in this process, wired with the full-mesh
    broadcast hook, each a ``ConsensusState`` over ``KVStoreApplication``
@@ -1205,6 +1210,12 @@ SHA256_SOURCE = "tendermint_tpu_torch/ops/csrc/sha256_kernels.cu"
 IMAD_PER_SECP_MUL = 21 * 4
 # field multiplications of a doubling (2M + 5S) and an addition (12M + 4S)
 FE_SECP_DBL, FE_SECP_ADD = 7, 16
+# the four-lane kernel (a row on a group of SECP_ROW_LANES lanes): dependent
+# product stages of a doubling (S_DBL) and an addition (S_HR, S_ADD_FIN) of
+# its stage programs (ops/csrc/secp256k1_programs.cuh)
+SECP_ROW_LANES = 4
+SECP_DBL_PATH, SECP_ADD_PATH = 3, 5
+SECP_SHARD_ROWS = 1024  # a shard of the mixed window's 8,192 rows over MESH_SHARDS
 # SHA-256, per 64-byte block, from ops/csrc/sha256_kernels.cu: 64 rounds of
 # ~20 32-bit operations, 48 schedule steps of ~12, 16 word loads of ~7
 SHA256_OPS_PER_BLOCK = 64 * 20 + 48 * 12 + 16 * 7
@@ -1290,21 +1301,34 @@ def secp_row_arrays(np, fe, rows):
     return qx, qy, u1, u2, rb, ok
 
 
-def secp_fe_muls(u1: int, u2: int) -> int:
-    """Field multiplications of tm_secp_verify for one live row with these
-    scalars: the table of Q (7 doublings, 7 additions), then the ladder's
-    doublings once the accumulator has left the identity and its
+def _secp_row_count(u1: int, u2: int, dbl: int, add: int, check: int) -> int:
+    """A count of one live row with these scalars, `dbl` a doubling and
+    `add` an addition: the table of Q (7 doublings, 7 additions), then the
+    ladder's doublings once the accumulator has left the identity and its
     additions of a nonzero digit onto a non-identity accumulator (the
-    others return early), then the Z^2 check."""
-    muls, started = 7 * FE_SECP_DBL + 7 * FE_SECP_ADD, False
+    others return early), then `check` for the Z^2 check."""
+    n, started = 7 * dbl + 7 * add, False
     for k in range(64):
         if started:
-            muls += 4 * FE_SECP_DBL
+            n += 4 * dbl
         for s in (u2, u1):
             if (s >> (4 * (63 - k))) & 15:
-                muls += FE_SECP_ADD if started else 0
+                n += add if started else 0
                 started = True
-    return muls + 3
+    return n + check
+
+
+def secp_fe_muls(u1: int, u2: int) -> int:
+    """Field multiplications of the one-thread row (the bound's count; on
+    one thread they are also its critical path): Z^2 and the two
+    compares."""
+    return _secp_row_count(u1, u2, FE_SECP_DBL, FE_SECP_ADD, 3)
+
+
+def secp_lane_path(u1: int, u2: int) -> int:
+    """Dependent product stages of tm_secp_verify's four-lane row: Z^2,
+    then r Z^2 and (r + n) Z^2 in one stage."""
+    return _secp_row_count(u1, u2, SECP_DBL_PATH, SECP_ADD_PATH, 2)
 
 
 def run_mixed_window(verifier, vset, chain_id, entries, reps, secp_native):
@@ -1368,8 +1392,9 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
     versions, then the mixed-key commit path (a 150-validator set, every
     third key secp256k1, equal power) per height and over a 64-commit
     blocksync window, the 4,002-leaf L2 block data hash and
-    merkle_root_pow2 on the card. Returns the two kernels' rows and the
-    secp256k1 kernel's operands at the window's shape (numpy)."""
+    merkle_root_pow2 on the card. Returns the two kernels' rows, the
+    secp256k1 kernel's operands at the window's shape (numpy) and its
+    kernel10 figures (times at the window's and a shard's shape, paths)."""
     from tendermint_tpu_torch.crypto import batch_verifier as bv
     from tendermint_tpu_torch.crypto import ed25519 as ed_host
     from tendermint_tpu_torch.crypto import merkle
@@ -1576,6 +1601,8 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
             it.pubkey, hashlib.sha256(it.msg).digest(), it.sig)
         w_rows.append((pt, a, c, r, True))
     live_muls = sum(secp_fe_muls(a, c) for _, a, c, _, _ in w_rows)
+    lane_path = sum(secp_lane_path(a, c) for _, a, c, _, _ in w_rows) / len(w_rows)
+    n_live = len(w_rows)
     w_rows += [((0, 0), 0, 0, 0, False)] * (b_secp - len(w_rows))
     w_arrays = secp_row_arrays(np, sk.fe, w_rows)
     w_args = tuple(D(a) for a in w_arrays)
@@ -1591,6 +1618,14 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
     route_s = time.perf_counter() - t0
     print(f"kernel-vs-plain: secp_verify_prehashed at the window's shape ({b_secp} rows, "
           f"{len(secp_items)} live) equals its plain version (tolerance: exact)")
+    # a mesh shard's shape: 1,024 rows, the window's share of them live
+    shard_live = n_live * SECP_SHARD_ROWS // b_secp
+    shard_idx = np.r_[0:shard_live, b_secp - (SECP_SHARD_ROWS - shard_live):b_secp]
+    shard_args = tuple(D(a[shard_idx]) for a in w_arrays)
+    assert sk.verify_prehashed(*shard_args).tolist() == got.cpu().numpy()[shard_idx].tolist()
+    k10 = {"rows": b_secp, "live": n_live, "shard_live": shard_live,
+           "shard_ms": time_cuda(torch, lambda: sk.verify_prehashed(*shard_args), 20),
+           "lane_path": lane_path, "thread_path": live_muls / n_live}
 
     leaf_d, leaf_cnt_d = D(leaf_buf), D(leaf_cnt)
     work = {
@@ -1649,7 +1684,8 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
     print(f"time: L2 block data hash ({len(leaves)} leaves): card {card_s * 1e3:.2f} ms "
           f"(pad_messages {pad_s * 1e3:.2f} ms, the rest {(card_s - pad_s) * 1e3:.2f} ms: "
           f"copies, tm_sha256, the host fold); hashlib {hashlib_s * 1e3:.2f} ms | {smi}")
-    return out_rows, w_arrays
+    k10["ms"] = next(r["ms"] for r in out_rows if r["name"] == "secp_verify_prehashed")
+    return out_rows, w_arrays, k10
 
 
 # --- the in-process consensus net --------------------------------------------
@@ -2816,9 +2852,17 @@ def main() -> int:
           + f" | {smi}")
 
     # --- 6. the mixed-key path and the L2 block's merkle leaves ----------
-    mix_rows, secp_arrays = mixed_phase(torch, np, rng, dev, smi, ops, types,
-                                          vkeys, chain_id, args.heights)
+    mix_rows, secp_arrays, k10 = mixed_phase(torch, np, rng, dev, smi, ops, types,
+                                               vkeys, chain_id, args.heights)
     rows += mix_rows
+    print(f"kernel10: secp_verify_kernel, a group of {SECP_ROW_LANES} lanes a row, median "
+          f"ms of 20 launches at the window's {k10['rows']} rows ({k10['live']} live) "
+          f"{k10['ms']:.4f} and a mesh shard's {SECP_SHARD_ROWS} rows "
+          f"({k10['shard_live']} live) {k10['shard_ms']:.4f}; critical path "
+          f"{k10['lane_path']:.1f} dependent product stages a row (one thread a row: "
+          f"{k10['thread_path']:.1f} dependent field multiplications; means over the "
+          f"window's live rows); ptxas: "
+          f"{usages.get('secp_verify_kernel', 'not reported')} | {smi}")
 
     # --- 7. the in-process consensus net -------------------------------------
     net, net_errs = consensus_phase(torch, ops, host, smi, args.seed,

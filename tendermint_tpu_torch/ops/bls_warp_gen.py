@@ -690,9 +690,10 @@ def _srcs(key) -> tuple:
 
 
 def compile_program(name: str, build, temp_base: int,
-                    jobs_per_stage: int = JOBS_PER_STAGE) -> dict:
-    """Graph -> stages of at most `jobs_per_stage` jobs with slots.
-    Returns {"stages": [(kind,
+                    jobs_per_stage: int = JOBS_PER_STAGE, reuse_slots: bool = True) -> dict:
+    """Graph -> stages of at most `jobs_per_stage` jobs with slots (a
+    temporary's slot is reused once it is dead unless `reuse_slots` is
+    False). Returns {"stages": [(kind,
     [job words])], "temps": highest slot + 1, "muls": n, "mul_stages": n,
     "alu_stages": n, "path": dependent multiplications}."""
     g = Graph()
@@ -787,7 +788,7 @@ def compile_program(name: str, build, temp_base: int,
             if n in slot_of:
                 continue
             pick = None
-            for i, (s, after) in enumerate(free):
+            for i, (s, after) in enumerate(free if reuse_slots else ()):
                 if after < st:
                     pick = i
                     break
@@ -953,36 +954,44 @@ def _decode(word: int) -> tuple[int, int, int, int]:
     return word & 7, (word >> 3) & 511, (word >> 12) & 1023, (word >> 22) & 1023
 
 
-def simulate(prog: dict, slots: dict[int, int], flags: tuple[bool, bool] = (True, True)):
-    """Run one compiled program on plain field values (Montgomery form is a
-    ring isomorphism, so the card's limbs are these values times R), in
-    place on `slots`. Raises if a stage reads or writes a slot that
-    another lane of the same stage writes."""
+def simulate(prog: dict, slots: dict[int, int], flags: tuple[bool, bool] = (True, True),
+             p: int = P, lanes: int = 32):
+    """Run one compiled program on plain field values mod `p` (BLS12-381's
+    by default; Montgomery form is a ring isomorphism, so the card's limbs
+    are these values times R), in place on `slots`, job i of a stage on
+    lane i % `lanes`, a lane's jobs in order (a job word 0 is none). Raises
+    if a stage reads or writes a slot that another lane of the same stage
+    writes."""
     for kind, js in prog["stages"]:
         lane_of = {}
         for i, w in enumerate(js):
-            lane_of.setdefault(i % 32, []).append(w)
+            if w:
+                lane_of.setdefault(i % lanes, []).append(w)
         writes, reads = {}, {}
         results = []
         for lane, ws in lane_of.items():
+            own = {}  # the lane's writes so far in the stage
             for w in ws:
                 op, d, a, b = _decode(w)
                 srcs = (a,) if op == OP_INV else (a, b)
                 for s in srcs:
                     reads.setdefault(s, set()).add(lane)
-                assert d not in writes, f"{prog['name']}: slot {d} written twice in a stage"
+                assert writes.get(d, lane) == lane, (
+                    f"{prog['name']}: slot {d} written by two lanes in a stage")
                 writes[d] = lane
-                x, y = slots[a], slots.get(b, 0)
+                x = own[a] if a in own else slots[a]
+                y = own[b] if b in own else slots.get(b, 0)
                 if op == OP_MUL:
-                    r = x * y % P
+                    r = x * y % p
                 elif op == OP_ADD:
-                    r = (x + y) % P
+                    r = (x + y) % p
                 elif op == OP_SUB:
-                    r = (x - y) % P
+                    r = (x - y) % p
                 elif op in (OP_SEL0, OP_SEL1):
                     r = x if flags[op - OP_SEL0] else y
                 else:
-                    r = pow(x, P - 2, P)
+                    r = pow(x, p - 2, p)
+                own[d] = r
                 results.append((d, r))
         for d, lane in writes.items():
             assert reads.get(d, {lane}) <= {lane}, (
