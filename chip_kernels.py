@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """The redesigned kernels alone on one NVIDIA GPU, each against its plain
 PyTorch version and against the same kernel of another tree of this
-repository: the four-lane ed25519 kernels 3 (``tm_verify_table``, the
+repository: the four-lane ed25519 kernels 2 (``tm_neg_pubkey_table``, the
+small-tier table build), 3 (``tm_verify_table``, the
 small-tier verify), 4 (``tm_verify_generic``, the cache-overflow verify), 6
 (``tm_verify_bigcache``, the big-tier verify) and 5
-(``tm_neg_pubkey_bigtable``, the big-tier table build), and the warp-wide
+(``tm_neg_pubkey_bigtable``, the big-tier table build), kernel 8's hash
+(``tm_challenge``, a lane a row, warp-staged blocks), and the warp-wide
 BLS12-381 kernels: the G2 key sums, kernel 11 (``tm_g2_aggregate``, row
 11b) and kernel 13's G2 half (``tm_g2_add`` and the sharded sum), and the
 pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``); and the four-lane
 secp256k1 verify, kernel 10 (``tm_secp_verify``).
 
-    python3 chip_kernels.py [--kernel 3 4 5 6 10 11 12 13] [--parent DIR] [--seed N]
+    python3 chip_kernels.py [--kernel 2 3 4 5 6 8 10 11 12 13] [--parent DIR] [--seed N]
 
-Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 3, 4,
-5, 6), ``secp256k1_kernels.cu`` (kernel 10) and ``bls_kernels.cu``
+Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 2, 3, 4,
+5, 6), ``sha512_kernels.cu`` (kernel 8), ``secp256k1_kernels.cu`` (kernel 10) and ``bls_kernels.cu``
 (kernels 11, 12, 13) with ``nvcc`` into plain
 shared libraries (no PyTorch headers) under ``tendermint_tpu_torch/_kbuild/``,
 with ``-Xptxas -v`` for each kernel's registers, stack and spills (the
@@ -22,10 +24,32 @@ whole report beside the library, as ``chip_kernels_<tree>.ptxas.txt``,
 ``chip_kernels_bls_<tree>.ptxas.txt``); with ``--parent``, the same files
 of the tree at DIR too (e.g. the parent commit unpacked with ``git
 archive``), all nvcc runs started together. Then, for each kernel asked
-for (all eight by default), every build is held against the plain version
+for (all ten by default), every build is held against the plain version
 on the card and the host oracle, and timed (median of 20 launches between
 CUDA events) in turns parent, this tree, this tree, parent, so that both
 are measured on one card in one call:
+
+- kernel 2 at 1, 23, 150 and 256 keys (``K2_SIZES``: a valid key, then the
+  adversarial keys and random bytes, then valid keys), its tables byte
+  for byte against the plain version and its validity against the host
+  oracle; timed at those sizes, also queued (``time_queued``:
+  20 launches back to back behind a spin kernel, the card's time without
+  the launch latency, the ``kernel2 queued:`` line);
+- kernel 8's hash at the blocksync window's 16,384 rows (9,600 live
+  rows of sign-bytes-sized messages, 2 blocks each, then padding), the
+  smoke's 2,048 ragged rows (0-1,000-byte messages, 1-9 blocks) and their
+  first 1,000 (a partial last warp), against the plain version and
+  hashlib with % L; timed there per launch and queued. Where its time
+  goes: each tree's ``sha512_kernels.cu`` also built with the rounds
+  emptied (the loads alone), with the global loads emptied (the rounds
+  alone) and with the reduction emptied (``SHA_SPLITS``; a tree whose
+  source they do not fit stops the call), queued at 16,384 and 2,048 rows
+  (``kernel8 split:``), and each build's ``cuobjdump -sass`` counts of
+  ``challenge_kernel``: the total, some opcodes, a round's (the full
+  build's less the rounds-emptied build's, over 80) and the reduction's
+  (the full build's less the reduce-emptied build's; ``kernel8 sass:``),
+  from which ``chip_smoke.py``'s ``SHA512_OPS_PER_BLOCK`` and
+  ``SC_REDUCE_OPS`` are taken;
 
 - kernel 3 at b = 1, 23, 150 and 256 rows (valid rows, wrong messages,
   flipped signature bits, s >= L, invalid keys, ``idx = -1`` and ``idx``
@@ -88,9 +112,12 @@ are measured on one card in one call:
 
 With ``--parent``, a child process per turn (``--turn-tree ROOT``)
 imports that tree's package, builds its kernels and times its main
-paths on the card as ``chip_smoke.py`` does: with kernel 3,
+paths on the card as ``chip_smoke.py`` does: with kernel 2 or 3,
 ``ValidatorSet.verify_commit`` of 8 commits of a seeded 150-validator
-set; with kernel 4, 32 commits through
+set (after 2 commits of another set, so the first timed height holds the
+key tables' build and nothing of the process's set-up); with kernel 8,
+the 64 x 150 blocksync window hashed on the card (``blocksync_dev:``,
+with its host share); with kernel 4, 32 commits through
 ``BatchVerifier(table_cache_capacity=64)`` (one generic launch a height,
 its count checked) and that verifier's
 ``prewarm_buckets(tiers=("generic",))`` (without ``--parent``, one turn of
@@ -121,6 +148,7 @@ import hashlib
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -130,6 +158,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "ed25519_kernels.cu")
 REPS = 20  # launches per median, as chip_smoke.py times its kernels
 COMMIT_HEIGHTS = 8  # commits a tree verifies in each commit turn
+WARM_HEIGHTS = 2  # commits of another validator set verified before them
 GENERIC_HEIGHTS = 32  # commits a tree verifies on the generic kernel a turn
 WINDOW_REPS = 3  # blocksync windows a tree verifies in each turn
 N_VALS = 150
@@ -138,22 +167,53 @@ K6_SIZES = ((1, 0), (23, 2), (2048, 64))
 K6_LIVE, K6_BUCKET = 9600, 16384  # the blocksync window's rows and bucket
 # kernel 5: keys checked and timed
 K5_SIZES = (16, 256)
+# kernel 2: keys checked and timed (one group; a partial last warp; the
+# commit path's 150 validators; the smoke's 256 keys)
+K2_SIZES = (1, 23, 150, 256)
+SHA_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "sha512_kernels.cu")
+# kernel 8: the blocksync window's live rows (R || A || sign bytes of
+# K8_MSG_LEN bytes, 2 blocks a row) and bucket (padding rows, 1 block), the
+# smoke's ragged rows (0-1,000-byte messages, 1-9 blocks) and a batch of
+# them that leaves a partial last warp
+K8_LIVE, K8_BUCKET, K8_RAGGED, K8_PARTIAL = 9600, 16384, 2048, 1000
+K8_MSG_LEN = (113, 118)
+# kernel 8's time split: sha512_device.cuh with the rounds emptied (the
+# loads alone: each block's words folded into the state), the global loads
+# emptied (the rounds on words made in registers) or the reduction emptied
+# (k the digest's first words), timed beside the full build (their values
+# wrong); a variant is the list of patches it makes
+SHA_DEVICE_H = "sha512_device.cuh"
+SHA_SPLITS = {
+    "rounds emptied": [(SHA_DEVICE_H, "  for (int i = 0; i < 80; i++) {\n    if (i >= 16) {",
+                        "  for (int i = 0; i < 16; i++) {\n    a ^= w[i];\n    continue;"
+                        "\n    if (i >= 16) {")],
+    "loads emptied": [(SHA_DEVICE_H, "      r[q] = reinterpret_cast<const w128*>(\n"
+                       "          msg + ((size_t)(row0 + row) * nblk + blk) * 128)[lane & 7];",
+                       "      r[q].x = row0 + row;\n      r[q].y = blk;\n      r[q].z = lane;\n"
+                       "      r[q].w = q;")],
+    "reduce emptied": [(SHA_DEVICE_H, "  sc_reduce(k, dig);",
+                        "  for (int j = 0; j < 4; j++) k[j] = st[j];")],
+}
+# opcodes counted in kernel 8's SASS
+SASS_OPS = ("SHF", "PRMT", "LOP3", "IADD3", "IMAD", "LDG", "LDS", "STS", "SHFL", "REDUX")
 BLS_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "bls_kernels.cu")
 SECP_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "secp256k1_kernels.cu")
 # kernel 10: the mixed window's live rows and bucket, the distinct signed
 # rows tiled to them, a shard's rows, and the _verify_secp_device calls a turn
 K10_LIVE, K10_BUCKET, K10_SIGNED, K10_SHARD = 3200, 8192, 400, 1024
 SECP_REPS = 3
-KERNEL_NAMES = {3: ("verify_table_kernel",),
+KERNEL_NAMES = {2: ("neg_pubkey_table_kernel",),
+                3: ("verify_table_kernel",),
                 4: ("verify_generic_kernel", "verify_table_kernel"),
                 5: ("neg_pubkey_bigtable_kernel",),
                 6: ("verify_bigcache_kernel",),
+                8: ("challenge_kernel",),
                 10: ("secp_verify_kernel",),
                 11: ("g1_aggregate_kernel", "g2_aggregate_kernel"),
                 12: ("miller_kernel", "chunk_product_kernel", "final_exp_kernel"),
                 13: ("g1_add_kernel", "g2_add_kernel")}
 BLS_KERNELS = (11, 12, 13)  # the kernels of bls_kernels.cu
-ALL_KERNELS = (3, 4, 5, 6, 10, 11, 12, 13)
+ALL_KERNELS = (2, 3, 4, 5, 6, 8, 10, 11, 12, 13)
 PAIRING_REPS = 5  # check_pairs and native pairing_check calls per turn
 # kernel 12's time split: builds of this tree's bls_kernels.cu with one part
 # of run_program (bls12_381_device.cuh) emptied, timed beside the full one
@@ -248,11 +308,11 @@ def start_build(torch_build, src: str, tag: str):
 
 
 def start_variant_builds(torch_build, variants: dict, tag: str,
-                         kernel: str = BLS_KERNEL) -> dict:
-    """{variant: (nvcc process, .so path)}: this tree's `kernel` (a .cu
-    file of ops/csrc) with each variant's patches (file, old, new), each in
-    a directory of its own under _kbuild."""
-    csrc = os.path.join(ROOT, os.path.dirname(kernel))
+                         kernel: str = BLS_KERNEL, root: str = ROOT) -> dict:
+    """{variant: (nvcc process, .so path)}: the `kernel` (a .cu file of
+    ops/csrc) of the tree at `root` with each variant's patches (file, old,
+    new), each in a directory of its own under _kbuild."""
+    csrc = os.path.join(root, os.path.dirname(kernel))
     procs = {}
     for i, (name, patches) in enumerate(variants.items()):
         d = os.path.join(torch_build.BUILD_DIR, f"chip_kernels_{tag}{i}")
@@ -276,10 +336,47 @@ def start_variant_builds(torch_build, variants: dict, tag: str,
     return procs
 
 
+def tree_patches(root: str, patches: list) -> list:
+    """A SHA_SPLITS variant's patches, checked to fit the tree at `root`:
+    each old text once in its file."""
+    csrc = os.path.join(root, os.path.dirname(SHA_KERNEL))
+    for f, old, _ in patches:
+        path = os.path.join(csrc, f)
+        if not os.path.exists(path) or open(path).read().count(old) != 1:
+            raise RuntimeError(f"no split patch fits {f} of the tree at {root}")
+    return patches
+
+
+def sass_counts(torch_build, path: str, kernel: str) -> dict:
+    """Instructions of `kernel` in the SASS of a cubin or shared library
+    (cuobjdump -sass): the total and the SASS_OPS opcodes."""
+    cuobjdump = os.path.join(os.path.dirname(torch_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", path], check=True,
+                         capture_output=True, text=True).stdout
+    cs = chip_smoke()
+    counts: dict = {}
+    current = None
+    for ln in out.splitlines():
+        if "Function : " in ln:
+            current = cs.kernel_name(ln.split("Function : ")[1].strip())
+            continue
+        if current != kernel:
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if m:
+            op = m.group(1).split(".")[0]
+            counts["total"] = counts.get("total", 0) + 1
+            if op in SASS_OPS:
+                counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
 def bind(lib):
     """Set the argument and result types of the launchers `lib` has."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     sigs = {
+        "tm_neg_pubkey_table": [vp, vp, vp, vp, i, vp],
+        "tm_challenge": [vp, i, vp, vp, i, vp],
         "tm_verify_table": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
         "tm_verify_generic": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
         "tm_verify_bigcache": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
@@ -348,6 +445,7 @@ class Build:
                 raise RuntimeError(f"nvcc failed:\n{out}")
         with open(so.replace(".so", ".ptxas.txt"), "w") as f:
             f.write(outs[1])
+        self.so, self.cubin = so, so.replace(".so", ".cubin")
         usage = ptxas_usage(outs[1])
         self.ptxas = {n: "; ".join(f"{name}: {usage.get(name, 'not reported')}"
                                    for name in KERNEL_NAMES[n]) for n in kernels}
@@ -387,6 +485,28 @@ class Build:
             qx.data_ptr(), qy.data_ptr(), u1.data_ptr(), u2.data_ptr(), r.data_ptr(),
             ok_in.data_ptr(), gtab.data_ptr(), out.data_ptr(), qx.shape[0],
             torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
+    def table(self, torch, pub, kc):
+        """tm_neg_pubkey_table -> (tables [n, 16, 4, 32], valid [n])."""
+        n = pub.shape[0]
+        tables = torch.empty((n, 16, 4, 32), dtype=torch.uint8, device=pub.device)
+        valid = torch.empty(n, dtype=torch.bool, device=pub.device)
+        self._check(self.lib.tm_neg_pubkey_table(
+            pub.data_ptr(), tables.data_ptr(), valid.data_ptr(), kc.data_ptr(), n,
+            torch.cuda.current_stream().cuda_stream,
+        ))
+        return tables, valid
+
+    def challenge(self, torch, buf, cnt):
+        """tm_challenge on [b, nblk * 128] u8 (16-byte aligned) and [b]
+        int32 -> [b, 32] canonical k."""
+        assert buf.data_ptr() % 16 == 0
+        out = torch.empty((buf.shape[0], 32), dtype=torch.uint8, device=buf.device)
+        self._check(self.lib.tm_challenge(
+            buf.data_ptr(), buf.shape[1] // 128, cnt.data_ptr(), out.data_ptr(),
+            buf.shape[0], torch.cuda.current_stream().cuda_stream,
         ))
         return out
 
@@ -449,14 +569,15 @@ class Build:
 
 
 class VariantBuild(Build):
-    """A SPLITS, WARP_VARIANTS or LANE_VARIANTS build of bls_kernels.cu, or
-    a SECP_SPLITS build of secp256k1_kernels.cu, loaded: Build's
-    launchers."""
+    """A SPLITS, WARP_VARIANTS or LANE_VARIANTS build of bls_kernels.cu, a
+    SECP_SPLITS build of secp256k1_kernels.cu or a SHA_SPLITS build of
+    sha512_kernels.cu, loaded: Build's launchers."""
 
     def __init__(self, proc, so: str):
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{out}")
+        self.so = so
         self.lib = bind(ctypes.CDLL(so))
 
 
@@ -527,10 +648,13 @@ def generic_turn(types, vset, by_addr, rng, chain_id: str) -> dict:
             "prewarm": [[e["bucket"], e["seconds"] * 1e3] for e in entries]}
 
 
-def blocksync_ms(types, host, vset, by_addr, rng, chain_id: str) -> dict:
-    """The 64-commit window through a started VerifyScheduler, host-hashed,
-    WINDOW_REPS times on a fresh BatchVerifier, checked as chip_smoke.py
-    checks it: wall ms and device-round ms per window."""
+def blocksync_ms(types, host, vset, by_addr, rng, chain_id: str,
+                 device_hash: bool = False) -> dict:
+    """The 64-commit window through a started VerifyScheduler, WINDOW_REPS
+    times on a fresh BatchVerifier, host-hashed (or hashed on the card:
+    device_challenge_min=2048, the smoke's device_hash path), checked as
+    chip_smoke.py checks it: wall ms, device-round ms and the host share
+    (the wall outside the device round) per window."""
     from tendermint_tpu_torch.crypto import batch_verifier as bv
     from tendermint_tpu_torch.crypto.shape_registry import ShapeRegistry
 
@@ -539,14 +663,18 @@ def blocksync_ms(types, host, vset, by_addr, rng, chain_id: str) -> dict:
     entries, tampered = cs.signed_window(host, types, vset, by_addr, chain_id,
                                          cs.WINDOW, bad, rng)
     os.environ.pop("TM_TPU_MXU_GATHER", None)
-    verifier = bv.BatchVerifier(shape_registry=ShapeRegistry())
+    verifier = bv.BatchVerifier(shape_registry=ShapeRegistry(),
+                                device_challenge_min=2048 if device_hash else None)
     assert verifier.device.type == "cuda"
     verdicts, walls, _, bitmap, items, ledger = cs.run_window(
         verifier, vset, chain_id, entries, WINDOW_REPS, "blocksync")
     cs.check_window(host, verdicts, bitmap, items, ledger, cs.WINDOW, bad,
                     tampered, N_VALS, rng, "blocksync")
+    rounds = ledger[:WINDOW_REPS]
     return {"wall_ms": [w * 1e3 for w in walls],
-            "device_ms": [e["device_s"] * 1e3 for e in ledger[:WINDOW_REPS]]}
+            "device_ms": [e["device_s"] * 1e3 for e in rounds],
+            "host_share": [(w - e["queue_wait_s"] - e["device_s"] + e["host_prep_s"]) / w
+                           for w, e in zip(walls, rounds)]}
 
 
 def pairing_turn(types, host, vset, by_addr, rng, chain_id: str) -> dict:
@@ -681,10 +809,15 @@ def secp_turn(rng) -> dict:
 
 
 def turn(tree: str, seed: int, what: list[str]) -> dict:
-    """One child's turn: the main paths of the tree at `tree`."""
+    """One child's turn: the main paths of the tree at `tree`. The commit
+    path first verifies WARM_HEIGHTS commits of a set of other keys, so
+    the first timed height holds the key tables' build and not the
+    kernels' compile, the card's set-up or the base tables."""
     types, host, vset, by_addr, rng = _validator_set(tree, seed)
     out = {}
     if "commit" in what:
+        warm = _validator_set(tree, seed + 1)
+        commit_ms(warm[0], warm[2], warm[3], warm[4], "chip-kernels", heights=WARM_HEIGHTS)
         out["commit"] = commit_ms(types, vset, by_addr, rng, "chip-kernels")
     if "generic" in what:
         out["generic"] = generic_turn(types, vset, by_addr, rng, "chip-kernels")
@@ -692,6 +825,13 @@ def turn(tree: str, seed: int, what: list[str]) -> dict:
         out["secp"] = secp_turn(rng)
     if "blocksync" in what:
         out["blocksync"] = blocksync_ms(types, host, vset, by_addr, rng, "chip-kernels")
+    if "blocksync_dev" in what:
+        from tendermint_tpu_torch.ops import sha512
+
+        n0 = sha512.challenge_batch.launches
+        out["blocksync_dev"] = blocksync_ms(types, host, vset, by_addr, rng,
+                                            "chip-kernels", device_hash=True)
+        assert sha512.challenge_batch.launches - n0 >= WINDOW_REPS, "not hashed on the card"
     if "pairing" in what:
         out["pairing"] = pairing_turn(types, host, vset, by_addr, rng, "chip-kernels")
     if "sharded" in what:
@@ -901,6 +1041,162 @@ def run_kernel13(torch, cs, sums, bls_built, variants, timed_turns, report, smi)
     return out
 
 
+# cycles of the spin kernel that keeps the card busy while time_queued's
+# calls are enqueued (~10 ms at the H100's 1.98 GHz boost clock)
+SPIN_CYCLES = 20_000_000
+
+
+def time_queued(torch, fn, reps: int) -> float:
+    """ms a call of `reps` calls queued back to back behind a spin kernel,
+    between two CUDA events: the card's time a call without the host's
+    launch latency, which chip_smoke.time_cuda's one call between two
+    events holds (tens of microseconds, the floor of a short kernel's
+    time there)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def report_queued(kernel: int, what: str, times, builds, smi: str) -> None:
+    for tag in builds:
+        print(f"kernel{kernel} queued: {tag} tree, ms a launch of {REPS} queued back to "
+              f"back behind a spin kernel at {what} {json.dumps(times[tag])} (one list "
+              f"entry per turn; the card's time without the launch latency) | {smi}")
+
+
+def run_kernel2(torch, cs, host, eb, pubs, pub_d, kc, built, timed_turns, report,
+                smi) -> dict:
+    """Kernel 2: each build's tables byte for byte against the plain version
+    and its validity against the plain version and the host oracle at
+    K2_SIZES keys (a valid key first, then the adversarial keys and random
+    bytes, about half of them with no square root, then valid keys; 256
+    all of them), timed in turns at those sizes."""
+    order = [0] + list(range(200, len(pubs))) + list(range(1, 200))
+    key_sets = {n: pub_d[torch.tensor(order[:n], device=pub_d.device)] for n in K2_SIZES}
+    want_valid = [host.point_decompress(p) is not None for p in pubs]
+    checks = []
+    for n, pk in key_sets.items():
+        plain_t, plain_v = eb.neg_pubkey_table_plain(pk)
+        want = [want_valid[i] for i in order[:n]]
+        assert plain_v.cpu().tolist() == want, f"plain validity != host oracle at {n} keys"
+        for tag, bld in built.items():
+            got_t, got_v = bld.table(torch, pk, kc)
+            torch.cuda.synchronize()
+            assert torch.equal(got_t, plain_t), f"{tag}: kernel 2 != plain at {n} keys"
+            assert torch.equal(got_v, plain_v), f"{tag}: kernel 2 validity at {n} keys"
+        checks.append({"keys": n, "valid": sum(want)})
+    print(f"kernel-vs-plain: kernel 2 of {sorted(built)} equal to the plain version "
+          f"byte for byte and its validity to the host oracle at {list(key_sets)} keys "
+          f"(adversarial keys and keys with no square root included; tolerance: "
+          f"exact) {json.dumps(checks)}")
+    plain_ms = cs.time_cuda(torch, lambda: eb.neg_pubkey_table_plain(pub_d), 3)
+    times = timed_turns(K2_SIZES, lambda bld, n: bld.table(torch, key_sets[n], kc))
+    report(2, "keys", times,
+           f"critical path {cs.FE_TABLE_PATH} (one thread: "
+           f"{cs.FE_DECOMPRESS + cs.FE_TABLE_BUILD})")
+    queued = timed_turns(K2_SIZES, lambda bld, n: bld.table(torch, key_sets[n], kc),
+                         timer=time_queued)
+    report_queued(2, "keys", queued, built, smi)
+    print(f"time: neg_pubkey_table_plain at 256 keys {plain_ms:.2f} ms | {smi}")
+    return {"checks": checks, "plain_ms_256": plain_ms, "ms": times, "queued_ms": queued}
+
+
+def k8_rows(np, rng):
+    """Kernel 8's shapes as R || A || M rows: the blocksync window's
+    (K8_LIVE rows of sign-bytes-sized messages, then empty padding rows to
+    K8_BUCKET, as batch_verifier pads), the smoke's K8_RAGGED rows of
+    0-1,000-byte messages, and the first K8_PARTIAL of those."""
+    window = [rng.bytes(64) + rng.bytes(int(n))
+              for n in rng.integers(K8_MSG_LEN[0], K8_MSG_LEN[1] + 1, K8_LIVE)]
+    window += [b""] * (K8_BUCKET - K8_LIVE)
+    ragged = [rng.bytes(64) + rng.bytes(int(n)) for n in rng.integers(0, 1001, K8_RAGGED)]
+    return {K8_BUCKET: window, K8_RAGGED: ragged, K8_PARTIAL: ragged[:K8_PARTIAL]}
+
+
+def run_kernel8(torch, np, cs, rng, dev, torch_build, sha_built, sha_splits, timed_turns,
+                report, smi) -> dict:
+    """Kernel 8's hash: each build against the plain version and hashlib
+    with % L at k8_rows' shapes, timed in turns at them; each tree's split
+    (SHA_SPLITS) timed beside its full build in the same order of turns;
+    and each build's SASS: instructions of challenge_kernel, a round's
+    (the full build's less the rounds-emptied build's, over 80) and the
+    reduction's (the full build's less the reduce-emptied build's)."""
+    from tendermint_tpu_torch.crypto import ed25519 as host
+    from tendermint_tpu_torch.ops import sha512
+
+    shapes = {}
+    for n, rows in k8_rows(np, rng).items():
+        buf, cnt = sha512.pad_messages(rows)
+        want = [list((int.from_bytes(hashlib.sha512(r).digest(), "little") % host.L)
+                     .to_bytes(32, "little")) for r in rows]
+        shapes[n] = (torch.from_numpy(buf).to(dev), torch.from_numpy(cnt).to(dev),
+                     torch.tensor(want, dtype=torch.uint8, device=dev), int(cnt.sum()))
+    for n, (buf, cnt, want, _) in shapes.items():
+        plain = sha512.challenge_batch_plain(buf, cnt)
+        assert torch.equal(plain, want), f"plain != hashlib % L at {n} rows"
+        for tag, bld in sha_built.items():
+            got = bld.challenge(torch, buf, cnt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{tag}: kernel 8 != plain at {n} rows"
+    print(f"kernel-vs-plain: kernel 8's hash of {sorted(sha_built)} equal to the plain "
+          f"version and hashlib + % L at {list(shapes)} rows (the window's "
+          f"{K8_LIVE} live rows padded, the ragged rows, a partial last warp; "
+          f"tolerance: exact); blocks "
+          f"{json.dumps({n: v[3] for n, v in shapes.items()})} of nblk "
+          f"{json.dumps({n: v[0].shape[1] // 128 for n, v in shapes.items()})}")
+    plain_ms = cs.time_cuda(torch, lambda: sha512.challenge_batch_plain(*shapes[K8_BUCKET][:2]), 3)
+
+    def call(bld, n):
+        return bld.challenge(torch, *shapes[n][:2])
+
+    times = timed_turns(list(shapes), call, sha_built)
+    blocks = shapes[K8_BUCKET][3]
+    b_ms, b_by = cs.bound_ms(K8_BUCKET * (shapes[K8_BUCKET][0].shape[1] + 4 + 32),
+                             blocks * cs.SHA512_OPS_PER_BLOCK + K8_BUCKET * cs.SC_REDUCE_OPS)
+    report(8, "rows", times,
+           f"bound at {K8_BUCKET} rows ({blocks} blocks) {b_ms:.5f} ms ({b_by})", sha_built)
+    queued = timed_turns(list(shapes), call, sha_built, timer=time_queued)
+    report_queued(8, "rows", queued, sha_built, smi)
+    print(f"time: challenge_batch_plain at {K8_BUCKET} rows {plain_ms:.2f} ms | {smi}")
+    split_ms = {tag: {name: {n: [] for n in (K8_BUCKET, K8_RAGGED)}
+                      for name in ("full", *SHA_SPLITS)} for tag in sha_built}
+    order = [t for t in ("parent", "this", "this", "parent") if t in sha_built]
+    for tag in order:
+        for name, bld in {"full": sha_built[tag], **sha_splits[tag]}.items():
+            for n in (K8_BUCKET, K8_RAGGED):
+                split_ms[tag][name][n].append(time_queued(torch, lambda: call(bld, n), REPS))
+    sass = {tag: {"full": sass_counts(torch_build, sha_built[tag].cubin, "challenge_kernel"),
+                  **{name: sass_counts(torch_build, bld.so, "challenge_kernel")
+                     for name, bld in sha_splits[tag].items()}} for tag in sha_built}
+    for tag in sha_built:
+        full, empty = sass[tag]["full"], sass[tag]["rounds emptied"]
+        per_round = {op: round((full.get(op, 0) - empty.get(op, 0)) / 80, 2)
+                     for op in ("total", *SASS_OPS) if full.get(op, 0) != empty.get(op, 0)}
+        sass[tag]["per_round"] = per_round
+        reduce = full["total"] - sass[tag]["reduce emptied"]["total"]
+        sass[tag]["reduce"] = reduce
+        print(f"kernel8 split: {tag} tree, ms a launch of {REPS} queued back to back "
+              f"at [{K8_BUCKET}, {K8_RAGGED}] rows per turn, the full build and builds with "
+              f"one part emptied (their values wrong): " + "; ".join(
+                  f"{name} {json.dumps(t)}" for name, t in split_ms[tag].items()) + f" | {smi}")
+        print(f"kernel8 sass: {tag} tree, challenge_kernel instructions (cuobjdump -sass): "
+              f"full {json.dumps(full)}; rounds emptied {json.dumps(empty)}; a round "
+              f"(full less rounds emptied, over 80) {json.dumps(per_round)}; the "
+              f"reduction with its digest bytes (full less reduce emptied) {reduce}; "
+              f"the bound counts {cs.SHA512_OPS_PER_BLOCK} a block and "
+              f"{cs.SC_REDUCE_OPS} a row | {smi}")
+    return {"plain_ms": plain_ms, "ms": times, "queued_ms": queued, "bound_ms": b_ms,
+            "split_ms": split_ms, "sass": sass}
+
+
 def run_kernel10(torch, np, cs, rng, dev, secp_built, secp_splits, timed_turns, report,
                  smi) -> dict:
     """Kernel 10: each build against the plain version and the JAX
@@ -1025,7 +1321,7 @@ def main() -> int:
     if args.parent:
         trees["parent"] = os.path.abspath(args.parent)
     t0 = time.perf_counter()
-    ed_kernels = [k for k in args.kernel if k not in BLS_KERNELS and k != 10]
+    ed_kernels = [k for k in args.kernel if k not in BLS_KERNELS and k not in (8, 10)]
     bls_kernels = [k for k in args.kernel if k in BLS_KERNELS]
     procs = {}
     if ed_kernels:
@@ -1034,6 +1330,10 @@ def main() -> int:
     if 10 in args.kernel:
         procs.update({"secp_" + tag: start_build(_build, os.path.join(root, SECP_KERNEL),
                                                  "secp_" + tag)
+                      for tag, root in trees.items()})
+    if 8 in args.kernel:
+        procs.update({"sha_" + tag: start_build(_build, os.path.join(root, SHA_KERNEL),
+                                                "sha_" + tag)
                       for tag, root in trees.items()})
     if bls_kernels:
         procs.update({"bls_" + tag: start_build(_build, os.path.join(root, BLS_KERNEL),
@@ -1047,22 +1347,33 @@ def main() -> int:
     secp_splits = (start_variant_builds(_build, SECP_SPLITS, "secpsplit", SECP_KERNEL)
                    if 10 in args.kernel else {})
     latency = start_latency_build(_build) if 10 in args.kernel else None
+    sha_splits = {}
+    if 8 in args.kernel:
+        for tag, root in trees.items():
+            variants = {name: tree_patches(root, p) for name, p in SHA_SPLITS.items()}
+            sha_splits[tag] = start_variant_builds(_build, variants, "shasplit_" + tag,
+                                                   SHA_KERNEL, root)
 
     def kernels_of(tag):
         return (bls_kernels if tag.startswith("bls_") else [10] if tag.startswith("secp_")
-                else ed_kernels)
+                else [8] if tag.startswith("sha_") else ed_kernels)
 
     builds = {tag: Build(*p, cs.ptxas_usage, kernels_of(tag)) for tag, p in procs.items()}
     splits = {name: VariantBuild(*p) for name, p in splits.items()}
     warp_builds = {name: VariantBuild(*p) for name, p in warp_builds.items()}
     lane_builds = {name: VariantBuild(*p) for name, p in lane_builds.items()}
     secp_splits = {name: VariantBuild(*p) for name, p in secp_splits.items()}
-    built = {tag: b for tag, b in builds.items() if not tag.startswith(("bls_", "secp_"))}
+    sha_splits = {tag: {name: VariantBuild(*p) for name, p in v.items()}
+                  for tag, v in sha_splits.items()}
+    built = {tag: b for tag, b in builds.items()
+             if not tag.startswith(("bls_", "secp_", "sha_"))}
+    sha_built = {tag[4:]: b for tag, b in builds.items() if tag.startswith("sha_")}
     bls_built = {tag[4:]: b for tag, b in builds.items() if tag.startswith("bls_")}
     secp_built = {tag[5:]: b for tag, b in builds.items() if tag.startswith("secp_")}
     n_builds = (len(builds) + len(splits) + len(warp_builds) + len(lane_builds)
-                + len(secp_splits))
-    sources = ((KERNEL, ed_kernels), (SECP_KERNEL, secp_built), (BLS_KERNEL, bls_built))
+                + len(secp_splits) + sum(len(v) for v in sha_splits.values()))
+    sources = ((KERNEL, ed_kernels), (SHA_KERNEL, sha_built), (SECP_KERNEL, secp_built),
+               (BLS_KERNEL, bls_built))
     print(f"build: {n_builds} nvcc builds of "
           f"{' and '.join(src for src, on in sources if on)}"
           f" in parallel, {time.perf_counter() - t0:.1f} s | {smi}")
@@ -1087,12 +1398,14 @@ def main() -> int:
     result = {"device": torch.cuda.get_device_name(0), "smi": smi,
               "ptxas": {tag: b.ptxas for tag, b in builds.items()}}
 
-    def timed_turns(sizes, call, builds=built):
-        """{tag: {size: [ms per turn]}}: call(build, size) timed in turns."""
+    def timed_turns(sizes, call, builds=built, timer=cs.time_cuda):
+        """{tag: {size: [ms per turn]}}: call(build, size) timed in turns
+        (by `timer`: cs.time_cuda, or time_queued for the card's time a call
+        without the launch latency)."""
         times = {t: {n: [] for n in sizes} for t in builds}
         for tag in order:
             for n in sizes:
-                times[tag][n].append(cs.time_cuda(torch, lambda: call(builds[tag], n), REPS))
+                times[tag][n].append(timer(torch, lambda: call(builds[tag], n), REPS))
         return times
 
     def report(kernel: int, what: str, times, extra: str, builds=built) -> None:
@@ -1100,6 +1413,14 @@ def main() -> int:
             print(f"kernel{kernel}: {tag} tree, median ms of {REPS} launches at "
                   f"{what} {json.dumps(times[tag])} (one list entry per turn); "
                   f"{extra}; ptxas: {builds[tag].ptxas[kernel]} | {smi}")
+
+    if 2 in args.kernel:
+        result["kernel2"] = run_kernel2(torch, cs, host, eb, pubs, pub_d, kc, built,
+                                        timed_turns, report, smi)
+
+    if 8 in args.kernel:
+        result["kernel8"] = run_kernel8(torch, np, cs, rng, dev, _build, sha_built,
+                                        sha_splits, timed_turns, report, smi)
 
     if 3 in args.kernel:
         tables, tvalid = eb.neg_pubkey_table_plain(pub_d)
@@ -1313,7 +1634,10 @@ def main() -> int:
                                           timed_turns, report, smi)
 
     if "parent" in trees or {4, 10, 11, 12, 13} & set(args.kernel):
-        what = (["commit"] if 3 in args.kernel and "parent" in trees else []) + (
+        # kernel 2's main path is the first height of verify_commit (the
+        # table build), kernel 8's the blocksync window hashed on the card
+        what = (["commit"] if {2, 3} & set(args.kernel) and "parent" in trees else []) + (
+            ["blocksync_dev"] if 8 in args.kernel and "parent" in trees else []) + (
             ["generic"] if 4 in args.kernel else []) + (
             ["secp"] if 10 in args.kernel else []) + (
             ["blocksync"] if {5, 6} & set(args.kernel) and "parent" in trees else []) + (
@@ -1334,7 +1658,8 @@ def main() -> int:
             if "commit" in what:
                 print(f"commit: {tag} tree, verify_commit at {N_VALS} validators ms a "
                       f"height per turn {json.dumps([[round(x, 3) for x in t['commit']] for t in ts])} "
-                      f"(the first of a turn builds the key tables) | {smi}")
+                      f"(the first of a turn builds the key tables, after {WARM_HEIGHTS} "
+                      f"heights of another set) | {smi}")
             if "generic" in what:
                 gr = [t["generic"] for t in ts]
                 print(f"generic: {tag} tree, verify_commit at {N_VALS} validators "
@@ -1372,6 +1697,16 @@ def main() -> int:
                       f"over {cs.MESH_SHARDS} shards of the card), median ms of {REPS} per turn "
                       f"{json.dumps([[round(t['sharded'][g], 4) for g in ('g1', 'g2')] for t in ts])} "
                       f"| {smi}")
+            if "blocksync_dev" in what:
+                print(f"blocksync_dev: {tag} tree, the 64 x {N_VALS} window hashed on the "
+                      f"card (device_challenge_min=2048: tm_challenge, then kernel 6), "
+                      f"wall ms per window per turn "
+                      f"{json.dumps([[round(x, 2) for x in t['blocksync_dev']['wall_ms']] for t in ts])}, "
+                      f"device round ms "
+                      f"{json.dumps([[round(x, 2) for x in t['blocksync_dev']['device_ms']] for t in ts])}, "
+                      f"host share "
+                      f"{json.dumps([[round(x, 3) for x in t['blocksync_dev']['host_share']] for t in ts])} "
+                      f"(the first of a turn builds the big tables) | {smi}")
             if "blocksync" in what:
                 print(f"blocksync: {tag} tree, the 64 x {N_VALS} window host-hashed, "
                       f"wall ms per window per turn "

@@ -14,13 +14,18 @@ Phases (any failure raises and the exit code is non-zero):
    the card, on the same inputs, with exact equality (bytes and bitmaps are
    integers): ``neg_pubkey_table`` and ``neg_pubkey_bigtable`` on 256 keys
    (valid plus adversarial: small order, non-canonical y, no square root,
-   x = 0 with the sign bit), ``verify_prehashed_table`` and
+   x = 0 with the sign bit), the four-lane ``neg_pubkey_table`` also at 1,
+   23 and 150 of them (``kernel2_key_sets``: adversarial keys inside
+   warps of valid ones), ``verify_prehashed_table`` and
    ``verify_prehashed`` on 256 mixed valid/invalid rows,
    ``verify_prehashed_bigcache`` and ``_mxu`` on 2048 such rows (each also
    held against the host oracle; in phase 4 also at the bulk window's
    16,384 rows, the tampered commit included, against the plain versions
    and the window's bitmap), ``challenge_batch`` on 2048 ragged rows
-   (and against hashlib + % L), the reduction kernel alone on adversarial
+   and the first 1,000 of them (a partial last warp), each against its
+   plain version and hashlib + % L (in phase 4 also at the bulk window's
+   16,384 rows against the plain version and the host challenges), the
+   reduction kernel alone on adversarial
    digests, ``dbl_chain`` on 8192 points x 256 doublings (bytes and affine
    coordinates, row 0 against 256 host ``point_double``). The four-lane
    ``verify_prehashed_table`` also at its small-tier shapes
@@ -57,9 +62,12 @@ Phases (any failure raises and the exit code is non-zero):
    window's wall time with its host and device shares; work out each
    kernel's bound. Kernel 3 also at the buckets 8, 32, 128 and 256 (the
    ``kernel3:`` line), kernel 4 likewise (``kernel4:``), kernel 6 at 2,048
-   rows and the window's 16,384 (``kernel6:``) and kernel 5 at 256
-   adversarial keys and the window's build (``kernel5:``), each line with
-   the four-lane critical path and ``ptxas`` usage.
+   rows and the window's 16,384 (``kernel6:``), kernel 5 at 256
+   adversarial keys and the window's build (``kernel5:``), kernel 2 at 1,
+   23, 150 and 256 keys (``kernel2:``) and kernel 8's hash at the 2,048
+   ragged rows, the first 1,000 of them and the window's 16,384
+   (``kernel8:``), each line with the four-lane critical path or the
+   bound and ``ptxas`` usage.
 5. The quorum-certificate path (``qc_phase``): ``g1_aggregate`` and
    ``g2_aggregate`` on 256 points with duplicates, opposites and the
    identity and at the device route's shapes (150 signatures; 150 keys),
@@ -221,6 +229,9 @@ FE_INVERT = 265
 FE_POW22523 = 262
 FE_DECOMPRESS = 13 + FE_POW22523
 FE_TABLE_BUILD = 1 + 14 * 8 + 16  # to_cached(A), 14 cached adds, 16 to_cached
+# one key of the four-lane kernel 2: the decompression (every lane alike),
+# to_cached(-A), 14 cached adds of 2, 16 to_cached
+FE_TABLE_PATH = FE_DECOMPRESS + 1 + 14 * 2 + 16
 FE_VAR_MULT = 64 * (4 * 8 + 8)  # 64 windows of 4 doublings + 1 cached add
 FE_BASE_MULT = 32 * 8
 FE_FINISH = 1 + 8 + FE_INVERT + 2  # to_cached, add, compress
@@ -250,13 +261,17 @@ FE_VERIFY_BIG_PATH = 2 * 64 + 1 + 2 + FE_INVERT + 2
 # 63 x 4 doublings; with four lanes, 2 a point operation and 1 a to_cached
 FE_BIGTABLE_THREAD = FE_DECOMPRESS + 1 + 14 * 8 + 64 + 63 * 4 * FE_DBL
 FE_BIGTABLE_PATH = FE_DECOMPRESS + 14 * 2 + 64 + 63 * 4 * 2
-# SHA-512, per 128-byte block, from ops/csrc/sha512_kernels.cu: 80 rounds
-# of ~25 64-bit operations and 64 schedule steps of ~13, each 64-bit
-# operation two 32-bit instructions
-SHA512_OPS_PER_BLOCK = 2 * (80 * 25 + 64 * 13)
-# sc_reduce: 14 folds of 6 64-bit multiply-adds, 46 carries, the limb
-# loads and the packing; about a thousand 32-bit instructions
-SC_REDUCE_OPS = 1000
+# SHA-512, per 128-byte block, in 32-bit instructions as nvcc compiles
+# ops/csrc/sha512_device.cuh (LOP3 and IADD3 take three inputs, a 64-bit
+# rotation is two SHF): 80 rounds of 45 with the schedule step (SASS of
+# challenge_kernel, the full build less the rounds-emptied build, over
+# 80: chip_kernels.py --kernel 8, "kernel8 sass:"), the 32 PRMT of the
+# byte swaps and the 16 IADD3 of the feed-forward
+SHA512_OPS_PER_BLOCK = 80 * 45 + 32 + 16
+# sc_reduce with the digest's bytes, per row: the full build less the
+# reduce-emptied build ("kernel8 sass:"; straight-line code, so its static
+# count is the count it runs)
+SC_REDUCE_OPS = 768
 
 # commits per blocksync window (VERIFY_WINDOW, tendermint_tpu/blocksync/
 # reactor.py:243): the bulk path verifies one window as one batch
@@ -275,10 +290,27 @@ SHA_SOURCE = "tendermint_tpu_torch/ops/csrc/sha512_kernels.cu"
 # warp with padding (a LastCommit round of the 32-validator net is 22-23
 # rows); the commit path's 150 live rows alone and padded to its 256 bucket
 KERNEL3_SIZES = ((1, 0), (23, 2), (150, 0), (256, 106))
+# kernel 2's key counts: one group; a partial last warp; the commit path's
+# 150 validators; the 256 keys of phase 2
+KERNEL2_SIZES = (1, 23, 150, 256)
+# kernel 8's batch whose last warp is partial: the first rows of the 2048
+KERNEL8_PARTIAL = 1000
 KERNEL3_BUCKETS = (8, 32, 128, 256)
 # verify_commit at 150 validators, ms a height after the first, with the
 # one-thread kernel 3 (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W)
 COMMIT_MS_ONE_THREAD = (5.67, 5.74)
+
+
+def kernel2_key_sets(torch, pub_d, n_valid: int) -> dict:
+    """{n: (the first n keys of an order, their indices in pub_d)} for
+    KERNEL2_SIZES: a valid key, then the adversarial keys and random bytes
+    after the first n_valid, then the other valid keys; so 23 and 150 keys
+    hold adversarial keys and keys with no square root inside warps of
+    valid ones."""
+    n = pub_d.shape[0]
+    order = [0] + list(range(n_valid, n)) + list(range(1, n_valid))
+    return {k: (pub_d[torch.tensor(order[:k], device=pub_d.device)], order[:k])
+            for k in KERNEL2_SIZES}
 
 
 def max_abs_err(a, b) -> int:
@@ -2356,6 +2388,21 @@ def main() -> int:
     assert errs["neg_pubkey_table"] == 0, "neg_pubkey_table: kernel != plain"
     want_valid = [host.point_decompress(p) is not None for p in pubs]
     assert tvalid.cpu().tolist() == want_valid, "neg_pubkey_table validity"
+    k2_sets = kernel2_key_sets(torch, pub_d, len(keys))
+    for n, (pk, order) in k2_sets.items():
+        got_t, got_v = eb.neg_pubkey_table(pk)
+        plain_t, plain_v = eb.neg_pubkey_table_plain(pk)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got_t, plain_t), max_abs_err(got_v, plain_v))
+        errs["neg_pubkey_table"] = max(errs["neg_pubkey_table"], err)
+        assert err == 0, f"neg_pubkey_table: kernel != plain at {n} keys"
+        assert got_v.cpu().tolist() == [want_valid[i] for i in order], (
+            f"neg_pubkey_table validity at {n} keys")
+    print(f"kernel-vs-plain: neg_pubkey_table (four lanes a key) at "
+          f"{list(k2_sets)} keys, adversarial keys and keys with no square root "
+          f"inside warps of valid ones: equal to its plain version byte for byte "
+          f"and its validity to the host oracle (tolerance: exact) "
+          f"{json.dumps({n: sum(want_valid[i] for i in o) for n, (_, o) in k2_sets.items()})}")
 
     # 256 verify rows over these keys, the last 8 padding
     n_rows = 256
@@ -2441,15 +2488,23 @@ def main() -> int:
     )
     ch_buf_d = torch.from_numpy(ch_buf).to(dev)
     ch_cnt_d = torch.from_numpy(ch_cnt).to(dev)
-    ch = sha512.challenge_batch(ch_buf_d, ch_cnt_d)
-    ch_plain = sha512.challenge_batch_plain(ch_buf_d, ch_cnt_d)
-    torch.cuda.synchronize()
-    errs["challenge_batch"] = max_abs_err(ch, ch_plain)
-    assert errs["challenge_batch"] == 0, "challenge_batch: kernel != plain"
-    assert [bytes(r) for r in ch.cpu().tolist()] == [
-        (int.from_bytes(hashlib.sha512(r + a + m).digest(), "little") % host.L)
-        .to_bytes(32, "little") for r, a, m in ch_rows
-    ], "challenge_batch != hashlib + % L"
+    ch_want = [(int.from_bytes(hashlib.sha512(r + a + m).digest(), "little") % host.L)
+               .to_bytes(32, "little") for r, a, m in ch_rows]
+    errs["challenge_batch"] = 0
+    for n in (len(ch_rows), KERNEL8_PARTIAL):
+        ch = sha512.challenge_batch(ch_buf_d[:n], ch_cnt_d[:n])
+        ch_plain = sha512.challenge_batch_plain(ch_buf_d[:n], ch_cnt_d[:n])
+        torch.cuda.synchronize()
+        err = max_abs_err(ch, ch_plain)
+        errs["challenge_batch"] = max(errs["challenge_batch"], err)
+        assert err == 0, f"challenge_batch: kernel != plain at {n} rows"
+        assert [bytes(r) for r in ch.cpu().tolist()] == ch_want[:n], (
+            f"challenge_batch != hashlib + % L at {n} rows")
+    print(f"kernel-vs-plain: challenge_batch (a warp stages its rows' blocks) at "
+          f"{len(ch_rows)} ragged rows of {ch_buf.shape[1] // 128} blocks "
+          f"({int(ch_cnt.min())}-{int(ch_cnt.max())} a row) and their first "
+          f"{KERNEL8_PARTIAL} (a partial last warp): equal to its plain version and "
+          f"hashlib + % L (tolerance: exact)")
     # the reduction alone, on digests SHA-512 cannot be made to give
     L = host.L
     digests = [2**512 - 1, L - 1, L, L + 1, 2 * L, 2 * L - 1, 2**252, 0, 1,
@@ -2663,6 +2718,19 @@ def main() -> int:
     w_args = (big_store.tables, big_store.valid, D(w_idx), D(w_r), D(w_s),
               D(w_k), D(w_ok))
     w_buf_d, w_cnt_d = D(w_buf), D(w_cnt)
+    # kernel 8's hash at the window's shape: equal to its plain version and
+    # to the host challenges of the live rows
+    got = sha512.challenge_batch(w_buf_d, w_cnt_d)
+    got_plain = sha512.challenge_batch_plain(w_buf_d, w_cnt_d)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, got_plain)
+    errs["challenge_batch"] = max(errs["challenge_batch"], err)
+    assert err == 0, f"challenge_batch: kernel != plain at the window's {b_win} rows"
+    assert torch.equal(got[:n_sigs].cpu(), torch.from_numpy(w_k[:n_sigs])), (
+        "challenge_batch != the host challenges at the window's rows")
+    print(f"kernel-vs-plain: challenge_batch at the window's {b_win} rows ({n_sigs} "
+          f"live, {int(w_cnt.sum())} blocks): equal to its plain version and the host "
+          f"challenges (tolerance: exact)")
     live_big = int((w_ok & (w_idx >= 0)).sum())  # every window key is valid
     # kernel 6 (four lanes a row) at the window's shape too, the tampered
     # commit's rows included: equal to its plain version and the bitmap
@@ -2797,6 +2865,21 @@ def main() -> int:
           f"thread a row: {FE_VERIFY_BIG}); checked at {len(big_idx)} and "
           f"{b_win} rows; ptxas: "
           f"{usages.get('verify_bigcache_kernel', 'not reported')} | {smi}")
+    k2_ms = {n: time_cuda(torch, lambda: eb.neg_pubkey_table(pk), 20)
+             for n, (pk, _) in k2_sets.items()}
+    print(f"kernel2: neg_pubkey_table_kernel, four lanes a key, median ms of 20 "
+          f"launches at keys {json.dumps(k2_ms)} (adversarial keys included); "
+          f"critical path {FE_TABLE_PATH} dependent field multiplications a key "
+          f"(one thread a key: {FE_DECOMPRESS + FE_TABLE_BUILD}); ptxas: "
+          f"{usages.get('neg_pubkey_table_kernel', 'not reported')} | {smi}")
+    k8_ms = {n: time_cuda(torch, lambda: sha512.challenge_batch(
+        ch_buf_d[:n], ch_cnt_d[:n]), 20) for n in (len(ch_rows), KERNEL8_PARTIAL)}
+    k8_ms[b_win] = next(r["ms"] for r in rows if r["name"] == "challenge_batch")
+    print(f"kernel8: challenge_kernel, a lane a row, each warp staging its rows' "
+          f"blocks in shared memory, median ms of 20 launches at rows "
+          f"{json.dumps(k8_ms)} (the ragged rows, their first {KERNEL8_PARTIAL}, the "
+          f"window's {blocks} blocks); ptxas: "
+          f"{usages.get('challenge_kernel', 'not reported')} | {smi}")
     k5_256 = time_cuda(torch, lambda: eb.neg_pubkey_bigtable(pub_d), 20)
     k5_win = next(r["ms"] for r in rows if r["name"] == "neg_pubkey_bigtable")
     print(f"kernel5: neg_pubkey_bigtable_kernel, four lanes a key and column, "

@@ -18,8 +18,9 @@
 //
 // The header is plain C++ over stdint types, so g++ also builds it: the
 // CPU tests run the four-lane row code (verify_table_x4,
-// verify_generic_x4, verify_bigcache_x4, neg_pubkey_bigtable_x4) through
-// a host harness, tests/ed25519_lanes_host.cpp. Outside nvcc the device
+// verify_generic_x4, verify_bigcache_x4, neg_pubkey_bigtable_x4,
+// neg_pubkey_table_x4) through a host harness,
+// tests/ed25519_lanes_host.cpp. Outside nvcc the device
 // qualifiers below become plain inline functions.
 #pragma once
 
@@ -217,13 +218,22 @@ __device__ __forceinline__ void fe_frombytes(fe& h, const uint8_t* s) {
   h.v[4] = (w3 >> 12) & M51;
 }
 
+// the canonical encoding as four little-endian 64-bit words (h is frozen
+// in place)
+__device__ __forceinline__ void fe_towords(uint64_t w[4], fe& h) {
+  fe_canon(h);
+  w[0] = h.v[0] | (h.v[1] << 51);
+  w[1] = (h.v[1] >> 13) | (h.v[2] << 38);
+  w[2] = (h.v[2] >> 26) | (h.v[3] << 25);
+  w[3] = (h.v[3] >> 39) | (h.v[4] << 12);
+}
+
 // canonical little-endian encoding (h is frozen in place)
 __device__ __forceinline__ void fe_tobytes(uint8_t* s, fe& h) {
-  fe_canon(h);
-  store_le64(s, h.v[0] | (h.v[1] << 51));
-  store_le64(s + 8, (h.v[1] >> 13) | (h.v[2] << 38));
-  store_le64(s + 16, (h.v[2] >> 26) | (h.v[3] << 25));
-  store_le64(s + 24, (h.v[3] >> 39) | (h.v[4] << 12));
+  uint64_t w[4];
+  fe_towords(w, h);
+#pragma unroll
+  for (int i = 0; i < 4; i++) store_le64(s + 8 * i, w[i]);
 }
 
 __device__ __forceinline__ bool fe_iszero(fe f) {
@@ -472,7 +482,8 @@ __device__ __forceinline__ void ge_to_cached_lane(fe& c, const ge& p,
 }
 
 // How a lane reads its component of entry j (0..15) of the 16-entry
-// cached window table of -A, tab(e, j):
+// cached window table of -A, tab(e, j), and how neg_table_x4 stores it,
+// tab.store(j, c):
 // - TableBytes (kernel 3): the lane's 32 canonical bytes of a stored
 //   table, at tab + j * 128 (tab = the key's table + lane * 32);
 // - TableLimbs<S> (kernel 4): the 5 loose limbs the lane wrote itself
@@ -480,10 +491,30 @@ __device__ __forceinline__ void ge_to_cached_lane(fe& c, const ge& p,
 //   is the thread's column of a shared-memory array laid out [entry][limb]
 //   [thread], S the block's threads; in the host harness a lane's column
 //   of a host array.
+// - TableOut (kernel 2): the store alone, the lane's component as its 32
+//   canonical bytes at p + j * 128 (p = the key's table + lane * 32), in
+//   whole words: two 16-byte stores on the card, so the 4 lanes of a
+//   group write each entry's 128 contiguous bytes.
 struct TableBytes {
   const uint8_t* tab;
   __device__ __forceinline__ void operator()(fe& e, int j) const {
     fe_frombytes(e, tab + j * 128);
+  }
+};
+
+struct TableOut {
+  uint8_t* p;
+  __device__ __forceinline__ void store(int j, const fe& c) const {
+    fe h = c;
+    uint64_t w[4];
+    fe_towords(w, h);
+#ifdef __CUDACC__
+    ulonglong2* d = reinterpret_cast<ulonglong2*>(p + j * 128);
+    d[0] = make_ulonglong2(w[0], w[1]);
+    d[1] = make_ulonglong2(w[2], w[3]);
+#else
+    for (int i = 0; i < 4; i++) store_le64(p + j * 128 + 8 * i, w[i]);
+#endif
   }
 };
 
@@ -569,14 +600,16 @@ __device__ __forceinline__ bool verify_table_x4(
 }
 
 // The 16-entry cached window table of a = -A by one lane of its group, in
-// the one-thread kernel's order: the identity, a, then 14 cached adds of
-// cached(a). Lane l stores only component l (YmX, YpX, T2d, Z2) of each
-// entry, as the loose limbs of ge_to_cached_lane: the one-thread
-// table's limbs.
-template <class Ex, int S>
-__device__ __forceinline__ void neg_table_x4(const TableLimbs<S>& tbl,
-                                             const ge& a, const consts& kc,
-                                             int lane, Ex& ex) {
+// the one-thread order (ge_to_cached, ge_add_cached): the identity, a,
+// then 14 cached adds of cached(a). Lane l stores only component l (YmX,
+// YpX, T2d, Z2) of each entry into tbl (TableLimbs: the loose limbs of
+// ge_to_cached_lane, the one-thread table's limbs; TableOut: their
+// canonical bytes). The sequence is fixed: the entries are projective, so
+// any other order of the adds gives other bytes.
+template <class Ex, class Sink>
+__device__ __forceinline__ void neg_table_x4(const Sink& tbl, const ge& a,
+                                             const consts& kc, int lane,
+                                             Ex& ex) {
   fe ac, c;
   ge_to_cached_lane(ac, a, kc, lane);
   ge cur;
@@ -587,6 +620,26 @@ __device__ __forceinline__ void neg_table_x4(const TableLimbs<S>& tbl,
     ge_to_cached_lane(c, cur, kc, lane);
     tbl.store(j, c);
   }
+}
+
+// Kernel 2's table of key `key` by one lane of its group (the JAX
+// package's neg_pubkey_table): every lane decompresses A alike, lane 0
+// writes valid[key], and the group builds the 16-entry cached table of -A
+// (neg_table_x4) into tables + key * 2048, lane l writing component l of
+// each entry as canonical bytes. An invalid key gets the table the
+// formulas give (ge_decompress's contract), so there is no early exit.
+template <class Ex>
+__device__ __forceinline__ void neg_pubkey_table_x4(
+    int key, int lane, Ex& ex, const uint8_t* pub, uint8_t* tables,
+    uint8_t* valid, const uint8_t* kbytes) {
+  consts kc;
+  load_consts(kc, kbytes);
+  ge a;
+  const bool ok = ge_decompress(a, pub + (size_t)key * 32, kc);
+  if (lane == 0) valid[key] = ok ? 1 : 0;
+  ge_neg(a);
+  const TableOut out{tables + (size_t)key * 16 * 128 + lane * 32};
+  neg_table_x4(out, a, kc, lane, ex);
 }
 
 // The generic verify of row i by one lane of its group (the JAX package's

@@ -71,10 +71,22 @@
 // threads). A row with s >= L or a padding row (s_ok False, as the
 // prewarm's rows) leaves before the decompression.
 //
-// The other kernels run one thread per signature (per point for
-// dbl_chain), limbs in registers, no shared memory. Rows whose verdict is
-// already decided (invalid key, s >= L, padding, idx < 0 or past the
-// store) skip the arithmetic, and no row reads outside its inputs.
+// tm_neg_pubkey_table (neg_pubkey_table_x4) is four lanes per key: every
+// lane decompresses A alike (275 multiplications, the floor of its path),
+// then the group runs kernel 4's table build (neg_table_x4) with the
+// canonical-bytes sink: 1 + 14 x 2 + 16 = 45 multiplications against 129
+// on one thread, ~320 in all against ~404. An invalid key gets the table
+// the formulas give, byte for byte, so the group never leaves early. Lane
+// l writes component l of each entry as two 16-byte stores, so a group
+// writes each 128-byte entry whole where one thread a key wrote 2 KiB as
+// byte stores, rows 2 KiB apart. 64-thread blocks (kGenericThreads), so
+// 256 keys spread over 16 SMs where 128-thread blocks of one thread a key
+// used 2.
+//
+// dbl_chain runs one thread per point, limbs in registers, no shared
+// memory. Rows whose verdict is already decided (invalid key, s >= L,
+// padding, idx < 0 or past the store) skip the arithmetic, and no row
+// reads outside its inputs.
 //
 // Plain C interface: no PyTorch headers here, so nvcc builds this file in
 // seconds. Launchers run on the caller's stream, allocate nothing, and
@@ -95,31 +107,6 @@ inline int blocks_for(int n, int threads = kThreads) {
   return (n + threads - 1) / threads;
 }
 
-__global__ void __launch_bounds__(kThreads)
-neg_pubkey_table_kernel(const uint8_t* __restrict__ pub,
-                        uint8_t* __restrict__ tables,
-                        uint8_t* __restrict__ valid,
-                        const uint8_t* __restrict__ kbytes, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  consts kc;
-  load_consts(kc, kbytes);
-  ge a;
-  valid[i] = ge_decompress(a, pub + (size_t)i * 32, kc) ? 1 : 0;
-  ge_neg(a);
-  ge_cached ac, c;
-  ge_to_cached(ac, a, kc);
-  ge cur;
-  ge_identity(cur);
-  uint8_t* out = tables + (size_t)i * 16 * 128;
-  for (int j = 0; j < 16; j++) {
-    if (j == 1) cur = a;
-    else if (j > 1) ge_add_cached(cur, cur, ac);
-    ge_to_cached(c, cur, kc);
-    ge_cached_tobytes(out + j * 128, c);
-  }
-}
-
 // The exchange of the four-lane point operations: a width-4 shuffle under
 // the group's own 4-bit mask. Groups of one warp may leave the row loop at
 // different points and the last warp may be partial, so a full-warp mask
@@ -138,6 +125,22 @@ struct Shfl4 {
     }
   }
 };
+
+// 4 * n threads in blocks of kGenericThreads: thread t is lane t % 4 of
+// key t / 4 (neg_pubkey_table_x4 in ed25519_device.cuh), grouped as in
+// verify_table_kernel; 256 keys are 16 blocks, so 16 SMs share the work.
+// Lane l writes component l of each of the key's 16 entries, so the group
+// writes each entry's 128 contiguous bytes.
+__global__ void __launch_bounds__(kGenericThreads)
+neg_pubkey_table_kernel(const uint8_t* __restrict__ pub,
+                        uint8_t* __restrict__ tables,
+                        uint8_t* __restrict__ valid,
+                        const uint8_t* __restrict__ kbytes, int n) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 4 * n) return;
+  Shfl4 ex{0xFu << (threadIdx.x & 28)};
+  neg_pubkey_table_x4(t >> 2, t & 3, ex, pub, tables, valid, kbytes);
+}
 
 // 4 * b threads: thread t is lane t % 4 of row t / 4. kThreads is a
 // multiple of 32, so the 4 lanes of a row sit in one warp at threadIdx.x
@@ -254,8 +257,8 @@ extern "C" {
 int tm_neg_pubkey_table(const void* pub, void* tables, void* valid,
                         const void* kbytes, int n, void* stream) {
   if (n > 0)
-    neg_pubkey_table_kernel<<<blocks_for(n), kThreads, 0,
-                              (cudaStream_t)stream>>>(
+    neg_pubkey_table_kernel<<<blocks_for(4 * n, kGenericThreads),
+                              kGenericThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)pub, (uint8_t*)tables, (uint8_t*)valid,
         (const uint8_t*)kbytes, n);
   return (int)cudaGetLastError();

@@ -16,8 +16,10 @@ batches, instead of one host thread hashing every row.
   on keys with a small-order component). The wrapper launches the CUDA
   reduction on a CUDA tensor and runs ``reduce_mod_l_plain`` on a CPU one.
 - ``challenge_batch``: SHA-512 then the reduction, one CUDA kernel
-  (``csrc/sha512_kernels.cu``, ``tm_challenge``) on a CUDA tensor and
-  ``challenge_batch_plain`` on a CPU one.
+  (``csrc/sha512_kernels.cu``, ``tm_challenge``: one lane a row, each
+  warp staging its rows' blocks through shared memory with 16-byte loads,
+  so ``data`` must be 16-byte aligned, as a fresh tensor is) on a CUDA
+  tensor and ``challenge_batch_plain`` on a CPU one.
 
 The JAX package's choice between a scanned and an unrolled round loop
 (``TM_TPU_SHA_SCAN``) picks a trace shape for XLA and changes no result;
@@ -302,6 +304,9 @@ def challenge_batch(data: torch.Tensor, n_blocks: torch.Tensor) -> torch.Tensor:
         )
     check_operand(data, "data", torch.uint8, (b, width), dev)
     check_operand(n_blocks, "n_blocks", torch.int32, (b,), dev)
+    if data.data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned (the kernel reads "
+                         "16-byte pieces)")
     out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
     if b:
         launch("challenge", data, n_blocks, out)

@@ -8,10 +8,16 @@ connection errors. Engines additionally expose `internal_rows` (items ->
 padded row count), which the scheduler books as the round's true bucket
 on the fn plane's per-engine axis.
 
-``bls_agg`` and ``qc_verify`` run on the port's BLS12-381 kernels
-(``crypto/bls_signatures``: pairings and sums on the process verifier's
-device). ``secp_recover`` recovers each signer's Ethereum address on the
-host, as the JAX package does.
+``bls_agg`` and ``qc_verify`` run through ``crypto/bls_signatures`` in
+the JAX package's order of routes: pairing checks take the native C++
+``pairing_check`` unless ``TM_TPU_BLS_PAIRING_DEVICE=1`` puts them on
+the port's pairing kernels (the process verifier's device), and host
+bigints without the library; point sums (the signer-key sums of a QC
+among them) take the native MSM when the library is present, else the
+port's G1/G2 sum kernels from ``DEVICE_AGGREGATE_MIN`` points (every
+multi-key signer sum of a QC round) and the host loop below.
+``secp_recover`` recovers each signer's Ethereum address on the host, as
+the JAX package does.
 """
 
 from __future__ import annotations

@@ -2,11 +2,13 @@
 // (tests/test_torch_ed25519_lanes.py, test_torch_ed25519_big_lanes.py and
 // test_torch_ed25519_generic_lanes.py build it with g++): the small-tier
 // verify (kernel 3), the generic verify (kernel 4), the big-tier verify
-// (kernel 6) and the big-tier table build (kernel 5).
+// (kernel 6), the big-tier table build (kernel 5) and the small-tier table
+// build (kernel 2; tests/test_torch_ed25519_table_lanes.py).
 //
 // It runs the same source as the card: verify_table_x4,
-// verify_generic_x4, verify_bigcache_x4, neg_pubkey_bigtable_x4 and the
-// _x4 point operations of ed25519_device.cuh. Four host threads play the
+// verify_generic_x4, verify_bigcache_x4, neg_pubkey_bigtable_x4,
+// neg_pubkey_table_x4 and the _x4 point operations of
+// ed25519_device.cuh. Four host threads play the
 // 4 lanes of a group and walk the groups (rows, or key columns) in order,
 // as a group of the kernel does; the exchange is a slot array the 4 lanes
 // fill, with a barrier on each side, so the lanes run in lock-step. Each
@@ -179,6 +181,42 @@ int tm_host_neg_pubkey_bigtable(const uint8_t* pub, uint8_t* tables,
                            kbytes);
     return 0;
   });
+}
+
+// tm_neg_pubkey_table's operands on host memory: group g builds key g's
+// table (neg_pubkey_table_x4); run_groups' return codes
+int tm_host_neg_pubkey_table(const uint8_t* pub, uint8_t* tables,
+                             uint8_t* valid, const uint8_t* kbytes, int n) {
+  return run_groups(n, nullptr, [&](int g, int lane, HostX4& ex) {
+    neg_pubkey_table_x4(g, lane, ex, pub, tables, valid, kbytes);
+    return 0;
+  });
+}
+
+// The same table by one thread a key, with the one-thread formulas
+// (ge_to_cached, ge_add_cached, ge_cached_tobytes) in the order of the
+// one-thread kernel 2 this build replaced
+void tm_host_neg_pubkey_table_1t(const uint8_t* pub, uint8_t* tables,
+                                 uint8_t* valid, const uint8_t* kbytes,
+                                 int n) {
+  consts kc;
+  load_consts(kc, kbytes);
+  for (int i = 0; i < n; i++) {
+    ge a;
+    valid[i] = ge_decompress(a, pub + (size_t)i * 32, kc) ? 1 : 0;
+    ge_neg(a);
+    ge_cached ac, c;
+    ge_to_cached(ac, a, kc);
+    ge cur;
+    ge_identity(cur);
+    uint8_t* out = tables + (size_t)i * 16 * 128;
+    for (int j = 0; j < 16; j++) {
+      if (j == 1) cur = a;
+      else if (j > 1) ge_add_cached(cur, cur, ac);
+      ge_to_cached(c, cur, kc);
+      ge_cached_tobytes(out + j * 128, c);
+    }
+  }
 }
 
 // For b rows whose idx lies in the store, out[b][15][20] uint64 limbs:
