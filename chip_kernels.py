@@ -9,13 +9,16 @@ small-tier verify), 4 (``tm_verify_generic``, the cache-overflow verify), 6
 (``tm_challenge``, a lane a row, warp-staged blocks), and the warp-wide
 BLS12-381 kernels: the G2 key sums, kernel 11 (``tm_g2_aggregate``, row
 11b) and kernel 13's G2 half (``tm_g2_add`` and the sharded sum), and the
-pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``); and the four-lane
-secp256k1 verify, kernel 10 (``tm_secp_verify``).
+pairing, kernel 12 (``tm_miller`` and ``tm_final_exp``); the four-lane
+secp256k1 verify, kernel 10 (``tm_secp_verify``); kernel 9's SHA-256
+(``tm_sha256``, a lane a row, warp-staged blocks) and kernel 1, the
+doubling chain (``tm_dbl_chain``, four lanes a point).
 
-    python3 chip_kernels.py [--kernel 2 3 4 5 6 8 10 11 12 13] [--parent DIR] [--seed N]
+    python3 chip_kernels.py [--kernel 1 2 3 4 5 6 8 9 10 11 12 13] [--parent DIR] [--seed N]
 
-Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 2, 3, 4,
-5, 6), ``sha512_kernels.cu`` (kernel 8), ``secp256k1_kernels.cu`` (kernel 10) and ``bls_kernels.cu``
+Builds ``tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu`` (kernels 1, 2,
+3, 4, 5, 6), ``sha512_kernels.cu`` (kernel 8), ``sha256_kernels.cu``
+(kernel 9), ``secp256k1_kernels.cu`` (kernel 10) and ``bls_kernels.cu``
 (kernels 11, 12, 13) with ``nvcc`` into plain
 shared libraries (no PyTorch headers) under ``tendermint_tpu_torch/_kbuild/``,
 with ``-Xptxas -v`` for each kernel's registers, stack and spills (the
@@ -24,10 +27,33 @@ whole report beside the library, as ``chip_kernels_<tree>.ptxas.txt``,
 ``chip_kernels_bls_<tree>.ptxas.txt``); with ``--parent``, the same files
 of the tree at DIR too (e.g. the parent commit unpacked with ``git
 archive``), all nvcc runs started together. Then, for each kernel asked
-for (all ten by default), every build is held against the plain version
+for (all twelve by default), every build is held against the plain version
 on the card and the host oracle, and timed (median of 20 launches between
 CUDA events) in turns parent, this tree, this tree, parent, so that both
 are measured on one card in one call:
+
+- kernel 1 at 1, 150 and 8,192 points x 256 doublings (``K1_SIZES``; 150
+  points leave a partial last warp) and at 150 points x 1 and 16
+  doublings, byte for byte against the plain version, rows 0-3 against
+  256 host ``point_double`` (affine); timed at those sizes per launch and
+  queued. Where its time goes: this tree's ``ed25519_kernels.cu`` built
+  with the exchange emptied (``K1_EXCHANGE``: the shuffles of ``Shfl4``
+  gone, the four lanes' products kept), queued beside the full build at
+  8,192 points (``kernel1 split:``), and each build's ``cuobjdump -sass``
+  counts of its rolled loop, one doubling a thread (``sass_loop_counts``,
+  ``kernel1 sass:``; the one-thread chain's is ``chip_smoke.py``'s
+  ``DBL_OPS``);
+- kernel 9 at the L2 block's leaf batch ([4,096, 32 x 64], 1-17 blocks a
+  row), its first 1,000 rows, 4,096 one-block merkle leaves and 2,048
+  two-block inner rows (``k9_shapes``), against the plain version and
+  hashlib; timed there per launch and queued; this tree's build at 64
+  threads a block (``SHA256_BLOCK_VARIANTS``) checked and timed in turns
+  beside its 32 (``kernel9 block:``); each tree's build with the rounds
+  or the global loads emptied (``SHA256_SPLITS``, an alternative for the
+  one-thread source; ``fitting_patches``), queued at the leaf batch
+  (``kernel9 split:``), and the SASS counts of ``sha256_kernel`` and a
+  round (``kernel9 sass:``), from which ``chip_smoke.py``'s
+  ``SHA256_OPS_PER_BLOCK`` is taken;
 
 - kernel 2 at 1, 23, 150 and 256 keys (``K2_SIZES``: a valid key, then the
   adversarial keys and random bytes, then valid keys), its tables byte
@@ -194,26 +220,74 @@ SHA_SPLITS = {
     "reduce emptied": [(SHA_DEVICE_H, "  sc_reduce(k, dig);",
                         "  for (int j = 0; j < 4; j++) k[j] = st[j];")],
 }
-# opcodes counted in kernel 8's SASS
-SASS_OPS = ("SHF", "PRMT", "LOP3", "IADD3", "IMAD", "LDG", "LDS", "STS", "SHFL", "REDUX")
+# opcodes counted in kernel 8's, 9's and 1's SASS
+SASS_OPS = ("SHF", "PRMT", "LOP3", "IADD3", "IMAD", "LDG", "LDS", "STS", "STG", "SHFL",
+            "REDUX")
+SHA256_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "sha256_kernels.cu")
+# kernel 9: the L2 block's leaf batch (K9_TXS transactions of K9_TX_LEN bytes
+# and two payload leaves, padded to K9_LEAF rows and the block axis to 32),
+# its first K9_PARTIAL rows (a partial last warp), merkle_leaf_hash's
+# one-block rows and merkle_inner_hash's two-block rows
+K9_LEAF, K9_TXS, K9_TX_LEN, K9_PARTIAL = 4096, 4000, (100, 1024), 1000
+K9_INNER = 2048
+# kernel 9's variants: each is a list of alternatives, a list of patches
+# (file, old, new) each, and a tree takes the first alternative that fits
+# it (fitting_patches): this tree's sha256_device.cuh, or the one-thread
+# sha256_kernels.cu it replaced. The splits empty the rounds (the loads
+# alone: each block's words folded into the state) or the global loads
+# (the rounds on words made in registers), timed beside the full build
+# (their values wrong).
+SHA256_H, SHA256_CU = "sha256_device.cuh", "sha256_kernels.cu"
+SHA256_ROUNDS = ("  for (int i = 0; i < 64; i++) {\n    if (i >= 16) {",
+                 "  for (int i = 0; i < 16; i++) {\n    a ^= w[i];\n    continue;"
+                 "\n    if (i >= 16) {")
+SHA256_SPLITS = {
+    "rounds emptied": [[(SHA256_H, *SHA256_ROUNDS)], [(SHA256_CU, *SHA256_ROUNDS)]],
+    "loads emptied": [
+        [(SHA256_H, "      r[q] = reinterpret_cast<const w128*>(\n"
+          "          msg + ((size_t)(row0 + row) * nblk + blk) * 64)[lane & 3];",
+          "      r[q].x = row0 + row;\n      r[q].y = blk;\n      r[q].z = lane;\n"
+          "      r[q].w = q;")],
+        [(SHA256_CU, "  for (int i = 0; i < 16; i++) w[i] = load_be32(blk + 4 * i);",
+          "  for (int i = 0; i < 16; i++) w[i] = (uint32_t)(size_t)blk + i;")]],
+}
+# kernel 9's block size: this tree's sha256_kernels.cu at 64 threads (two
+# warps) a block, checked and timed in turns beside its own
+SHA256_BLOCK_VARIANTS = {"64 threads": [[(SHA256_CU, "constexpr int kThreads = 32;",
+                                          "constexpr int kThreads = 64;")]]}
+# kernel 1: points checked and timed (one group; the smoke's partial last
+# warp; the Pallas microbenchmark's 8,192), doublings a chain, and the
+# shorter chains checked at K1_SIZES[1] points
+K1_SIZES, K1_DBL, K1_SHORT = (1, 150, 8192), 256, (1, 16)
+# kernel 1's exchange emptied (this tree: the four lanes' products kept,
+# the shuffles of Shfl4 gone; timing only), alternatives as kernel 9's
+ED_CU = "ed25519_kernels.cu"
+K1_EXCHANGE = {"exchange emptied": [[(ED_CU, "      o0.v[j] = __shfl_sync(mask, v, 0, 4);\n"
+                                      "      o1.v[j] = __shfl_sync(mask, v, 1, 4);\n"
+                                      "      o2.v[j] = __shfl_sync(mask, v, 2, 4);\n"
+                                      "      o3.v[j] = __shfl_sync(mask, v, 3, 4);",
+                                      "      o0.v[j] = v;\n      o1.v[j] = v + 1;\n"
+                                      "      o2.v[j] = v + 2;\n      o3.v[j] = v + 3;")]]}
 BLS_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "bls_kernels.cu")
 SECP_KERNEL = os.path.join("tendermint_tpu_torch", "ops", "csrc", "secp256k1_kernels.cu")
 # kernel 10: the mixed window's live rows and bucket, the distinct signed
 # rows tiled to them, a shard's rows, and the _verify_secp_device calls a turn
 K10_LIVE, K10_BUCKET, K10_SIGNED, K10_SHARD = 3200, 8192, 400, 1024
 SECP_REPS = 3
-KERNEL_NAMES = {2: ("neg_pubkey_table_kernel",),
+KERNEL_NAMES = {1: ("dbl_chain_kernel",),
+                2: ("neg_pubkey_table_kernel",),
                 3: ("verify_table_kernel",),
                 4: ("verify_generic_kernel", "verify_table_kernel"),
                 5: ("neg_pubkey_bigtable_kernel",),
                 6: ("verify_bigcache_kernel",),
                 8: ("challenge_kernel",),
+                9: ("sha256_kernel",),
                 10: ("secp_verify_kernel",),
                 11: ("g1_aggregate_kernel", "g2_aggregate_kernel"),
                 12: ("miller_kernel", "chunk_product_kernel", "final_exp_kernel"),
                 13: ("g1_add_kernel", "g2_add_kernel")}
 BLS_KERNELS = (11, 12, 13)  # the kernels of bls_kernels.cu
-ALL_KERNELS = (2, 3, 4, 5, 6, 8, 10, 11, 12, 13)
+ALL_KERNELS = (1, 2, 3, 4, 5, 6, 8, 9, 10, 11, 12, 13)
 PAIRING_REPS = 5  # check_pairs and native pairing_check calls per turn
 # kernel 12's time split: builds of this tree's bls_kernels.cu with one part
 # of run_program (bls12_381_device.cuh) emptied, timed beside the full one
@@ -336,25 +410,27 @@ def start_variant_builds(torch_build, variants: dict, tag: str,
     return procs
 
 
-def tree_patches(root: str, patches: list) -> list:
-    """A SHA_SPLITS variant's patches, checked to fit the tree at `root`:
-    each old text once in its file."""
+def fitting_patches(root: str, alternatives: list) -> list:
+    """The first of a variant's alternatives (lists of patches) that fits
+    the tree at `root`: each old text once in its file of ops/csrc. A
+    tree none fits stops the call."""
     csrc = os.path.join(root, os.path.dirname(SHA_KERNEL))
-    for f, old, _ in patches:
-        path = os.path.join(csrc, f)
-        if not os.path.exists(path) or open(path).read().count(old) != 1:
-            raise RuntimeError(f"no split patch fits {f} of the tree at {root}")
-    return patches
+    for patches in alternatives:
+        if all(os.path.exists(os.path.join(csrc, f))
+               and open(os.path.join(csrc, f)).read().count(old) == 1
+               for f, old, _ in patches):
+            return patches
+    raise RuntimeError(f"no alternative of a variant fits the tree at {root}")
 
 
-def sass_counts(torch_build, path: str, kernel: str) -> dict:
-    """Instructions of `kernel` in the SASS of a cubin or shared library
-    (cuobjdump -sass): the total and the SASS_OPS opcodes."""
+def sass_lines(torch_build, path: str, kernel: str) -> list:
+    """(address, opcode, line) of each instruction of `kernel` in the SASS
+    of a cubin or shared library (cuobjdump -sass)."""
     cuobjdump = os.path.join(os.path.dirname(torch_build._nvcc()), "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass", path], check=True,
                          capture_output=True, text=True).stdout
     cs = chip_smoke()
-    counts: dict = {}
+    lines = []
     current = None
     for ln in out.splitlines():
         if "Function : " in ln:
@@ -362,13 +438,43 @@ def sass_counts(torch_build, path: str, kernel: str) -> dict:
             continue
         if current != kernel:
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
         if m:
-            op = m.group(1).split(".")[0]
-            counts["total"] = counts.get("total", 0) + 1
-            if op in SASS_OPS:
-                counts[op] = counts.get(op, 0) + 1
+            lines.append((int(m.group(1), 16), m.group(2), ln))
+    return lines
+
+
+def op_counts(lines) -> dict:
+    """The total and the SASS_OPS opcodes of sass_lines' instructions."""
+    counts = {"total": len(lines)}
+    for _, op, _ in lines:
+        op = op.split(".")[0]
+        if op in SASS_OPS:
+            counts[op] = counts.get(op, 0) + 1
     return counts
+
+
+def sass_counts(torch_build, path: str, kernel: str) -> dict:
+    """Instructions of `kernel` in the SASS of a cubin or shared library
+    (cuobjdump -sass): the total and the SASS_OPS opcodes."""
+    return op_counts(sass_lines(torch_build, path, kernel))
+
+
+def sass_loop_counts(torch_build, path: str, kernel: str) -> dict:
+    """op_counts of `kernel`'s first loop: the instructions from the lowest
+    target of a backward branch to that branch (a rolled loop's body;
+    code a branch out of it reaches, as the divergent path of a shuffle,
+    lies after it and is not counted)."""
+    lines = sass_lines(torch_build, path, kernel)
+    back = []
+    for addr, op, ln in lines:
+        m = re.search(r"\bBRA\s+0x([0-9a-f]+)", ln)
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            back.append((int(m.group(1), 16), addr))
+    if not back:
+        raise RuntimeError(f"{kernel} has no loop in {path}")
+    lo, hi = min(back)
+    return op_counts([x for x in lines if lo <= x[0] <= hi])
 
 
 def bind(lib):
@@ -377,6 +483,8 @@ def bind(lib):
     sigs = {
         "tm_neg_pubkey_table": [vp, vp, vp, vp, i, vp],
         "tm_challenge": [vp, i, vp, vp, i, vp],
+        "tm_sha256": [vp, i, vp, vp, i, vp],
+        "tm_dbl_chain": [vp, vp, i, i, vp],
         "tm_verify_table": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
         "tm_verify_generic": [vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
         "tm_verify_bigcache": [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, i, vp],
@@ -433,7 +541,8 @@ def secp_latency_ns(torch, proc, so: str, cs) -> dict:
 
 
 class Build:
-    """One tree's build of ed25519_kernels.cu (kernels 3, 6, 5),
+    """One tree's build of ed25519_kernels.cu (kernels 1-6),
+    sha512_kernels.cu (kernel 8), sha256_kernels.cu (kernel 9),
     secp256k1_kernels.cu (kernel 10) or bls_kernels.cu (kernels 11, 12,
     13), loaded: its launchers on torch tensors, and each kernel's ptxas
     line."""
@@ -510,6 +619,26 @@ class Build:
         ))
         return out
 
+    def sha256(self, torch, buf, cnt):
+        """tm_sha256 on [b, nblk * 64] u8 (16-byte aligned) and [b] int32 ->
+        [b, 32] digests."""
+        assert buf.data_ptr() % 16 == 0
+        out = torch.empty((buf.shape[0], 32), dtype=torch.uint8, device=buf.device)
+        self._check(self.lib.tm_sha256(
+            buf.data_ptr(), buf.shape[1] // 64, cnt.data_ptr(), out.data_ptr(),
+            buf.shape[0], torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
+    def dbl_chain(self, torch, pts, n_dbl: int):
+        """tm_dbl_chain on [b, 4, 32] u8 points -> [b, 4, 32]."""
+        out = torch.empty_like(pts)
+        self._check(self.lib.tm_dbl_chain(
+            pts.data_ptr(), out.data_ptr(), pts.shape[0], n_dbl,
+            torch.cuda.current_stream().cuda_stream,
+        ))
+        return out
+
     def bigtable(self, torch, pub, kc):
         """tm_neg_pubkey_bigtable -> (tables [n, 64, 16, 4, 32], valid [n])."""
         n = pub.shape[0]
@@ -570,8 +699,10 @@ class Build:
 
 class VariantBuild(Build):
     """A SPLITS, WARP_VARIANTS or LANE_VARIANTS build of bls_kernels.cu, a
-    SECP_SPLITS build of secp256k1_kernels.cu or a SHA_SPLITS build of
-    sha512_kernels.cu, loaded: Build's launchers."""
+    SECP_SPLITS build of secp256k1_kernels.cu, a SHA_SPLITS build of
+    sha512_kernels.cu, a SHA256_SPLITS or SHA256_BLOCK_VARIANTS build of
+    sha256_kernels.cu or a K1_EXCHANGE build of ed25519_kernels.cu,
+    loaded: Build's launchers."""
 
     def __init__(self, proc, so: str):
         out = proc.communicate()[0]
@@ -1197,6 +1328,188 @@ def run_kernel8(torch, np, cs, rng, dev, torch_build, sha_built, sha_splits, tim
             "split_ms": split_ms, "sass": sass}
 
 
+def k9_shapes(np, rng, sha256) -> dict:
+    """Kernel 9's shapes as {name: (buf, counts, messages)}: the L2 block's
+    leaf batch as Data.hash() builds it (K9_TXS transactions and two
+    payload leaves under the 0x00 prefix, empty rows to K9_LEAF, the block
+    axis to a power of two), its first K9_PARTIAL rows,
+    merkle_leaf_hash's K9_LEAF one-block rows and merkle_inner_hash's
+    K9_INNER two-block rows (their helpers' buffers, padded alike)."""
+    txs = [rng.bytes(int(k)) for k in rng.integers(K9_TX_LEN[0], K9_TX_LEN[1] + 1, K9_TXS)]
+    leaves = ([b"\x00" + tx for tx in txs] + [b"\x01" + rng.bytes(256), b"\x02" + rng.bytes(128)])
+    leaves += [b""] * (K9_LEAF - len(leaves))
+    buf, cnt = sha256.pad_messages(leaves, prefix=b"\x00")
+    nblk = buf.shape[1] // 64
+    buf = np.pad(buf, ((0, 0), (0, ((1 << (nblk - 1).bit_length()) - nblk) * 64)))
+    msgs = [b"\x00" + m for m in leaves]
+    one = [b"\x00" + rng.bytes(32) for _ in range(K9_LEAF)]
+    two = [b"\x01" + rng.bytes(64) for _ in range(K9_INNER)]
+    return {"leaf batch": (buf, cnt, msgs),
+            f"{K9_PARTIAL} rows": (buf[:K9_PARTIAL], cnt[:K9_PARTIAL], msgs[:K9_PARTIAL]),
+            "one-block leaves": (*sha256.pad_messages(one), one),
+            "two-block inner": (*sha256.pad_messages(two), two)}
+
+
+def run_kernel9(torch, np, cs, rng, dev, torch_build, s256_built, s256_variants,
+                timed_turns, report, smi) -> dict:
+    """Kernel 9: each build (and this tree's 64-thread build) against the
+    plain version and hashlib at k9_shapes, timed in turns per launch and
+    queued; the block sizes in turns; each tree's split (SHA256_SPLITS)
+    queued beside its full build; each build's SASS: instructions of
+    sha256_kernel and a round's (the full build's less the rounds-emptied
+    build's, over 64)."""
+    from tendermint_tpu_torch.ops import sha256
+
+    shapes = {}
+    for name, (buf, cnt, msgs) in k9_shapes(np, rng, sha256).items():
+        want = torch.tensor([list(hashlib.sha256(m).digest()) for m in msgs],
+                            dtype=torch.uint8, device=dev)
+        shapes[name] = (torch.from_numpy(np.ascontiguousarray(buf)).to(dev),
+                        torch.from_numpy(np.ascontiguousarray(cnt)).to(dev), want,
+                        int(cnt.sum()))
+    blocks_builds = {"32 threads": s256_built["this"],
+                     **{n: v for n, v in s256_variants["this"].items()
+                        if n in SHA256_BLOCK_VARIANTS}}
+    for name, (buf, cnt, want, _) in shapes.items():
+        plain = sha256.sha256_batch_plain(buf, cnt)
+        assert torch.equal(plain, want), f"plain != hashlib ({name})"
+        for tag, bld in {**s256_built, **blocks_builds}.items():
+            got = bld.sha256(torch, buf, cnt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{tag}: kernel 9 != plain ({name})"
+    print(f"kernel-vs-plain: kernel 9 of {sorted(s256_built)} (and this tree at "
+          f"{sorted(blocks_builds)}) equal to the plain version and hashlib at "
+          f"{json.dumps({n: list(v[0].shape) for n, v in shapes.items()})} "
+          f"(tolerance: exact); blocks {json.dumps({n: v[3] for n, v in shapes.items()})}")
+    leaf = shapes["leaf batch"]
+    plain_ms = cs.time_cuda(torch, lambda: sha256.sha256_batch_plain(*leaf[:2]), 3)
+
+    def call(bld, n):
+        return bld.sha256(torch, *shapes[n][:2])
+
+    times = timed_turns(list(shapes), call, s256_built)
+    b_ms, b_by = cs.bound_ms(leaf[3] * 64 + 4 * K9_LEAF + 32 * K9_LEAF,
+                             leaf[3] * cs.SHA256_OPS_PER_BLOCK)
+    report(9, "shapes", times, f"bound at the leaf batch ({leaf[3]} blocks) "
+           f"{b_ms:.5f} ms ({b_by})", s256_built)
+    queued = timed_turns(list(shapes), call, s256_built, timer=time_queued)
+    report_queued(9, "shapes", queued, s256_built, smi)
+    print(f"time: sha256_batch_plain at the leaf batch {plain_ms:.2f} ms | {smi}")
+    sizes = ["leaf batch", "two-block inner"]
+    block_order = ["32 threads", "64 threads", "64 threads", "32 threads"]
+    block_ms = {t: {n: {"launch": [], "queued": []} for n in sizes} for t in blocks_builds}
+    for tag in block_order:
+        for n in sizes:
+            block_ms[tag][n]["launch"].append(
+                cs.time_cuda(torch, lambda: call(blocks_builds[tag], n), REPS))
+            block_ms[tag][n]["queued"].append(
+                time_queued(torch, lambda: call(blocks_builds[tag], n), REPS))
+    print(f"kernel9 block: this tree, sha256_kernel at 32 and 64 threads a block in "
+          f"turns {block_order}, ms per launch and queued at {sizes}: "
+          f"{json.dumps(block_ms)} | {smi}")
+    split_ms = {tag: {name: [] for name in ("full", *SHA256_SPLITS)} for tag in s256_built}
+    order = [t for t in ("parent", "this", "this", "parent") if t in s256_built]
+    for tag in order:
+        for name, bld in {"full": s256_built[tag], **s256_variants[tag]}.items():
+            if name in split_ms[tag]:
+                split_ms[tag][name].append(time_queued(torch, lambda: call(bld, "leaf batch"),
+                                                       REPS))
+    sass = {tag: {"full": sass_counts(torch_build, s256_built[tag].cubin, "sha256_kernel"),
+                  "rounds emptied": sass_counts(torch_build,
+                                                s256_variants[tag]["rounds emptied"].so,
+                                                "sha256_kernel")} for tag in s256_built}
+    for tag in s256_built:
+        full, empty = sass[tag]["full"], sass[tag]["rounds emptied"]
+        per_round = {op: round((full.get(op, 0) - empty.get(op, 0)) / 64, 2)
+                     for op in ("total", *SASS_OPS) if full.get(op, 0) != empty.get(op, 0)}
+        sass[tag]["per_round"] = per_round
+        print(f"kernel9 split: {tag} tree, ms a launch of {REPS} queued back to back at "
+              f"the leaf batch per turn, the full build and builds with one part emptied "
+              f"(their values wrong): " + "; ".join(
+                  f"{name} {json.dumps(t)}" for name, t in split_ms[tag].items()) + f" | {smi}")
+        print(f"kernel9 sass: {tag} tree, sha256_kernel instructions (cuobjdump -sass): "
+              f"full {json.dumps(full)}; rounds emptied {json.dumps(empty)}; a round "
+              f"(full less rounds emptied, over 64) {json.dumps(per_round)}; the bound "
+              f"counts {cs.SHA256_OPS_PER_BLOCK} a block | {smi}")
+    return {"plain_ms": plain_ms, "ms": times, "queued_ms": queued, "bound_ms": b_ms,
+            "block_ms": block_ms, "split_ms": split_ms, "sass": sass}
+
+
+def run_kernel1(torch, cs, host, dev, torch_build, built, k1_variants, timed_turns, report,
+                smi) -> dict:
+    """Kernel 1: each build against the plain version on the card at
+    K1_SIZES points x K1_DBL doublings and K1_SHORT doublings, rows 0-3
+    against the host oracle; timed in turns per launch and queued; this
+    tree's exchange-emptied build queued beside its full one; each
+    build's SASS of a doubling (its rolled loop's body)."""
+    from tendermint_tpu_torch.ops import curve25519 as curve
+    from tendermint_tpu_torch.ops import dbl_chain as dc
+    from tendermint_tpu_torch.ops import field25519 as fe
+
+    n_pts = max(K1_SIZES)
+    gen = torch.Generator().manual_seed(K1_DBL)
+    scalars = torch.randint(0, 256, (n_pts, 32), dtype=torch.uint8, generator=gen)
+    scalars[0] = 0
+    scalars[0, 0] = 1  # row 0 is the basepoint
+    pts = fe.to_bytes(curve.scalar_mult_base(scalars.to(dev))).contiguous()
+    t0 = time.perf_counter()
+    plain = dc.dbl_chain_plain(pts, K1_DBL)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    short = {d: dc.dbl_chain_plain(pts[:K1_SIZES[1]], d) for d in K1_SHORT}
+    for tag, bld in built.items():
+        for n in K1_SIZES:
+            got = bld.dbl_chain(torch, pts[:n], K1_DBL)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain[:n]), f"{tag}: kernel 1 != plain at {n} points"
+        for d, want in short.items():
+            got = bld.dbl_chain(torch, pts[:K1_SIZES[1]], d)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{tag}: kernel 1 != plain at {d} doublings"
+    p8 = plain[:4].cpu()
+    for i in range(4):
+        x, y, z, t = (int.from_bytes(bytes(c.tolist()), "little") for c in pts[i].cpu())
+        hq = (x, y, z, t)
+        for _ in range(K1_DBL):
+            hq = host.point_double(hq)
+        got = [int.from_bytes(bytes(c.tolist()), "little") for c in p8[i]]
+        zi, gzi = pow(hq[2], host.P - 2, host.P), pow(got[2], host.P - 2, host.P)
+        assert [hq[0] * zi % host.P, hq[1] * zi % host.P] == [
+            got[0] * gzi % host.P, got[1] * gzi % host.P], f"plain row {i} != host oracle"
+    print(f"kernel-vs-plain: kernel 1 of {sorted(built)} equal to the plain version byte "
+          f"for byte at {list(K1_SIZES)} points x {K1_DBL} doublings and at "
+          f"{K1_SIZES[1]} points x {list(K1_SHORT)}; rows 0-3 (affine) equal to "
+          f"{K1_DBL} host point_double (tolerance: exact)")
+    times = timed_turns(K1_SIZES, lambda bld, n: bld.dbl_chain(torch, pts[:n], K1_DBL))
+    b_ms, b_by = cs.bound_ms(2 * pts.numel(), n_pts * K1_DBL * cs.DBL_OPS)
+    report(1, "points", times, f"{K1_DBL} doublings a point; bound at {n_pts} points "
+           f"{b_ms:.5f} ms ({b_by}); critical path {K1_DBL * 2} dependent field "
+           f"multiplications a point (one thread: {K1_DBL * cs.FE_DBL})")
+    queued = timed_turns(K1_SIZES, lambda bld, n: bld.dbl_chain(torch, pts[:n], K1_DBL),
+                         timer=time_queued)
+    report_queued(1, "points", queued, built, smi)
+    print(f"time: dbl_chain_plain at {n_pts} points x {K1_DBL} {plain_ms:.2f} ms (one "
+          f"call) | {smi}")
+    split = {"full": built["this"], **k1_variants}
+    split_ms = {name: [] for name in split}
+    for _ in range(2):
+        for name, bld in split.items():
+            split_ms[name].append(time_queued(
+                torch, lambda: bld.dbl_chain(torch, pts, K1_DBL), REPS))
+    print(f"kernel1 split: this tree, ms a launch of {REPS} queued back to back at "
+          f"{n_pts} points x {K1_DBL} doublings, the full build and the exchange emptied "
+          f"(its values wrong), two rounds: " + "; ".join(
+              f"{name} {json.dumps(t)}" for name, t in split_ms.items()) + f" | {smi}")
+    sass = {tag: sass_loop_counts(torch_build, bld.cubin, "dbl_chain_kernel")
+            for tag, bld in built.items()}
+    for tag, counts in sass.items():
+        print(f"kernel1 sass: {tag} tree, dbl_chain_kernel's rolled loop, one thread's "
+              f"instructions a doubling (cuobjdump -sass) {json.dumps(counts)}; the bound "
+              f"counts {cs.DBL_OPS} a doubling, the one-thread chain's | {smi}")
+    return {"plain_ms": plain_ms, "ms": times, "queued_ms": queued, "bound_ms": b_ms,
+            "split_ms": split_ms, "sass": sass}
+
+
 def run_kernel10(torch, np, cs, rng, dev, secp_built, secp_splits, timed_turns, report,
                  smi) -> dict:
     """Kernel 10: each build against the plain version and the JAX
@@ -1321,7 +1634,7 @@ def main() -> int:
     if args.parent:
         trees["parent"] = os.path.abspath(args.parent)
     t0 = time.perf_counter()
-    ed_kernels = [k for k in args.kernel if k not in BLS_KERNELS and k not in (8, 10)]
+    ed_kernels = [k for k in args.kernel if k not in BLS_KERNELS and k not in (8, 9, 10)]
     bls_kernels = [k for k in args.kernel if k in BLS_KERNELS]
     procs = {}
     if ed_kernels:
@@ -1334,6 +1647,10 @@ def main() -> int:
     if 8 in args.kernel:
         procs.update({"sha_" + tag: start_build(_build, os.path.join(root, SHA_KERNEL),
                                                 "sha_" + tag)
+                      for tag, root in trees.items()})
+    if 9 in args.kernel:
+        procs.update({"s256_" + tag: start_build(_build, os.path.join(root, SHA256_KERNEL),
+                                                 "s256_" + tag)
                       for tag, root in trees.items()})
     if bls_kernels:
         procs.update({"bls_" + tag: start_build(_build, os.path.join(root, BLS_KERNEL),
@@ -1350,13 +1667,28 @@ def main() -> int:
     sha_splits = {}
     if 8 in args.kernel:
         for tag, root in trees.items():
-            variants = {name: tree_patches(root, p) for name, p in SHA_SPLITS.items()}
+            variants = {name: fitting_patches(root, [p]) for name, p in SHA_SPLITS.items()}
             sha_splits[tag] = start_variant_builds(_build, variants, "shasplit_" + tag,
                                                    SHA_KERNEL, root)
 
+    # kernel 9: each tree's splits that fit it, and this tree's block size;
+    # kernel 1: this tree's exchange emptied
+    s256_variants, k1_variants = {}, {}
+    for tag, root in trees.items():
+        if 9 in args.kernel:
+            variants = {**SHA256_SPLITS, **(SHA256_BLOCK_VARIANTS if tag == "this" else {})}
+            s256_variants[tag] = start_variant_builds(
+                _build, {n: fitting_patches(root, alts) for n, alts in variants.items()},
+                "s256var_" + tag, SHA256_KERNEL, root)
+    if 1 in args.kernel:
+        k1_variants = start_variant_builds(
+            _build, {n: fitting_patches(ROOT, alts) for n, alts in K1_EXCHANGE.items()},
+            "k1var", KERNEL)
+
     def kernels_of(tag):
         return (bls_kernels if tag.startswith("bls_") else [10] if tag.startswith("secp_")
-                else [8] if tag.startswith("sha_") else ed_kernels)
+                else [8] if tag.startswith("sha_") else [9] if tag.startswith("s256_")
+                else ed_kernels)
 
     builds = {tag: Build(*p, cs.ptxas_usage, kernels_of(tag)) for tag, p in procs.items()}
     splits = {name: VariantBuild(*p) for name, p in splits.items()}
@@ -1365,15 +1697,20 @@ def main() -> int:
     secp_splits = {name: VariantBuild(*p) for name, p in secp_splits.items()}
     sha_splits = {tag: {name: VariantBuild(*p) for name, p in v.items()}
                   for tag, v in sha_splits.items()}
+    s256_variants = {tag: {name: VariantBuild(*p) for name, p in v.items()}
+                     for tag, v in s256_variants.items()}
+    k1_variants = {name: VariantBuild(*p) for name, p in k1_variants.items()}
     built = {tag: b for tag, b in builds.items()
-             if not tag.startswith(("bls_", "secp_", "sha_"))}
+             if not tag.startswith(("bls_", "secp_", "sha_", "s256_"))}
     sha_built = {tag[4:]: b for tag, b in builds.items() if tag.startswith("sha_")}
+    s256_built = {tag[5:]: b for tag, b in builds.items() if tag.startswith("s256_")}
     bls_built = {tag[4:]: b for tag, b in builds.items() if tag.startswith("bls_")}
     secp_built = {tag[5:]: b for tag, b in builds.items() if tag.startswith("secp_")}
     n_builds = (len(builds) + len(splits) + len(warp_builds) + len(lane_builds)
-                + len(secp_splits) + sum(len(v) for v in sha_splits.values()))
-    sources = ((KERNEL, ed_kernels), (SHA_KERNEL, sha_built), (SECP_KERNEL, secp_built),
-               (BLS_KERNEL, bls_built))
+                + len(secp_splits) + sum(len(v) for v in sha_splits.values())
+                + sum(len(v) for v in s256_variants.values()) + len(k1_variants))
+    sources = ((KERNEL, ed_kernels), (SHA_KERNEL, sha_built), (SHA256_KERNEL, s256_built),
+               (SECP_KERNEL, secp_built), (BLS_KERNEL, bls_built))
     print(f"build: {n_builds} nvcc builds of "
           f"{' and '.join(src for src, on in sources if on)}"
           f" in parallel, {time.perf_counter() - t0:.1f} s | {smi}")
@@ -1417,6 +1754,14 @@ def main() -> int:
     if 2 in args.kernel:
         result["kernel2"] = run_kernel2(torch, cs, host, eb, pubs, pub_d, kc, built,
                                         timed_turns, report, smi)
+
+    if 1 in args.kernel:
+        result["kernel1"] = run_kernel1(torch, cs, host, dev, _build, built, k1_variants,
+                                        timed_turns, report, smi)
+
+    if 9 in args.kernel:
+        result["kernel9"] = run_kernel9(torch, np, cs, rng, dev, _build, s256_built,
+                                        s256_variants, timed_turns, report, smi)
 
     if 8 in args.kernel:
         result["kernel8"] = run_kernel8(torch, np, cs, rng, dev, _build, sha_built,
@@ -1633,16 +1978,18 @@ def main() -> int:
                                           {"g1": lane_builds, "g2": {}},
                                           timed_turns, report, smi)
 
-    if "parent" in trees or {4, 10, 11, 12, 13} & set(args.kernel):
-        # kernel 2's main path is the first height of verify_commit (the
-        # table build), kernel 8's the blocksync window hashed on the card
-        what = (["commit"] if {2, 3} & set(args.kernel) and "parent" in trees else []) + (
-            ["blocksync_dev"] if 8 in args.kernel and "parent" in trees else []) + (
-            ["generic"] if 4 in args.kernel else []) + (
-            ["secp"] if 10 in args.kernel else []) + (
-            ["blocksync"] if {5, 6} & set(args.kernel) and "parent" in trees else []) + (
-            ["pairing"] if {11, 12} & set(args.kernel) else []) + (
-            ["sharded"] if 13 in args.kernel else [])
+    # kernel 2's main path is the first height of verify_commit (the table
+    # build), kernel 8's the blocksync window hashed on the card; kernels 1
+    # and 9 have no turn (kernel 1's path is the microbenchmark itself,
+    # kernel 9's Data.hash() is host work, out of its kernel's reach)
+    what = (["commit"] if {2, 3} & set(args.kernel) and "parent" in trees else []) + (
+        ["blocksync_dev"] if 8 in args.kernel and "parent" in trees else []) + (
+        ["generic"] if 4 in args.kernel else []) + (
+        ["secp"] if 10 in args.kernel else []) + (
+        ["blocksync"] if {5, 6} & set(args.kernel) and "parent" in trees else []) + (
+        ["pairing"] if {11, 12} & set(args.kernel) else []) + (
+        ["sharded"] if 13 in args.kernel else [])
+    if what:
         turns: dict[str, list[dict]] = {t: [] for t in trees}
         for tag in order:
             proc = subprocess.run(

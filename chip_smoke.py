@@ -26,8 +26,9 @@ Phases (any failure raises and the exit code is non-zero):
    plain version and hashlib + % L (in phase 4 also at the bulk window's
    16,384 rows against the plain version and the host challenges), the
    reduction kernel alone on adversarial
-   digests, ``dbl_chain`` on 8192 points x 256 doublings (bytes and affine
-   coordinates, row 0 against 256 host ``point_double``). The four-lane
+   digests, the four-lane ``dbl_chain`` on 8192 points x 256 doublings and
+   on their first 150 (a partial last warp; bytes and affine coordinates,
+   row 0 against 256 host ``point_double``). The four-lane
    ``verify_prehashed_table`` also at its small-tier shapes
    (``KERNEL3_SIZES``: b = 1, 23, 150 and 256, the last the commit path's
    150 rows padded to its bucket), with ``idx = -1``, ``idx`` past the
@@ -66,8 +67,9 @@ Phases (any failure raises and the exit code is non-zero):
    adversarial keys and the window's build (``kernel5:``), kernel 2 at 1,
    23, 150 and 256 keys (``kernel2:``) and kernel 8's hash at the 2,048
    ragged rows, the first 1,000 of them and the window's 16,384
-   (``kernel8:``), each line with the four-lane critical path or the
-   bound and ``ptxas`` usage.
+   (``kernel8:``), kernel 1 at 1, 150 and 8,192 points (``kernel1:``),
+   each line with the four-lane critical path or the bound and ``ptxas``
+   usage.
 5. The quorum-certificate path (``qc_phase``): ``g1_aggregate`` and
    ``g2_aggregate`` on 256 points with duplicates, opposites and the
    identity and at the device route's shapes (150 signatures; 150 keys),
@@ -108,9 +110,10 @@ Phases (any failure raises and the exit code is non-zero):
    message, cross key, ``ok_in`` False, Q = G with u1 = u2, R at infinity,
    a point with x >= n taking the direct and the wrapped compare, the
    forged wrap r = x - n + 2^256, u1 = u2 = 0) and ``sha256_batch`` on
-   one-block rows, 2-block inner rows and the leaf batch of the L2 block
-   (ragged block counts), each against its plain version on the card, the
-   JAX package's rule or hashlib. Then a validator set of the 150 keys in
+   one-block rows, 2-block inner rows, the leaf batch of the L2 block
+   (ragged block counts) and its first 1,000 rows (a partial last warp),
+   each against its plain version on the card, the JAX package's rule or
+   hashlib (the ``kernel9:`` line times ``sha256_batch`` at those shapes). Then a validator set of the 150 keys in
    which every third holds a secp256k1 key (equal power), with
    ``TM_TPU_SECP_DEVICE=1``: ``verify_commit`` on 5 heights (the 50
    secp256k1 rows on the kernel, a tampered secp256k1 signature rejected
@@ -246,6 +249,18 @@ FE_VERIFY_GENERIC = FE_DECOMPRESS + FE_TABLE_BUILD + FE_VERIFY_TABLE
 # to_cached, then kernel 3's chain
 FE_VERIFY_GENERIC_PATH = FE_DECOMPRESS + 1 + 14 * 2 + 1 + FE_VERIFY_TABLE_PATH
 FE_DBL = 8
+# a doubling on the four lanes of kernel 1 (ge_dbl_x4): two stages of 4
+# independent multiplications
+FE_DBL_PATH = 2
+# a doubling of the one-thread chain (ge_dbl) in 32-bit instructions as
+# nvcc compiles it: the SASS of the one-thread dbl_chain_kernel's rolled
+# loop (chip_kernels.py --kernel 1 with that kernel's tree as --parent,
+# "kernel1 sass:"), 641 of them the IMAD.WIDE of the 160 64x64-bit
+# products (FE_DBL x IMAD_PER_FE_MUL = 800 counts those alone, the four
+# squarings at 25 products); every 32-bit integer instruction issues at
+# the IMAD rate, so kernel 1's bound counts them all, as kernels 8's and
+# 9's do
+DBL_OPS = 2047
 # the big table of one key: decompress, to_cached(-A), 14 cached adds for
 # row 0, 63 x 4 doublings of the 16 columns, 64 x 16 to_cached (the work
 # of the function; the kernel's 16 threads per key each decompress and
@@ -295,6 +310,10 @@ KERNEL3_SIZES = ((1, 0), (23, 2), (150, 0), (256, 106))
 KERNEL2_SIZES = (1, 23, 150, 256)
 # kernel 8's batch whose last warp is partial: the first rows of the 2048
 KERNEL8_PARTIAL = 1000
+# kernel 9's partial last warp (rows of the L2 block's leaf batch) and
+# kernel 1's (points of the 8,192)
+KERNEL9_PARTIAL = 1000
+KERNEL1_PARTIAL = 150
 KERNEL3_BUCKETS = (8, 32, 128, 256)
 # verify_commit at 150 validators, ms a height after the first, with the
 # one-thread kernel 3 (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W)
@@ -1248,9 +1267,16 @@ FE_SECP_DBL, FE_SECP_ADD = 7, 16
 SECP_ROW_LANES = 4
 SECP_DBL_PATH, SECP_ADD_PATH = 3, 5
 SECP_SHARD_ROWS = 1024  # a shard of the mixed window's 8,192 rows over MESH_SHARDS
-# SHA-256, per 64-byte block, from ops/csrc/sha256_kernels.cu: 64 rounds of
-# ~20 32-bit operations, 48 schedule steps of ~12, 16 word loads of ~7
-SHA256_OPS_PER_BLOCK = 64 * 20 + 48 * 12 + 16 * 7
+# SHA-256, per 64-byte block, in 32-bit instructions as nvcc compiles
+# ops/csrc/sha256_device.cuh: 64 rounds of 21.75 with the schedule step
+# (SASS of sha256_kernel, the full build less the rounds-emptied build,
+# over 64: chip_kernels.py --kernel 9, "kernel9 sass:"), the 16 PRMT of
+# the byte swaps and the 8 IADD3 of the feed-forward
+SHA256_OPS_PER_BLOCK = 1392 + 16 + 8
+# the dependent instructions of a SHA-256 round on one lane
+# (sha256_device.cuh): e's rotations (SHF), their XOR (LOP3), then the adds
+# into the next e and a (IADD3, once nvcc has reassociated them)
+SHA256_ROUND_PATH = 3
 
 
 def secp_crafted_rows(host, secp_native, rng):
@@ -1452,9 +1478,13 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
     assert got.cpu().tolist() == want, "tm_secp_verify != the JAX package's rule (crafted rows)"
 
     # --- tm_sha256: one-block leaves, the 2-block inner shape, ragged rows
+    # (the device operands of each shape kept for the kernel9 line)
+    sha_shapes = {}
+
     def sha_check(buf, cnt, msgs, label):
-        got = s2.sha256_batch(D(buf), D(cnt))
-        plain, ms = time_once(torch, s2.sha256_batch_plain, D(buf), D(cnt))
+        sha_shapes[label] = (D(buf), D(cnt))
+        got = s2.sha256_batch(*sha_shapes[label])
+        plain, ms = time_once(torch, s2.sha256_batch_plain, *sha_shapes[label])
         err = max_abs_err(got, plain)
         assert err == 0, f"tm_sha256 != plain ({label})"
         assert [bytes(r) for r in got.cpu().numpy()[: len(msgs)]] == [
@@ -1482,13 +1512,16 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
     leaf_buf = np.pad(leaf_buf, ((0, 0), (0, ((1 << (nblk - 1).bit_length()) - nblk) * 64)))
     plain_ms["sha256"] = sha_check(leaf_buf, leaf_cnt, [b"\x00" + x for x in msgs],
                                    "the leaf batch")
+    sha_check(leaf_buf[:KERNEL9_PARTIAL], leaf_cnt[:KERNEL9_PARTIAL],
+              [b"\x00" + x for x in msgs[:KERNEL9_PARTIAL]], "a partial last warp")
     print(f"kernel-vs-plain: secp_verify_prehashed on 64 crafted rows (valid, flipped "
           f"s, wrong message, cross key, ok_in False, Q = G with u1 = u2, R at "
           f"infinity, x(T) >= n direct and wrapped, the forged wrap, u1 = u2 = 0, "
           f"padding: {sum(want)} accepted) and sha256_batch on {len(leaves32)} "
-          f"one-block rows, {len(pairs)} 2-block rows and the leaf batch "
-          f"{tuple(leaf_buf.shape)} (ragged n_blocks) equal their plain versions "
-          f"(tolerance: exact), the JAX package's rule and hashlib")
+          f"one-block rows, {len(pairs)} 2-block rows, the leaf batch "
+          f"{tuple(leaf_buf.shape)} (ragged n_blocks) and its first {KERNEL9_PARTIAL} "
+          f"rows (a partial last warp) equal their plain versions (tolerance: "
+          f"exact), the JAX package's rule and hashlib")
 
     # --- the mixed-key set: every third validator holds a secp256k1 key
     t0 = time.perf_counter()
@@ -1717,7 +1750,11 @@ def mixed_phase(torch, np, rng, dev, smi, ops, types, ed_keys, chain_id, heights
           f"(pad_messages {pad_s * 1e3:.2f} ms, the rest {(card_s - pad_s) * 1e3:.2f} ms: "
           f"copies, tm_sha256, the host fold); hashlib {hashlib_s * 1e3:.2f} ms | {smi}")
     k10["ms"] = next(r["ms"] for r in out_rows if r["name"] == "secp_verify_prehashed")
-    return out_rows, w_arrays, k10
+    k9 = {label: time_cuda(torch, lambda: s2.sha256_batch(*ops_d), 20)
+          for label, ops_d in sha_shapes.items() if label != "the leaf batch"}
+    k9["the leaf batch"] = next(r["ms"] for r in out_rows if r["name"] == "sha256_batch")
+    k9 = {f"{label} {list(sha_shapes[label][0].shape)}": ms for label, ms in k9.items()}
+    return out_rows, w_arrays, k10, k9
 
 
 # --- the in-process consensus net --------------------------------------------
@@ -2528,8 +2565,11 @@ def main() -> int:
     pts = fe.to_bytes(curve.scalar_mult_base(scalars.to(dev))).contiguous()
     d_out = dc.dbl_chain(pts, n_dbl)
     d_plain = dc.dbl_chain_plain(pts, n_dbl)
+    # a partial last warp: the group of four lanes a point ends mid-warp
+    d_part = dc.dbl_chain(pts[:KERNEL1_PARTIAL], n_dbl)
     torch.cuda.synchronize()
-    errs["dbl_chain"] = max_abs_err(d_out, d_plain)
+    errs["dbl_chain"] = max(max_abs_err(d_out, d_plain),
+                            max_abs_err(d_part, d_plain[:KERNEL1_PARTIAL]))
     assert errs["dbl_chain"] == 0, "dbl_chain: kernel != plain (bytes)"
 
     def affine(p8):
@@ -2791,7 +2831,7 @@ def main() -> int:
             lambda: dc.dbl_chain(pts, n_dbl),
             lambda: dc.dbl_chain_plain(pts, n_dbl),
             2 * pts.numel(),
-            n_pts * n_dbl * FE_DBL * IMAD_PER_FE_MUL,
+            n_pts * n_dbl * DBL_OPS,
             "tools/microbench_pallas.py:106", SOURCE,
         ),
         "neg_pubkey_bigtable": (
@@ -2880,6 +2920,14 @@ def main() -> int:
           f"{json.dumps(k8_ms)} (the ragged rows, their first {KERNEL8_PARTIAL}, the "
           f"window's {blocks} blocks); ptxas: "
           f"{usages.get('challenge_kernel', 'not reported')} | {smi}")
+    k1_ms = {n: time_cuda(torch, lambda: dc.dbl_chain(pts[:n], n_dbl), 20)
+             for n in (1, KERNEL1_PARTIAL)}
+    k1_ms[n_pts] = next(r["ms"] for r in rows if r["name"] == "dbl_chain")
+    print(f"kernel1: dbl_chain_kernel, four lanes a point, median ms of 20 launches "
+          f"at points {json.dumps(k1_ms)} x {n_dbl} doublings; critical path "
+          f"{n_dbl * FE_DBL_PATH} dependent field multiplications a point (one thread "
+          f"a point: {n_dbl * FE_DBL}); checked at {n_pts} and {KERNEL1_PARTIAL} "
+          f"points; ptxas: {usages.get('dbl_chain_kernel', 'not reported')} | {smi}")
     k5_256 = time_cuda(torch, lambda: eb.neg_pubkey_bigtable(pub_d), 20)
     k5_win = next(r["ms"] for r in rows if r["name"] == "neg_pubkey_bigtable")
     print(f"kernel5: neg_pubkey_bigtable_kernel, four lanes a key and column, "
@@ -2935,9 +2983,13 @@ def main() -> int:
           + f" | {smi}")
 
     # --- 6. the mixed-key path and the L2 block's merkle leaves ----------
-    mix_rows, secp_arrays, k10 = mixed_phase(torch, np, rng, dev, smi, ops, types,
-                                               vkeys, chain_id, args.heights)
+    mix_rows, secp_arrays, k10, k9 = mixed_phase(torch, np, rng, dev, smi, ops, types,
+                                                   vkeys, chain_id, args.heights)
     rows += mix_rows
+    print(f"kernel9: sha256_kernel, a lane a row, each warp staging its rows' blocks "
+          f"in shared memory, median ms of 20 launches {json.dumps(k9)}; critical path "
+          f"the longest row's blocks x {SHA256_ROUND_PATH} dependent instructions a "
+          f"round; ptxas: {usages.get('sha256_kernel', 'not reported')} | {smi}")
     print(f"kernel10: secp_verify_kernel, a group of {SECP_ROW_LANES} lanes a row, median "
           f"ms of 20 launches at the window's {k10['rows']} rows ({k10['live']} live) "
           f"{k10['ms']:.4f} and a mesh shard's {SECP_SHARD_ROWS} rows "

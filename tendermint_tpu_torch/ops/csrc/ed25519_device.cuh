@@ -19,7 +19,7 @@
 // The header is plain C++ over stdint types, so g++ also builds it: the
 // CPU tests run the four-lane row code (verify_table_x4,
 // verify_generic_x4, verify_bigcache_x4, neg_pubkey_bigtable_x4,
-// neg_pubkey_table_x4) through a host harness,
+// neg_pubkey_table_x4, dbl_chain_x4) through a host harness,
 // tests/ed25519_lanes_host.cpp. Outside nvcc the device
 // qualifiers below become plain inline functions.
 #pragma once
@@ -494,7 +494,8 @@ __device__ __forceinline__ void ge_to_cached_lane(fe& c, const ge& p,
 // - TableOut (kernel 2): the store alone, the lane's component as its 32
 //   canonical bytes at p + j * 128 (p = the key's table + lane * 32), in
 //   whole words: two 16-byte stores on the card, so the 4 lanes of a
-//   group write each entry's 128 contiguous bytes.
+//   group write each entry's 128 contiguous bytes. Kernel 1 writes its
+//   points through it too (dbl_chain_x4).
 struct TableBytes {
   const uint8_t* tab;
   __device__ __forceinline__ void operator()(fe& e, int j) const {
@@ -797,6 +798,32 @@ __device__ __forceinline__ void neg_pubkey_bigtable_x4(
       ge_dbl_x4(cur, cur, lane, ex);
     }
   }
+}
+
+// Kernel 1's chain of point i by one lane of its group (the repo's Pallas
+// microbenchmark, dbl_chain): every lane reads the whole point (X, Y, Z,
+// T as 32 canonical bytes each at in + i * 128) and runs n_dbl ge_dbl_x4,
+// so it holds the one-thread chain's limbs; lane l writes coordinate l's
+// canonical bytes at out + i * 128 + l * 32 (TableOut's store), so the
+// group writes the point's 128 contiguous bytes. The loop stays rolled:
+// each doubling is one serial chain, and a rolled loop keeps one doubling
+// in the code.
+template <class Ex>
+__device__ __forceinline__ void dbl_chain_x4(int i, int lane, Ex& ex,
+                                             const uint8_t* in, uint8_t* out,
+                                             int n_dbl) {
+  const uint8_t* src = in + (size_t)i * 128;
+  ge p;
+  fe_frombytes(p.X, src);
+  fe_frombytes(p.Y, src + 32);
+  fe_frombytes(p.Z, src + 64);
+  fe_frombytes(p.T, src + 96);
+#pragma unroll 1
+  for (int j = 0; j < n_dbl; j++) ge_dbl_x4(p, p, lane, ex);
+  fe c;
+  fe_pick(c, lane, p.X, p.Y, p.Z, p.T);
+  const TableOut dst{out + (size_t)i * 128 + lane * 32};
+  dst.store(0, c);
 }
 
 }  // namespace edev

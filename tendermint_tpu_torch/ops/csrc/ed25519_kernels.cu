@@ -83,10 +83,18 @@
 // 256 keys spread over 16 SMs where 128-thread blocks of one thread a key
 // used 2.
 //
-// dbl_chain runs one thread per point, limbs in registers, no shared
-// memory. Rows whose verdict is already decided (invalid key, s >= L,
-// padding, idx < 0 or past the store) skip the arithmetic, and no row
-// reads outside its inputs.
+// tm_dbl_chain (dbl_chain_x4) is four lanes per point: each of the 256
+// doublings is ge_dbl_x4's two stages of 4 independent multiplications,
+// so a point's path is 512 dependent multiplications against 2,048 on one
+// thread, and 8,192 points are 1,024 warps, about one wave of the card at
+// 8 warps an SM, where one thread a point filled 64 SMs with one warp
+// each. Each lane holds the whole point; lane l writes coordinate l, so a
+// group writes the point's 128 contiguous bytes. The limbs are those of
+// the one-thread chain, so the bytes are too.
+//
+// Rows whose verdict is already decided (invalid key, s >= L, padding,
+// idx < 0 or past the store) skip the arithmetic, and no row reads
+// outside its inputs.
 //
 // Plain C interface: no PyTorch headers here, so nvcc builds this file in
 // seconds. Launchers run on the caller's stream, allocate nothing, and
@@ -187,23 +195,16 @@ verify_generic_kernel(const uint8_t* __restrict__ pub,
   if (lane == 0) out[i] = ok ? 1 : 0;
 }
 
+// 4 * b threads: thread t is lane t % 4 of point t / 4 (dbl_chain_x4 in
+// ed25519_device.cuh), grouped as in verify_table_kernel; threads past
+// 4 * b leave before any shuffle, as whole groups.
 __global__ void __launch_bounds__(kThreads)
 dbl_chain_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                  int b, int n_dbl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  const uint8_t* src = in + (size_t)i * 128;
-  ge p;
-  fe_frombytes(p.X, src);
-  fe_frombytes(p.Y, src + 32);
-  fe_frombytes(p.Z, src + 64);
-  fe_frombytes(p.T, src + 96);
-  for (int j = 0; j < n_dbl; j++) ge_dbl(p, p);
-  uint8_t* dst = out + (size_t)i * 128;
-  fe_tobytes(dst, p.X);
-  fe_tobytes(dst + 32, p.Y);
-  fe_tobytes(dst + 64, p.Z);
-  fe_tobytes(dst + 96, p.T);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 4 * b) return;
+  Shfl4 ex{0xFu << (threadIdx.x & 28)};
+  dbl_chain_x4(t >> 2, t & 3, ex, in, out, n_dbl);
 }
 
 // Big-tier table: T[i, j] = cached([j * 16^i](-A)), 64 rows x 16 columns
@@ -292,7 +293,8 @@ int tm_verify_generic(const void* pub, const void* r, const void* s,
 
 int tm_dbl_chain(const void* in, void* out, int b, int n_dbl, void* stream) {
   if (b > 0)
-    dbl_chain_kernel<<<blocks_for(b), kThreads, 0, (cudaStream_t)stream>>>(
+    dbl_chain_kernel<<<blocks_for(4 * b), kThreads, 0,
+                       (cudaStream_t)stream>>>(
         (const uint8_t*)in, (uint8_t*)out, b, n_dbl);
   return (int)cudaGetLastError();
 }

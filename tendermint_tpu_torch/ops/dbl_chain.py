@@ -4,8 +4,10 @@ kernel, ``dbl_chain`` (``tools/microbench_pallas.py:106``).
 The Pallas kernel keeps a batch tile of points as loose f32 limbs in VMEM
 and doubles each 256 times without touching HBM. Here a point is
 ``[4, 32]`` canonical bytes (X, Y, Z, T, each < p) and a batch is
-``[B, 4, 32] uint8``; the CUDA kernel keeps one point per thread in
-registers (5 x 51-bit limbs) for the whole chain. The formula is the
+``[B, 4, 32] uint8``; the CUDA kernel runs a point on a group of four
+lanes (``dbl_chain_x4``), each holding the whole point in registers (5 x
+51-bit limbs) for the whole chain and computing one of each stage's four
+independent products; lane l writes coordinate l. The formula is the
 Pallas kernel's own (``curve25519.double``), so the projective output is
 the same value mod p; ``crypto/convert.py`` maps the Pallas ``[4, 32, B]``
 f32 layout to and from this one.

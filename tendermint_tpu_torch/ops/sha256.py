@@ -12,9 +12,11 @@ instead of one host thread hashing every leaf.
   each 32-bit word held in an int64 lane and masked (``>>`` is a logical
   shift because every word is non-negative), as ``ops/sha512.py`` holds
   64-bit words. Rows keep their state past their block count.
-- ``sha256_batch``: the wrapper; ``tm_sha256`` (``csrc/sha256_kernels.cu``)
-  on CUDA tensors, the plain version on CPU ones. It counts its launches
-  in ``sha256_batch.launches``.
+- ``sha256_batch``: the wrapper; ``tm_sha256`` (``csrc/sha256_kernels.cu``,
+  a lane a row, each warp's blocks staged in shared memory, so ``data``
+  must be 16-byte aligned, as a fresh tensor is) on CUDA tensors, the
+  plain version on CPU ones. It counts its launches in
+  ``sha256_batch.launches``.
 - ``merkle_leaf_hash``, ``merkle_inner_hash``, ``merkle_root_pow2``: the
   RFC 6962 domain-separated hashes (leaf 0x00, inner 0x01), each a
   buffer built on the tensor's device and one ``sha256_batch`` call per
@@ -107,6 +109,9 @@ def sha256_batch(data: torch.Tensor, n_blocks: torch.Tensor) -> torch.Tensor:
         )
     check_operand(data, "data", torch.uint8, (b, width), dev)
     check_operand(n_blocks, "n_blocks", torch.int32, (b,), dev)
+    if data.data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned (the kernel reads "
+                         "16-byte pieces)")
     out = torch.empty((b, 32), dtype=torch.uint8, device=dev)
     if b:
         launch("sha256", data, n_blocks, out)

@@ -2,12 +2,13 @@
 // (tests/test_torch_ed25519_lanes.py, test_torch_ed25519_big_lanes.py and
 // test_torch_ed25519_generic_lanes.py build it with g++): the small-tier
 // verify (kernel 3), the generic verify (kernel 4), the big-tier verify
-// (kernel 6), the big-tier table build (kernel 5) and the small-tier table
-// build (kernel 2; tests/test_torch_ed25519_table_lanes.py).
+// (kernel 6), the big-tier table build (kernel 5), the small-tier table
+// build (kernel 2; tests/test_torch_ed25519_table_lanes.py) and the
+// doubling chain (kernel 1).
 //
 // It runs the same source as the card: verify_table_x4,
 // verify_generic_x4, verify_bigcache_x4, neg_pubkey_bigtable_x4,
-// neg_pubkey_table_x4 and the _x4 point operations of
+// neg_pubkey_table_x4, dbl_chain_x4 and the _x4 point operations of
 // ed25519_device.cuh. Four host threads play the
 // 4 lanes of a group and walk the groups (rows, or key columns) in order,
 // as a group of the kernel does; the exchange is a slot array the 4 lanes
@@ -393,6 +394,35 @@ int tm_host_point_ops(const uint8_t* pts, const uint8_t* cached,
   }
   for (auto& t : lanes) t.join();
   return ls.failed ? -1 : 0;
+}
+
+// Kernel 1 on host memory: tm_dbl_chain's operands (in and out [b][128]
+// bytes), the 4 lanes running dbl_chain_x4 over the points in order;
+// run_groups' return codes.
+int tm_host_dbl_chain_x4(const uint8_t* in, uint8_t* out, int b, int n_dbl) {
+  return run_groups(b, nullptr, [&](int i, int lane, HostX4& ex) {
+    dbl_chain_x4(i, lane, ex, in, out, n_dbl);
+    return 0;
+  });
+}
+
+// The one-thread chain the kernel ran before its lanes: n_dbl ge_dbl of
+// each point, its coordinates' canonical bytes in out
+void tm_host_dbl_chain_1t(const uint8_t* in, uint8_t* out, int b, int n_dbl) {
+  for (int i = 0; i < b; i++) {
+    const uint8_t* src = in + (size_t)i * 128;
+    ge p;
+    fe_frombytes(p.X, src);
+    fe_frombytes(p.Y, src + 32);
+    fe_frombytes(p.Z, src + 64);
+    fe_frombytes(p.T, src + 96);
+    for (int j = 0; j < n_dbl; j++) ge_dbl(p, p);
+    uint8_t* dst = out + (size_t)i * 128;
+    fe_tobytes(dst, p.X);
+    fe_tobytes(dst + 32, p.Y);
+    fe_tobytes(dst + 64, p.Z);
+    fe_tobytes(dst + 96, p.T);
+  }
 }
 
 }  // extern "C"

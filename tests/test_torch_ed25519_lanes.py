@@ -12,8 +12,10 @@ verdicts are held byte for byte against the port's plain version
 ``verify_prehashed_table`` with ``_verify_cached_small``'s gather, and the
 host oracle; its point operations limb for limb against the one-thread
 ``ge_dbl``, ``ge_add_cached`` and ``ge_to_cached`` of the same header.
-Tolerance: exact. The big tier's four-lane kernels 5 and 6 run over the
-same harness in ``test_torch_ed25519_big_lanes.py``.
+Tolerance: exact. Kernel 1's four-lane doubling chain (``dbl_chain_x4``)
+is held here too, byte for byte against the one-thread ``ge_dbl`` chain
+and the plain ``dbl_chain_plain``. The big tier's four-lane kernels 5 and
+6 run over the same harness in ``test_torch_ed25519_big_lanes.py``.
 """
 
 import ctypes
@@ -32,6 +34,7 @@ import jax.numpy as jnp
 from tendermint_tpu.ops import ed25519_batch as jeb
 from tendermint_tpu_torch.crypto import ed25519 as host
 from tendermint_tpu_torch.ops import curve25519 as curve
+from tendermint_tpu_torch.ops import dbl_chain as dc
 from tendermint_tpu_torch.ops import ed25519_batch as eb
 from tendermint_tpu_torch.ops import field25519 as fe
 
@@ -66,9 +69,12 @@ def lib():
         ("tm_host_neg_pubkey_bigtable", [vp, vp, vp, vp, i]),
         ("tm_host_bigcache_points", [vp, vp, vp, vp, vp, vp, vp, i]),
         ("tm_host_point_ops", [vp, vp, vp, vp, i]),
+        ("tm_host_dbl_chain_x4", [vp, vp, i, i]),
     ):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
+    lib.tm_host_dbl_chain_1t.argtypes = [vp, vp, i, i]
+    lib.tm_host_dbl_chain_1t.restype = None
     return lib
 
 
@@ -258,3 +264,31 @@ def test_x4_point_ops_equal_one_thread_limb_for_limb(lib):
         got = [[list(_limbs_to_int(out[i, slot, c]).to_bytes(32, "little"))
                 for c in range(4)] for i in range(n)]
         np.testing.assert_array_equal(np.array(got, dtype=np.uint8), want)
+
+
+@pytest.mark.parametrize("n_dbl", [1, 16, 256])
+def test_x4_dbl_chain_equals_one_thread_and_plain(lib, n_dbl):
+    """Kernel 1's four-lane chain (dbl_chain_x4, each lane writing its
+    coordinate) against the one-thread ge_dbl chain it replaced and the
+    plain dbl_chain_plain, byte for byte, on 12 seeded points (Z != 1 on a
+    third of them, the identity, an order-2 point). The chain to the JAX
+    package's double closes through test_torch_ed25519_batch.py's
+    test_dbl_chain_matches_jax_double_as_affine."""
+    rng = np.random.default_rng(1000 + n_dbl)
+    pts = []
+    for j in range(12):
+        p = host.scalar_mult(int(rng.integers(1, 2**62)), host.BASEPOINT)
+        if j % 3 == 0:  # Z != 1
+            p = host.point_add(p, host.scalar_mult(5 + j, host.BASEPOINT))
+        pts.append(_point_bytes(p))
+    pts[4] = _point_bytes(host.IDENTITY)
+    pts[7] = _point_bytes((0, P - 1, 1, 0))  # (0, -1): order 2
+    pts = np.array(pts, dtype=np.uint8)
+    n = pts.shape[0]
+    lanes = np.full((n, 4, 32), 0xAB, dtype=np.uint8)
+    assert lib.tm_host_dbl_chain_x4(_ptr(pts), _ptr(lanes), n, n_dbl) == 0, \
+        "the 4 lanes fell out of lock-step"
+    one = np.zeros_like(lanes)
+    lib.tm_host_dbl_chain_1t(_ptr(pts), _ptr(one), n, n_dbl)
+    np.testing.assert_array_equal(lanes, one)
+    np.testing.assert_array_equal(lanes, dc.dbl_chain_plain(torch.from_numpy(pts), n_dbl).numpy())

@@ -193,7 +193,7 @@ def test_chip_kernels_split_patches_fit_and_build(tmp_path):
 
     src = HEADER.read_text()
     for name, patches in chip_kernels.SHA_SPLITS.items():
-        assert chip_kernels.tree_patches(str(ROOT), patches) == patches, name
+        assert chip_kernels.fitting_patches(str(ROOT), [patches]) == patches, name
         text = src
         for fname, old, new in patches:
             assert fname == HEADER.name, name
