@@ -145,18 +145,27 @@ Phases (any failure raises and the exit code is non-zero):
    ``VerifyScheduler`` as the process default. Mode (a), legacy commits,
    and mode (b), quorum certificates with batch points every 2 blocks
    whose precommits carry BLS dual-signatures checked by the L2 mock's
-   registry verifier (the pairing gate unset), each run to
+   registry verifier (the pairing gate unset), and mode (c), legacy commits
+   over encrypted p2p: each node a ``NodeKey`` from the seed, a
+   ``MultiplexTransport`` on 127.0.0.1, a ``Switch`` and a
+   ``ConsensusReactor(vote_batch=True)``, ring plus chords of
+   ``NET_PEER_DEGREE`` (4), every gossiped vote pre-verified by the node's
+   ``VoteBatcher`` through the scheduler; the native AEAD
+   (``_tmcrypto.so``) must load first. Each runs to
    ``NET_HEIGHTS`` (3) heights plus one. Checks: every node the same block (so
    the same app hash) at every height, every stored LastCommit signature
-   true by the host oracle, the ledger's consensus-class rounds (mode a:
-   signature rounds from ``min_device_batch`` rows, at least one per
-   height; mode b: ``qc_verify`` rounds), small-tier launches in mode (a)
-   (big-tier ones where a round reaches 512 rows), BLS data at every
-   sealed batch point and no BLS launch in either mode; in mode (a) every
-   small-tier round's verdicts, as the net got them, equal the plain
-   version at the dispatched shape. Prints the walls per height, rows and
-   buckets per round, and the device and host shares; the net's launches
-   add to the kernels line.
+   true by the host oracle, the ledger's consensus-class rounds (modes a
+   and c: signature rounds from ``min_device_batch`` rows, at least one per
+   height; mode b: ``qc_verify`` rounds), small-tier launches in modes (a)
+   and (c) (big-tier ones where a round reaches 512 rows; in mode c on
+   rounds that carry ``VoteBatcher`` rows, and no vote a node's batcher
+   passed checked again by its state machine), BLS data at every
+   sealed batch point and no BLS launch in any mode; in modes (a) and (c)
+   every small-tier round's verdicts, as the net got them, equal the plain
+   version (mode a: each at its dispatched shape; mode c: the rounds' rows
+   together, ``plain_over_rounds``). Prints the walls per height, rows and
+   buckets per round, mode (c)'s vote rounds, and the device and host
+   shares; the net's launches add to the kernels line.
 8. The multi-device path (``mesh_phase``) over a ``Mesh`` of
    ``MESH_SHARDS`` (8) shards, all on ``cuda:0``: every line of the
    sharded path (the row split, the table store copied per distinct
@@ -297,6 +306,13 @@ WINDOW = 64
 # each mode commits past the first
 NET_VALIDATORS = 32
 NET_HEIGHTS = 3
+# mode (c)'s topology: past 8 nodes each node dials its next NET_PEER_DEGREE
+# ring successors (the JAX package's committee net: bench.py's degree rule,
+# ring_peer_indices below), about 2 x NET_PEER_DEGREE encrypted connections
+# a node
+NET_PEER_DEGREE = 4
+# phase 7's modes: (label, quorum certificates, over p2p)
+NET_MODES = (("legacy", False, False), ("qc", True, False), ("p2p", False, True))
 
 SOURCE = "tendermint_tpu_torch/ops/csrc/ed25519_kernels.cu"
 SHA_SOURCE = "tendermint_tpu_torch/ops/csrc/sha512_kernels.cu"
@@ -1774,17 +1790,62 @@ def committee_config(cls, n: int, **fields):
     return cfg
 
 
-def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
-    """One n_vals-validator net in this process, wired with the full-mesh
-    broadcast hook, every node KVStoreApplication through LocalClient,
-    MemKV stores, MockL2Node and MockPV, all on the process verifier (the
-    card) behind one started VerifyScheduler as the process default. With
+def ring_peer_indices(i: int, n: int, degree: int) -> list[int]:
+    """The ring-with-chords topology of a committee net: node i dials its
+    next `degree` ring successors (i+1 .. i+degree mod n), so every edge is
+    dialed once and each node ends with about 2 x degree connections."""
+    if n <= 1:
+        return []
+    degree = max(1, min(degree, n - 1))
+    return [(i + d) % n for d in range(1, degree + 1)]
+
+
+def wire_p2p(css, tag: bytes):
+    """Mode (c)'s wiring: each node a NodeKey from the seed, a
+    MultiplexTransport (listening on 127.0.0.1 once started), a Switch
+    and a ConsensusReactor(vote_batch=True), which takes over the node's
+    broadcast hook. Returns [(node key, transport, switch)]."""
+    from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.p2p.key import NodeKey
+    from tendermint_tpu_torch.p2p.node_info import NodeInfo
+    from tendermint_tpu_torch.p2p.switch import Switch
+    from tendermint_tpu_torch.p2p.transport import MultiplexTransport
+
+    handles = []
+    for i, cs in enumerate(css):
+        nk = NodeKey(ed25519.PrivKey.from_secret(tag + b"-node%d" % i))
+        box = {}
+
+        def node_info(nk=nk, box=box):
+            return NodeInfo(node_id=nk.id,
+                            listen_addr=f"127.0.0.1:{box['t'].listen_port}",
+                            network="smoke-net",
+                            channels=box["sw"].channels() if "sw" in box else b"")
+
+        box["t"] = MultiplexTransport(nk, node_info)
+        box["sw"] = Switch(box["t"])
+        box["sw"].add_reactor("consensus", ConsensusReactor(cs, vote_batch=True))
+        handles.append((nk, box["t"], box["sw"]))
+    return handles
+
+
+def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool,
+            p2p: bool = False):
+    """One n_vals-validator net in this process, every node
+    KVStoreApplication through LocalClient, MemKV stores, MockL2Node and
+    MockPV, all on the process verifier (the card) behind one started
+    VerifyScheduler as the process default. Wired with the full-mesh
+    broadcast hook, or with `p2p` over encrypted p2p through each node's
+    ConsensusReactor (wire_p2p, ring plus chords of NET_PEER_DEGREE), whose
+    VoteBatcher pre-verifies every gossiped vote through the scheduler. With
     `qc`: quorum certificates on, a BLS key per validator, batch points
     every 2 blocks with the L2 mock's registry verifier. Runs to
     heights + 1 and returns what the checks and the report need."""
     from tendermint_tpu_torch.abci.client import LocalClient
     from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
     from tendermint_tpu_torch.consensus.state_machine import ConsensusConfig, ConsensusState
+    from tendermint_tpu_torch.consensus.vote_batcher import VoteBatcher
     from tendermint_tpu_torch.crypto import bls_signatures as bls
     from tendermint_tpu_torch.crypto.bls12_381 import R
     from tendermint_tpu_torch.l2node.mock import MockL2Node
@@ -1797,9 +1858,10 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
     from tendermint_tpu_torch.store.block_store import BlockStore
     from tendermint_tpu_torch.store.kv import MemKV
     from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.p2p.transport import NetAddress
     from tendermint_tpu_torch.types.priv_validator import MockPV
 
-    tag = b"%d-%s" % (seed, b"qc" if qc else b"legacy")
+    tag = b"%d-%s" % (seed, b"qc" if qc else b"p2p" if p2p else b"legacy")
     pvs = [MockPV.from_secret(tag + b"-%d" % i) for i in range(n_vals)]
     scalars = [int.from_bytes(hashlib.sha256(tag + b"-bls%d" % i).digest(), "big")
                % (R - 1) + 1 for i in range(n_vals)]
@@ -1832,16 +1894,18 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
                             bls_signer=bls.signer_for(k) if qc else None)
         nodes.append((cs, l2, block_store))
     css = [n[0] for n in nodes]
-    for i, n in enumerate(css):
-        def hook(msg, i=i):
-            for j, other in enumerate(css):
-                if j != i:
-                    other.peer_msg_queue.put_nowait((msg, f"node{i}"))
+    handles = wire_p2p(css, tag) if p2p else []
+    if not p2p:
+        for i, n in enumerate(css):
+            def hook(msg, i=i):
+                for j, other in enumerate(css):
+                    if j != i:
+                        other.peer_msg_queue.put_nowait((msg, f"node{i}"))
 
-        n.broadcast_hook = hook
+            n.broadcast_hook = hook
     ledger = DispatchLedger()
     sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(
-        Registry(f"smoke_net_{int(qc)}")))
+        Registry(f"smoke_net_{int(qc)}_{int(p2p)}")))
     marks = []
     # CUDA events around every kernel wrapper call of the net, recorded
     # just before the call and just after it returns, before the verdict
@@ -1852,12 +1916,51 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
     # wrapped, not the kernel wrappers, whose launch counters are their
     # module globals. Every small-tier round's inputs and verdicts are
     # kept (cloned) for the check against the plain version.
+    #
+    # Which rounds carry VoteBatcher rows: every item a batcher submits is
+    # live (its id in vote_ids) from its _verify_items call until the
+    # verdicts return, which spans the scheduler round that holds it; the
+    # verifier's prepare counts a round's live vote items on the prep
+    # thread, and its run() carries that count to the dispatch thread.
+    import threading
+
     from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
 
     verifier = default_verifier()
     events = []
     kept = {}
     dispatch = verifier._dispatch
+    prepare = verifier.prepare
+    vote_ids, vote_lock, tls = set(), threading.Lock(), threading.local()
+    batcher_rounds, sched_rounds = [], []  # rows; (rows, vote rows)
+    verify_items = VoteBatcher._verify_items
+
+    def tracked_verify_items(self, items):
+        with vote_lock:
+            batcher_rounds.append(len(items))
+            vote_ids.update(id(it) for it in items)
+        try:
+            return verify_items(self, items)
+        finally:
+            with vote_lock:
+                vote_ids.difference_update(id(it) for it in items)
+
+    def tagged_prepare(items):
+        with vote_lock:
+            n_vote = sum(id(it) in vote_ids for it in items)
+        sched_rounds.append((len(items), n_vote))
+        handle = prepare(items)
+        run = handle.run
+
+        def run_tagged():
+            tls.vote_rows = n_vote
+            try:
+                return run()
+            finally:
+                tls.vote_rows = 0
+
+        handle.run = run_tagged
+        return handle
 
     def evented_dispatch(fn, tier, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -1872,7 +1975,7 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
             return got
 
         out = dispatch(evented, tier, *args, **kw)
-        events.append((tier, start, end))
+        events.append((tier, start, end, getattr(tls, "vote_rows", 0)))
         if tier == "small":
             (a,) = operands  # one device: one launch
             kept.setdefault("small", []).append(([t.clone() for t in a], out.copy()))
@@ -1880,6 +1983,14 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
 
     async def drive():
         await sched.start()
+        for nk, t, sw in handles:
+            await t.listen()
+            await sw.start()
+        for i, (nk, t, sw) in enumerate(handles):
+            sw.dial_peers_async(
+                [NetAddress(handles[j][0].id, "127.0.0.1", handles[j][1].listen_port)
+                 for j in ring_peer_indices(i, n_vals, NET_PEER_DEGREE)],
+                persistent=True)
         for cs in css:
             await cs.start()
         marks.append(time.perf_counter())
@@ -1890,6 +2001,8 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
         finally:
             for cs in css:
                 await cs.stop()
+            for nk, t, sw in handles:
+                await sw.stop()
             await sched.stop()
 
     # where the host time goes: single-vote checks (on the event loop,
@@ -1899,43 +2012,130 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool):
     saved_cs = timed(ConsensusState, ("_verify_vote",), splits)
     saved_ex = timed(BlockExecutor, ("validate_block",), splits)
     saved_ex.update(timed_async(BlockExecutor, "apply_block", splits))
+    # single-vote checks split by whose vote: a node checks its own votes
+    # (signed and queued to itself) and, without a reactor, every gossiped
+    # one; with one, the gossiped votes its VoteBatcher could not take (no
+    # key yet: a vote of a height the node has not reached). "rechecked"
+    # counts gossiped votes the node's batcher had already passed.
+    vote_checks = {"own": 0, "gossiped": 0, "rechecked": 0}
+    passed = {}  # id(batcher) -> the signatures it pre-verified
+    batcher_of = {id(sw.reactors["consensus"].cs): id(sw.reactors["consensus"].vote_batcher)
+                  for nk, t, sw in handles}
+    timed_vote = ConsensusState._verify_vote
+    submit, submit_many = VoteBatcher.submit, VoteBatcher.submit_many
+
+    def counted_vote(self, vote, vals):
+        own = (self._privval_pubkey is not None
+               and vote.validator_address == self._privval_pubkey.address())
+        vote_checks["own" if own else "gossiped"] += 1
+        if vote.signature in passed.get(batcher_of.get(id(self)), ()):
+            vote_checks["rechecked"] += 1
+        return timed_vote(self, vote, vals)
+
+    async def tracked_submit(self, pubkey, msg, sig, key_type="ed25519"):
+        ok = await submit(self, pubkey, msg, sig, key_type=key_type)
+        if ok:
+            passed.setdefault(id(self), set()).add(sig)
+        return ok
+
+    async def tracked_submit_many(self, sigs):
+        oks = await submit_many(self, sigs)
+        passed.setdefault(id(self), set()).update(s[2] for s, ok in zip(sigs, oks) if ok)
+        return oks
+
+    ConsensusState._verify_vote = counted_vote
+    VoteBatcher._verify_items = tracked_verify_items
+    VoteBatcher.submit, VoteBatcher.submit_many = tracked_submit, tracked_submit_many
     gc.collect()
     ops.reset_launches()
     set_default_scheduler(sched)
     verifier._dispatch = evented_dispatch
+    verifier.prepare = tagged_prepare
     try:
         asyncio.run(drive())
     finally:
         set_default_scheduler(None)
         del verifier._dispatch  # the instance attribute: the method shows again
+        del verifier.prepare
+        VoteBatcher._verify_items = verify_items
+        VoteBatcher.submit, VoteBatcher.submit_many = submit, submit_many
         restore(ConsensusState, saved_cs)
         restore(BlockExecutor, saved_ex)
     torch.cuda.synchronize()
     kernel_ms = {}
-    for name, start, end in events:
+    vote_launches = {}
+    for name, start, end, n_vote in events:
         kernel_ms[name] = kernel_ms.get(name, 0.0) + start.elapsed_time(end)
+        if n_vote:
+            vote_launches[name] = vote_launches.get(name, 0) + 1
     return {"nodes": nodes, "pvs": pvs, "launches": ops.kernel_launches(),
             "ledger": ledger.entries(), "marks": marks, "kernel_ms": kernel_ms,
-            "splits": splits, "kept": kept,
+            "splits": splits, "kept": kept, "vote_checks": vote_checks,
+            "batcher_rounds": batcher_rounds, "sched_rounds": sched_rounds,
+            "vote_launches": vote_launches,
             "min_batch": css[0].verifier._min_device_batch}
 
 
+def plain_over_rounds(torch, ed, kept, chunk_rows: int = 8192):
+    """Kernel 3's plain version over the rows of many kept small-tier
+    rounds at once: one concatenation of the rounds' distinct table stores
+    (a round whose store equals the one before it shares it), each round's
+    in-range table indices offset into it and its out-of-range ones set to
+    -1 (both reject), the rows run in chunks. The plain version computes
+    each row alone, so each row gets the verdict its round gives it.
+    Returns the largest difference from the verdicts the net got, and the
+    rows checked."""
+    stores, valids, rows = [], [], []
+    base = 0
+    for (tables, tvalid, idx, r_b, s_b, k_b, s_ok), seen in kept:
+        if not stores or not (torch.equal(tables, stores[-1])
+                              and torch.equal(tvalid, valids[-1])):
+            base += stores[-1].shape[0] if stores else 0
+            stores.append(tables)
+            valids.append(tvalid)
+        idx = idx.to(torch.int64)
+        in_range = (idx >= 0) & (idx < tables.shape[0])
+        idx = torch.where(in_range, idx + base, torch.full_like(idx, -1)).to(torch.int32)
+        rows.append((idx, r_b, s_b, k_b, s_ok, torch.from_numpy(seen)))
+    tables, tvalid = torch.cat(stores), torch.cat(valids)
+    cols = [torch.cat(c) for c in zip(*rows)]
+    err = 0
+    for lo in range(0, cols[0].shape[0], chunk_rows):
+        idx, r_b, s_b, k_b, s_ok, seen = (c[lo:lo + chunk_rows] for c in cols)
+        got = ed.verify_prehashed_table_plain(tables, tvalid, idx, r_b, s_b, k_b, s_ok)
+        err = max(err, max_abs_err(seen, got))
+    return err, int(cols[0].shape[0])
+
+
 def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int):
-    """Phase 7: the live net, legacy commits (mode a) and QC heights with
-    batch-point BLS dual-signing (mode b, the pairing gate unset). Checks
-    agreement, the LastCommit signatures against the host oracle, the
-    ledger's consensus rounds and the launch counts, and holds every
-    small-tier LastCommit round, at the shape it was dispatched, against
-    the plain version (the first also with one row's challenge flipped);
-    prints the walls. Returns the launches of both modes,
-    summed per kernel, and that check's max_abs_err per kernel."""
+    """Phase 7: the live net, legacy commits (mode a), QC heights with
+    batch-point BLS dual-signing (mode b, the pairing gate unset) and
+    legacy commits over encrypted p2p through each node's ConsensusReactor
+    (mode c, its native AEAD loaded first). Checks agreement, the
+    LastCommit signatures against the host oracle, the ledger's consensus
+    rounds and the launch counts (mode c: kernel 3 launched on rounds that
+    carry VoteBatcher rows), and holds every small-tier round against the
+    plain version (modes a and b each at the shape it was dispatched, mode
+    c its rounds' rows together; the first round also launched again with
+    one row's challenge flipped); prints the walls. Returns the launches of
+    the three modes, summed per kernel, and that check's max_abs_err per
+    kernel."""
+    from tendermint_tpu_torch.crypto import aead
     from tendermint_tpu_torch.ops import ed25519_batch as ed
 
     assert os.environ.get(BLS_GATE) is None
+    # mode (c) seals every frame: the native library, or the net would
+    # time pure-Python ChaCha20 and hide the card
+    t0 = time.perf_counter()
+    aead_lib = aead._native_lib()
+    aead_s = time.perf_counter() - t0
+    assert aead_lib is not None, "the native AEAD (_tmcrypto.so) did not load"
+    print(f"main path: consensus net (p2p): AEAD route native, {aead_lib._name} "
+          f"(built or loaded in {aead_s:.2f} s)")
     bls_kernels = ("g1_aggregate", "g2_aggregate", "miller", "final_exp")
     total, errs = {}, {}
-    for mode, qc in (("legacy", False), ("qc", True)):
-        r = run_net(torch, ops, seed, n_vals, heights, qc)
+    for mode, qc, p2p in NET_MODES:
+        r = run_net(torch, ops, seed, n_vals, heights, qc, p2p=p2p)
         nodes, launches, ledger = r["nodes"], r["launches"], r["ledger"]
         bs0 = nodes[0][2]
         pubs = {pv.get_pub_key().address(): pv.get_pub_key().data for pv in r["pvs"]}
@@ -1969,18 +2169,38 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
             assert len(sig_rounds) >= heights, (mode, ledger)
             for name in ("neg_pubkey_table", "verify_prehashed_table"):
                 assert launches[name] > 0, f"{name} was not launched on the live net"
+            if p2p:
+                assert r["batcher_rounds"], "p2p: no VoteBatcher round"
+                assert r["vote_launches"].get("small", 0) > 0, (
+                    "p2p: verify_prehashed_table never ran a round with VoteBatcher rows")
+                assert r["vote_checks"]["rechecked"] == 0, (
+                    "p2p: the state machine checked a vote its VoteBatcher had passed",
+                    r["vote_checks"])
             if any(e["dispatched"] >= 512 for e in sig_rounds):
                 for name in ("neg_pubkey_bigtable", "verify_prehashed_bigcache"):
                     assert launches[name] > 0, f"{name} was not launched on the live net"
             # every small-tier round, as the net dispatched it, against the
-            # plain version: the verdicts the net got are the kernel's
+            # plain version: the verdicts the net got are the kernel's. Mode
+            # (c)'s thousand-odd rounds at ~0.5 s a plain call would not fit
+            # the smoke's limit: their rows run through the plain version
+            # together (plain_over_rounds)
             rounds_err = 0
-            for k_args, k_seen in r["kept"]["small"]:
-                k_plain = ed.verify_prehashed_table_plain(*k_args)
-                rounds_err = max(rounds_err,
-                                 max_abs_err(torch.from_numpy(k_seen), k_plain))
-            assert rounds_err == 0, "a small-tier round of the net != plain"
+            t_check = time.perf_counter()
             n_kept = len(r["kept"]["small"])
+            if p2p:
+                rounds_err, n_checked = plain_over_rounds(torch, ed, r["kept"]["small"])
+                how = (f"all {n_kept} of the {mode} net's small-tier rounds, their "
+                       f"{n_checked} dispatched rows (padding included) through the "
+                       f"plain version together over their table stores")
+            else:
+                for k_args, k_seen in r["kept"]["small"]:
+                    k_plain = ed.verify_prehashed_table_plain(*k_args)
+                    rounds_err = max(rounds_err,
+                                     max_abs_err(torch.from_numpy(k_seen), k_plain))
+                how = (f"all {n_kept} of the {mode} net's small-tier rounds as "
+                       f"dispatched")
+            assert rounds_err == 0, "a small-tier round of the net != plain"
+            check_s = time.perf_counter() - t_check
             # the first again, launched here, and with row 0's challenge
             # flipped (every signature of the net is valid, so this is the
             # rejecting case)
@@ -2000,15 +2220,16 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
             assert err == 0, "verify_prehashed_table != plain on the net's round"
             assert not bool(got_bad[0]) and torch.equal(got_bad[1:].cpu(), got[1:].cpu()), \
                 "the flipped challenge was not rejected alone"
-            errs["verify_prehashed_table"] = max(err, rounds_err)
-            print(f"kernel-vs-plain: verify_prehashed_table on all {n_kept} of "
-                  f"the net's small-tier LastCommit rounds as dispatched: the "
+            errs["verify_prehashed_table"] = max(errs.get("verify_prehashed_table", 0),
+                                                 err, rounds_err)
+            print(f"kernel-vs-plain: verify_prehashed_table on {how}: the "
                   f"verdicts the net got equal the plain version; the first "
                   f"({n_rows} rows over a store of {int(args[0].shape[0])} key "
                   f"tables; {int(seen.sum())} accepted) launched again, and with "
                   f"row 0's challenge flipped: equal to its plain version and to "
                   f"the verdicts the net got (tolerance: exact); the flipped row "
-                  f"alone rejected")
+                  f"alone rejected; the plain versions of the rounds took "
+                  f"{check_s:.1f} s")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         marks = r["marks"]
@@ -2021,7 +2242,10 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
         qc_s = sum(e["device_s"] for e in qc_rounds)
         desc = ("quorum certificates, batch points every 2 blocks with BLS "
                 "dual-signing through the registry verifier (pairing gate unset)"
-                if qc else "legacy commits")
+                if qc else
+                f"legacy commits over encrypted p2p (ChaCha20-Poly1305, native) "
+                f"through ConsensusReactor(vote_batch=True), ring plus chords "
+                f"of degree {NET_PEER_DEGREE}" if p2p else "legacy commits")
         extra = (f"; batch points at heights {points}, {len(l2.committed_batches)} "
                  f"batches committed to the L2 with {[len(d) for _, d in l2.committed_batches]} "
                  f"BLS datas; QCs carried by blocks {carried}" if qc else "")
@@ -2036,7 +2260,25 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
               f"{[e['requested'] for e in sig_all]}; buckets "
               f"{[e['dispatched'] for e in sig_all]}; {len(qc_rounds)} qc_verify "
               f"rounds ({sum(e['requested'] for e in qc_rounds)} certificates, "
-              f"native host pairing)")
+              f"native host pairing) | {smi}")
+        if p2p:
+            mb = r["min_batch"]
+            br = r["batcher_rounds"]
+            vr = [(n, v) for n, v in r["sched_rounds"] if v]
+            print(f"main path: consensus net ({mode}): {len(br)} VoteBatcher rounds "
+                  f"({sum(br)} votes, rows per round mean {sum(br) / len(br):.2f}, "
+                  f"max {max(br)}); {len(vr)} verifier rounds carried VoteBatcher "
+                  f"rows (rows per round mean {sum(n for n, _ in vr) / max(1, len(vr)):.2f}"
+                  f", max {max((n for n, _ in vr), default=0)}; vote rows per round "
+                  f"mean {sum(v for _, v in vr) / max(1, len(vr)):.2f}), "
+                  f"{sum(n < mb for n, _ in vr)} of them under min_device_batch "
+                  f"({mb}) rows and so on the host oracle "
+                  f"({sum(v for n, v in vr if n < mb)} votes), "
+                  f"{sum(n >= mb for n, _ in vr)} on the card "
+                  f"({sum(v for n, v in vr if n >= mb)} votes); kernel launches "
+                  f"on rounds with VoteBatcher rows by tier "
+                  f"{json.dumps(r['vote_launches'])}; single-vote checks by the "
+                  f"state machine {json.dumps(r['vote_checks'])} | {smi}")
         busy = sum(r["kernel_ms"].values()) / 1e3
         print(f"time: consensus net ({mode}) ms per height {[round(w, 1) for w in walls]} "
               f"(first height, then steady); wall {wall * 1e3:.1f} ms; verify "
@@ -2052,7 +2294,10 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
         sp = r["splits"]
         per = n_vals * (heights + 1)  # node-heights
         print(f"time: consensus net ({mode}) host split: single-vote checks "
-              f"(host oracle, on the event loop) {sp.get('_verify_vote', 0.0) * 1e3:.1f} "
+              f"(host oracle, on the event loop; {r['vote_checks']['own']} of the "
+              f"node's own votes, {r['vote_checks']['gossiped']} gossiped, "
+              f"{r['vote_checks']['rechecked']} of them pre-verified) "
+              f"{sp.get('_verify_vote', 0.0) * 1e3:.1f} "
               f"ms = {sp.get('_verify_vote', 0.0) / wall:.3f} of the wall; "
               f"LastCommit validation (executor threads, scheduler waits "
               f"included) {sp.get('validate_block', 0.0) * 1e3:.1f} ms summed, "
@@ -3005,7 +3250,7 @@ def main() -> int:
     for row in rows:
         row["launches"] += net.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"], net_errs.get(row["name"], 0))
-    print(f"main path: consensus net launches per kernel, both modes "
+    print(f"main path: consensus net launches per kernel, the three modes "
           f"{json.dumps({k: v for k, v in net.items() if v})} (added to the "
           f"kernels line's launches)")
 

@@ -1,7 +1,8 @@
 """Shared build-or-load machinery for the native C++ fast paths.
 
 The port's native libraries (_tmbls.so, the BLS12-381 host fast path;
-_tmsecp.so, the secp256k1 host verify route) are compiled from the
+_tmsecp.so, the secp256k1 host verify route; _tmcrypto.so, the
+ChaCha20-Poly1305 AEAD of the p2p secret connection) are compiled from the
 repo's native/<name>.cpp on first use, into the port's
 own build directory tendermint_tpu_torch/_kbuild/ (git-ignored): the JAX
 package's libraries are never loaded. Staleness is decided by a SHA-256
@@ -201,3 +202,20 @@ class NativeLoader:
         finally:
             self._lock.release()
 
+
+def preload_in_background() -> threading.Thread:
+    """Warm all native libraries from a daemon thread so entry points
+    other than the node (light proxy, tools, RPC-driven verification)
+    never pay a multi-second synchronous g++ compile inline; the pure-
+    Python fallbacks serve until each loader's first-use lock clears."""
+
+    def _warm() -> None:
+        from . import aead, bls_native, secp_native
+
+        bls_native.native_lib()
+        secp_native.native_lib()
+        aead._native_lib()
+
+    t = threading.Thread(target=_warm, name="native-preload", daemon=True)
+    t.start()
+    return t

@@ -214,15 +214,22 @@ def parity_net(ns, heights: int = 3, n: int = 4, qc: bool = False,
                 await scheduler.stop()
 
     asyncio.run(run())
+    return net_heights([nd[3] for nd in nodes], heights)
+
+
+def net_heights(stores, heights: int) -> list[dict]:
+    """Per height of a net run to heights + 1: every node's block hash and
+    app hash after it, and the first node's blocks (what assert_parity
+    reads), from the nodes' block stores."""
     out = []
     for h in range(1, heights + 1):
-        blocks = [nd[3].load_block(h) for nd in nodes]
-        nxt = [nd[3].load_block(h + 1) for nd in nodes]
+        blocks = [bs.load_block(h) for bs in stores]
+        nxt = [bs.load_block(h + 1) for bs in stores]
         out.append({
             "hashes": {b.hash() for b in blocks},
             "app_hashes": {b.header.app_hash for b in nxt},
             "header": blocks[0].header,
-            "prev": nodes[0][3].load_block(h - 1) if h > 1 else None,
+            "prev": stores[0].load_block(h - 1) if h > 1 else None,
             "block": blocks[0],
             "next": nxt[0],
         })

@@ -87,6 +87,24 @@ VERBATIM = [
     "consensus/commit_pipeline.py",
     "consensus/replay.py",
     "consensus/state_machine.py",
+    # the p2p stack and the consensus reactor
+    "libs/flowrate.py",
+    "crypto/x25519.py",
+    "crypto/aead.py",
+    "crypto/xchacha.py",
+    "p2p/__init__.py",
+    "p2p/key.py",
+    "p2p/node_info.py",
+    "p2p/secret_connection.py",
+    "p2p/mconn.py",
+    "p2p/transport.py",
+    "p2p/switch.py",
+    "p2p/addrbook.py",
+    "p2p/trust.py",
+    "p2p/pex.py",
+    "p2p/upnp.py",
+    "p2p/fuzz.py",
+    "consensus/reactor.py",
 ]
 
 _PROBE = r"""
@@ -96,7 +114,8 @@ import tendermint_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     tendermint_tpu_torch.__path__, "tendermint_tpu_torch.")]
 for name in ("consensus.state_machine", "state.execution", "l2node.mock",
-             "parallel.mesh", "ops.shard_reduce"):
+             "parallel.mesh", "ops.shard_reduce", "consensus.reactor",
+             "p2p.switch", "p2p.upnp", "crypto.aead", "libs.flowrate"):
     assert "tendermint_tpu_torch." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -142,6 +161,18 @@ REWORDED = {
     "consensus/pacing.py": [(
         "The cluster tracer (PR 5) already measures",
         "The cluster tracer already measures",
+    )],
+    "p2p/pex.py": [(
+        "(addrbook.go:1-947); round 2's flat scored table is gone.",
+        "(addrbook.go:1-947), not a flat scored table.",
+    )],
+    # the port builds its native libraries into its own _kbuild/
+    "crypto/aead.py": [(
+        "with g++ into the package directory and loaded via ctypes — the framework's\n"
+        "native equivalent of x/crypto's assembly AEAD (SURVEY.md §2.2). The Python",
+        "with g++ into the port's build directory, _kbuild/, and loaded via ctypes —\n"
+        "the framework's native equivalent of x/crypto's assembly AEAD (SURVEY.md\n"
+        "§2.2). The Python",
     )],
 }
 
@@ -221,3 +252,43 @@ def test_lazy_imports_resolve_inside_the_port(path):
         as_module = target.with_suffix(".py").is_file() or (target / "__init__.py").is_file()
         as_submodule = (target / f"{name}.py").is_file() or (target / name / "__init__.py").is_file()
         assert as_module or as_submodule, f"{path.name}:{line}: {'.'.join(mod)}.{name}"
+
+
+def test_aead_builds_its_own_library_into_the_port():
+    """The port's AEAD builds native/chacha20poly1305.cpp into its own
+    _kbuild/ (with the source-hash sidecar) and loads that file, never the
+    JAX package's tendermint_tpu/_tmcrypto.*.so."""
+    from tendermint_tpu_torch.crypto import _native_build, aead
+
+    lib = aead._native_lib()
+    assert lib is not None and aead.using_native()
+    path = pathlib.Path(lib._name).resolve()
+    assert path.parent == PORT / "_kbuild", path
+    assert path.name.startswith("_tmcrypto.") and path.suffix == ".so"
+    assert REF.resolve() not in path.parents
+    want = _native_build._src_hash(str(ROOT / "native" / "chacha20poly1305.cpp"))
+    assert _native_build._stored_hash(str(path)) == want
+
+
+_PRELOAD = r"""
+import sys
+sys.modules["jax"] = None
+from tendermint_tpu_torch.crypto import _native_build, aead, bls_native, secp_native
+t = _native_build.preload_in_background()
+t.join(600)
+assert not t.is_alive()
+for mod in (bls_native, secp_native, aead):
+    assert mod._loader._tried and mod._loader._lib is not None, mod.__name__
+    print(mod._loader._lib._name)
+"""
+
+
+def test_preload_in_background_loads_all_three_native_libraries():
+    out = subprocess.run(
+        [sys.executable, "-c", _PRELOAD],
+        cwd=ROOT, capture_output=True, text=True, timeout=660,
+    )
+    assert out.returncode == 0, out.stderr
+    paths = [pathlib.Path(line).resolve() for line in out.stdout.split()]
+    assert [p.name.split(".")[0] for p in paths] == ["_tmbls", "_tmsecp", "_tmcrypto"]
+    assert all(p.parent == PORT / "_kbuild" for p in paths), paths
