@@ -201,7 +201,43 @@ Phases (any failure raises and the exit code is non-zero):
    ``FP_G2_ADD_KERNEL_PATH``, ``FP_G2_ADD_PATH``) and ``ptxas`` usage;
    the ``g1sums:`` line the same for the G1 sums on lane groups
    (``g1_tree_paths``, ``FP_G1_ADD_KERNEL_PATH``, ``FP_G1_ADD_PATH``).
-9. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+9. The catch-up path (``catchup_phase``): a node that joins or restarts
+   catches up. The served chain: ``CATCHUP_HEIGHTS`` (129) heights of the
+   seeded 150-validator set of phases 3-4, built through the port's
+   ``BlockExecutor`` (``create_proposal_block`` with ``CATCHUP_TXS`` (3)
+   kvstore transactions of the mock L2 node, every precommit signed into a
+   ``VoteSet``, ``make_commit()``, ``apply_block``, ``save_block``). Mode
+   (a): a fresh node blocksyncs it from genesis over encrypted p2p through
+   ``BlocksyncReactor.start_sync()`` from two honest servers
+   (``BlocksyncReactor(active=False)`` over copies of the source's block
+   store, each its own ``NodeKey``, ``MultiplexTransport`` on 127.0.0.1
+   and ``Switch``), its windows through ``default_dispatch("blocksync")``
+   and one started ``VerifyScheduler`` onto kernels 5 and 6, each applied
+   block's LastCommit check onto kernel 3. Mode (b): the same with a third,
+   lying server whose block ``CATCHUP_LIAR_BLOCK`` (12) carries a
+   LastCommit with the signatures of more than 1/3 of the power tampered,
+   dialed first and alone until the client's pool has asked it for that
+   block. Checks: height 128 reached and ``on_caught_up`` fired; every
+   block hash and the app hash after every height equal the source's;
+   kernel 6 launched (and kernel 5 in mode a); every window round equal to
+   its plain version at its shape, the applied blocks' small-tier rounds
+   through the plain version together (``plain_over_rounds``), a seeded
+   sample of rows against the host oracle; in (b) a window verdict flags
+   height 11, the pool punishes the lying peer alone and it leaves the
+   client's switch. Mode (c): ``LightClient`` trusted at height 1, its
+   primary and one witness ``StoreProvider`` over the source's stores,
+   verifies to 128 sequentially (128 rounds of 150 rows) and by skipping,
+   every round through ``default_dispatch("light")`` onto kernel 3, and
+   rejects height 11 served with the tampered commit (its tampered rows
+   alone false, as the host oracle says). Prints the AEAD route, each mode's
+   ms to catch up and commits/s, each window round's commits, rows, bucket
+   and tier, the wall split into window rounds, per-block verifies outside
+   ``apply_block``, ``apply_block`` with its LastCommit check apart, and
+   the rest (waiting on the pool or p2p, the reactor's own work), the
+   device busy share and the launches, beside phase 3's bare window of the
+   same run; for (c) ms a step, sequential and skipping. The launches add
+   to the kernels line.
+10. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -221,6 +257,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -508,20 +545,27 @@ def kernel4_rows(torch, host, keys, pubs, b: int, n_pad: int, tag: bytes, dev):
     return (pub, R, S, K, ok), want
 
 
+def heaviest_third(vset) -> list[int]:
+    """Indices of the heaviest validators holding more than 1/3 of the
+    power (signed_window's choice)."""
+    vals = vset.validators
+    total = sum(v.voting_power for v in vals)
+    out, power = [], 0
+    for i in sorted(range(len(vals)), key=lambda i: -vals[i].voting_power):
+        if 3 * power > total:
+            break
+        out.append(i)
+        power += vals[i].voting_power
+    return out
+
+
 def signed_window(host, types, vset, by_addr, chain_id, n_commits, bad_height, rng):
     """n_commits commits of vset for heights 1.., all validators signing
     for the block; at bad_height the signatures of the heaviest
     validators holding more than 1/3 of the power are tampered. Returns
     (entries [(block_id, height, commit)], tampered validator indices)."""
     vals = vset.validators
-    total = sum(v.voting_power for v in vals)
-    order = sorted(range(len(vals)), key=lambda i: -vals[i].voting_power)
-    tampered, power = [], 0
-    for i in order:
-        if 3 * power > total:
-            break
-        tampered.append(i)
-        power += vals[i].voting_power
+    tampered = heaviest_third(vset)
     entries = []
     for h in range(1, n_commits + 1):
         bid = types.BlockID(
@@ -1800,34 +1844,40 @@ def ring_peer_indices(i: int, n: int, degree: int) -> list[int]:
     return [(i + d) % n for d in range(1, degree + 1)]
 
 
-def wire_p2p(css, tag: bytes):
-    """Mode (c)'s wiring: each node a NodeKey from the seed, a
-    MultiplexTransport (listening on 127.0.0.1 once started), a Switch
-    and a ConsensusReactor(vote_batch=True), which takes over the node's
-    broadcast hook. Returns [(node key, transport, switch)]."""
-    from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+def p2p_node(secret: bytes, network: str, name: str, reactor):
+    """(node key, transport, switch) of one p2p node: a NodeKey from
+    `secret`, a MultiplexTransport (listening on 127.0.0.1 once started)
+    and a Switch carrying `reactor` under `name`."""
     from tendermint_tpu_torch.crypto import ed25519
     from tendermint_tpu_torch.p2p.key import NodeKey
     from tendermint_tpu_torch.p2p.node_info import NodeInfo
     from tendermint_tpu_torch.p2p.switch import Switch
     from tendermint_tpu_torch.p2p.transport import MultiplexTransport
 
-    handles = []
-    for i, cs in enumerate(css):
-        nk = NodeKey(ed25519.PrivKey.from_secret(tag + b"-node%d" % i))
-        box = {}
+    nk = NodeKey(ed25519.PrivKey.from_secret(secret))
+    box = {}
 
-        def node_info(nk=nk, box=box):
-            return NodeInfo(node_id=nk.id,
-                            listen_addr=f"127.0.0.1:{box['t'].listen_port}",
-                            network="smoke-net",
-                            channels=box["sw"].channels() if "sw" in box else b"")
+    def node_info():
+        return NodeInfo(node_id=nk.id, listen_addr=f"127.0.0.1:{box['t'].listen_port}",
+                        network=network,
+                        channels=box["sw"].channels() if "sw" in box else b"")
 
-        box["t"] = MultiplexTransport(nk, node_info)
-        box["sw"] = Switch(box["t"])
-        box["sw"].add_reactor("consensus", ConsensusReactor(cs, vote_batch=True))
-        handles.append((nk, box["t"], box["sw"]))
-    return handles
+    box["t"] = MultiplexTransport(nk, node_info)
+    box["sw"] = Switch(box["t"])
+    box["sw"].add_reactor(name, reactor)
+    return nk, box["t"], box["sw"]
+
+
+def wire_p2p(css, tag: bytes):
+    """Mode (c)'s wiring: each node a NodeKey from the seed, a
+    MultiplexTransport (listening on 127.0.0.1 once started), a Switch
+    and a ConsensusReactor(vote_batch=True), which takes over the node's
+    broadcast hook. Returns [(node key, transport, switch)]."""
+    from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+
+    return [p2p_node(tag + b"-node%d" % i, "smoke-net", "consensus",
+                     ConsensusReactor(cs, vote_batch=True))
+            for i, cs in enumerate(css)]
 
 
 def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool,
@@ -2307,6 +2357,692 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
               f"node-height | {smi}")
         del r, nodes
         gc.collect()
+    return total, errs
+
+
+# --- the catch-up path: blocksync over p2p, then the light client --------------
+
+# the served chain: two windows of VERIFY_WINDOW (64) commits and the block
+# whose LastCommit proves the last of them
+CATCHUP_HEIGHTS = 2 * WINDOW + 1
+# kvstore transactions per block, from the mock L2 node
+CATCHUP_TXS = 3
+# the lying peer's block whose LastCommit (the commit of the height before)
+# carries tampered signatures of more than 1/3 of the power; within the 20
+# heights the pool asks of a peer while it is the only one (a peer holds at
+# most 20 pending requests, blocksync/pool.py _pick_peer)
+CATCHUP_LIAR_BLOCK = 12
+CATCHUP_TIMEOUT_S = 180
+# rows of a mode's recorded rounds held against the host oracle
+CATCHUP_SAMPLE_ROWS = 128
+CATCHUP_T0 = 1_700_000_000 * 10**9
+CATCHUP_PERIOD_NS = 3600 * 10**9  # the light client's trusting period
+
+
+def catchup_chain(vkeys, powers, chain_id: str, n_heights: int):
+    """The served chain: n_heights blocks of the seeded validator set (a
+    MockPV over each key, its power), each a proposal block of the port's
+    BlockExecutor with CATCHUP_TXS kvstore transactions of the mock L2 node
+    (KVStoreApplication through LocalClient), every validator's precommit
+    signed into a VoteSet and make_commit(), then apply_block (its
+    LastCommit check on the process verifier) and BlockStore.save_block. A
+    block's time is CATCHUP_T0 plus its height in seconds. Returns what the
+    servers, the client and the light providers need."""
+    from types import SimpleNamespace
+
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.l2node.mock import MockL2Node
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.state import State
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.store.block_store import BlockStore
+    from tendermint_tpu_torch.store.kv import MemKV
+    from tendermint_tpu_torch.types.block_id import BlockID
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+    from tendermint_tpu_torch.types.vote_set import VoteSet
+
+    pvs = {k.public_key().address(): MockPV(k) for k in vkeys}
+    genesis = GenesisDoc(
+        chain_id=chain_id, genesis_time_ns=CATCHUP_T0,
+        validators=[GenesisValidator("ed25519", k.public_key().data, int(p))
+                    for k, p in zip(vkeys, powers)])
+    genesis.validate_and_complete()
+    state = State.from_genesis(genesis)
+    state_store = StateStore(MemKV())
+    state_store.bootstrap(state)
+    kv = MemKV()
+    bs = BlockStore(kv)
+    l2 = MockL2Node(txs_per_block=CATCHUP_TXS)
+    executor = BlockExecutor(state_store, bs, LocalClient(KVStoreApplication()), l2)
+    sign_s = [0.0]
+
+    async def go(state):
+        last_commit = None
+        for h in range(1, n_heights + 1):
+            t = CATCHUP_T0 + h * 10**9
+            block = executor.create_proposal_block(
+                h, state, last_commit, state.validators.validators[0].address,
+                l2.request_block_data(h), t)
+            parts = block.make_part_set()
+            bid = BlockID(block.hash(), parts.header)
+            votes = VoteSet(chain_id, h, 0, VoteType.PRECOMMIT, state.validators)
+            t0 = time.perf_counter()
+            for i, v in enumerate(state.validators.validators):
+                vote = Vote(type=VoteType.PRECOMMIT, height=h, round=0, block_id=bid,
+                            timestamp_ns=t + 1 + i, validator_address=v.address,
+                            validator_index=i)
+                pvs[v.address].sign_vote(chain_id, vote)
+                votes.add_vote(vote, verified=True)
+            sign_s[0] += time.perf_counter() - t0
+            commit = votes.make_commit()
+            state = await executor.apply_block(state, bid, block)
+            bs.save_block(block, parts, commit)
+            last_commit = commit
+        return state
+
+    t0 = time.perf_counter()
+    state = asyncio.run(go(state))
+    return SimpleNamespace(genesis=genesis, kv=kv, bs=bs, state_store=state_store,
+                           state=state, chain_id=chain_id, heights=n_heights,
+                           build_s=time.perf_counter() - t0, sign_s=sign_s[0])
+
+
+def tampered_commit(commit, indices):
+    """A copy of commit with one bit of each signature at `indices` flipped."""
+    import copy
+
+    bad = copy.deepcopy(commit)
+    for i in indices:
+        sig = bad.signatures[i].signature
+        bad.signatures[i].signature = sig[:5] + bytes([sig[5] ^ 1]) + sig[6:]
+    return bad
+
+
+def catchup_store(src, liar_block: int | None = None):
+    """A server's block store: a copy of the source's KV; for the lying
+    peer the source's blocks saved anew, block liar_block's LastCommit
+    tampered (heaviest_third)."""
+    import copy
+
+    from tendermint_tpu_torch.store.block_store import BlockStore
+    from tendermint_tpu_torch.store.kv import MemKV
+
+    kv = MemKV()
+    if liar_block is None:
+        kv._d = dict(src.kv._d)
+        return BlockStore(kv)
+    bs = BlockStore(kv)
+    for h in range(1, src.heights + 1):
+        block = src.bs.load_block(h)
+        if h == liar_block:
+            block = copy.deepcopy(block)
+            block.last_commit = tampered_commit(
+                block.last_commit, heaviest_third(src.state_store.load_validators(h - 1)))
+        bs.save_block(block, block.make_part_set(), src.bs.load_seen_commit(h))
+    return bs
+
+
+def catchup_node(src, store=None):
+    """(state, executor, block store, l2) of a node of src's chain from
+    genesis: its own KVStoreApplication through LocalClient, MemKV state
+    store, MockL2Node; `store` (a server's) or a fresh block store."""
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.l2node.mock import MockL2Node
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.state import State
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.store.block_store import BlockStore
+    from tendermint_tpu_torch.store.kv import MemKV
+
+    state = State.from_genesis(src.genesis)
+    state_store = StateStore(MemKV())
+    state_store.bootstrap(state)
+    bs = store if store is not None else BlockStore(MemKV())
+    l2 = MockL2Node(txs_per_block=CATCHUP_TXS)
+    return state, BlockExecutor(state_store, bs, LocalClient(KVStoreApplication()), l2), bs, l2
+
+
+class RoundRecorder:
+    """The rounds of the process verifier while installed: each round's
+    items and verdicts (prepare, then its run on the scheduler's dispatch
+    thread), and each kernel wrapper call's tier, bucket, rows, CUDA events
+    recorded just before and after it (before the verdict copy; an upper
+    bound on the card's busy time) and its operands and verdicts (cloned;
+    a table store equal to the last kept one is shared)."""
+
+    def __init__(self, torch, verifier):
+        self.torch, self.verifier = torch, verifier
+        self.rounds, self.dispatches = [], []
+
+    def install(self):
+        torch, verifier = self.torch, self.verifier
+        prepare, dispatch = verifier.prepare, verifier._dispatch
+
+        def recorded_prepare(items):
+            handle = prepare(items)
+            run = handle.run
+
+            def recorded_run():
+                out = run()
+                self.rounds.append((list(items), [bool(v) for v in out]))
+                return out
+
+            handle.run = recorded_run
+            return handle
+
+        def recorded_dispatch(fn, tier, b, n, *args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            operands = []
+
+            def evented(*a):
+                start.record()
+                got = fn(*a)
+                end.record()
+                operands.append(a)
+                return got
+
+            out = dispatch(evented, tier, b, n, *args, **kw)
+            (a,) = operands  # one device: one launch
+            kept = [t.clone() for t in a]
+            last = next((d["operands"] for d in reversed(self.dispatches)
+                         if d["tier"] == tier), None)
+            if last is not None and torch.equal(last[0], a[0]) and torch.equal(last[1], a[1]):
+                kept[0], kept[1] = last[0], last[1]
+            self.dispatches.append({"tier": tier, "bucket": b, "rows": n, "start": start,
+                                    "end": end, "operands": kept, "seen": out.copy()})
+            return out
+
+        verifier.prepare, verifier._dispatch = recorded_prepare, recorded_dispatch
+
+    def remove(self):
+        del self.verifier.prepare  # the instance attributes: the methods show again
+        del self.verifier._dispatch
+
+    def busy_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(d["start"].elapsed_time(d["end"]) for d in self.dispatches)
+
+
+def check_recorded(torch, ed, host, rec, rng, window_min_rows: int, label: str) -> dict:
+    """Holds a mode's recorded rounds: each round of more than
+    window_min_rows rows (a window) against its tier's plain version at the
+    shape it was dispatched; the small-tier rounds of one commit together
+    (plain_over_rounds); CATCHUP_SAMPLE_ROWS seeded rows of the rounds
+    against the host oracle. Returns the check's figures."""
+    plain_of = {"big": ed.verify_prehashed_bigcache_plain,
+                "small": ed.verify_prehashed_table_plain}
+    err = {}
+    windows = [d for d in rec.dispatches if d["rows"] > window_min_rows]
+    t0 = time.perf_counter()
+    for d in windows:
+        assert d["tier"] in plain_of, (label, d["tier"])
+        got = plain_of[d["tier"]](*d["operands"])
+        e = max_abs_err(torch.from_numpy(d["seen"]), got)
+        name = "verify_prehashed_bigcache" if d["tier"] == "big" else "verify_prehashed_table"
+        err[name] = max(err.get(name, 0), e)
+        assert e == 0, f"{label}: a window round ({d['rows']} rows) != plain"
+    window_s = time.perf_counter() - t0
+    small = [(d["operands"], d["seen"]) for d in rec.dispatches
+             if d["tier"] == "small" and d["rows"] <= window_min_rows]
+    t0 = time.perf_counter()
+    n_small_rows = 0
+    if small:
+        e, n_small_rows = plain_over_rounds(torch, ed, small)
+        err["verify_prehashed_table"] = max(err.get("verify_prehashed_table", 0), e)
+        assert e == 0, f"{label}: a small-tier round != plain"
+    small_s = time.perf_counter() - t0
+    rows = [(r, i) for r, (items, _) in enumerate(rec.rounds) for i in range(len(items))]
+    t0 = time.perf_counter()
+    for j in rng.choice(len(rows), size=min(CATCHUP_SAMPLE_ROWS, len(rows)), replace=False):
+        r, i = rows[int(j)]
+        it, seen = rec.rounds[r][0][i], rec.rounds[r][1][i]
+        assert bool(seen) == host.verify(it.pubkey, it.msg, it.sig), (label, r, i)
+    oracle_s = time.perf_counter() - t0
+    return {"err": err, "windows": len(windows), "window_s": window_s,
+            "small_rounds": len(small), "small_rows": n_small_rows, "small_s": small_s,
+            "sampled": min(CATCHUP_SAMPLE_ROWS, len(rows)), "oracle_s": oracle_s}
+
+
+def catchup_sync(torch, ops, src, liar: bool, timeout: float = CATCHUP_TIMEOUT_S):
+    """One fresh node blocksyncs src's chain from genesis over encrypted p2p
+    (modes a and b of the catch-up phase). Two honest servers, each a
+    BlocksyncReactor(active=False) over a copy of the source's block store
+    with its own NodeKey, MultiplexTransport on 127.0.0.1 and Switch; with
+    `liar` a third whose block CATCHUP_LIAR_BLOCK carries a LastCommit with
+    tampered signatures of more than 1/3 of the power, dialed first and
+    alone until the client's pool has asked it for its first heights. The
+    client's BlocksyncReactor syncs with start_sync() through one started
+    VerifyScheduler as the process default (its windows through
+    default_dispatch("blocksync")). The launch counts are set to 0 just
+    before the sync and read when it caught up. Returns what the checks and
+    the report need."""
+    from tendermint_tpu_torch.blocksync.reactor import BlocksyncReactor
+    from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.p2p.transport import NetAddress
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    label = "b" if liar else "a"
+    servers = []
+    for i, store in enumerate([catchup_store(src), catchup_store(src)]
+                              + ([catchup_store(src, CATCHUP_LIAR_BLOCK)] if liar else [])):
+        state, executor, bs, l2 = catchup_node(src, store)
+        r = BlocksyncReactor(state, executor, bs, l2, active=False)
+        servers.append(p2p_node(b"catchup-%s-server%d" % (label.encode(), i),
+                                "smoke-catchup", "blocksync", r))
+    honest, liars = servers[:2], servers[2:]
+    state, executor, cli_bs, cli_l2 = catchup_node(src)
+    caught = asyncio.Event()
+    caught_at = []
+
+    async def on_caught_up(st):
+        caught_at.append((time.perf_counter(), st.last_block_height))
+        caught.set()
+
+    client = BlocksyncReactor(state, executor, cli_bs, cli_l2, on_caught_up=on_caught_up,
+                              active=False)
+    cnk, ct, csw = p2p_node(b"catchup-%s-client" % label.encode(), "smoke-catchup",
+                            "blocksync", client)
+    errors = []
+    report = client.pool._on_peer_error
+
+    def on_peer_error(pid, reason):
+        errors.append((pid, reason))
+        report(pid, reason)
+
+    client.pool._on_peer_error = on_peer_error
+
+    # where the time goes: window rounds (verify_commits_light, executor
+    # threads), per-block verifies outside apply_block (the reactor's
+    # fallback), apply_block (awaits included) and its LastCommit check
+    # (validate_block, executor threads)
+    windows, fallback, applied = [], [], []
+    split = {"window": 0.0, "fallback": 0.0, "apply": 0.0, "validate": 0.0,
+             "process": 0.0, "receive": 0.0}
+    tls = threading.local()
+    v_light, v_one = ValidatorSet.verify_commits_light, ValidatorSet.verify_commit_light
+    validate, apply = BlockExecutor.validate_block, BlockExecutor.apply_block
+
+    def timed_window(self, chain_id, entries, verifier=None):
+        t0 = time.perf_counter()
+        out = v_light(self, chain_id, entries, verifier=verifier)
+        split["window"] += time.perf_counter() - t0
+        windows.append(([h for _, h, _ in entries], list(out)))
+        return out
+
+    def timed_one(self, *a, **k):
+        if getattr(tls, "validating", False):
+            return v_one(self, *a, **k)
+        t0 = time.perf_counter()
+        try:
+            return v_one(self, *a, **k)
+        finally:
+            split["fallback"] += time.perf_counter() - t0
+            fallback.append(a[2])
+
+    def timed_validate(self, *a, **k):
+        tls.validating = True
+        t0 = time.perf_counter()
+        try:
+            return validate(self, *a, **k)
+        finally:
+            tls.validating = False
+            split["validate"] += time.perf_counter() - t0
+
+    async def timed_apply(self, st, block_id, block, *a, **k):
+        t0 = time.perf_counter()
+        new = await apply(self, st, block_id, block, *a, **k)
+        split["apply"] += time.perf_counter() - t0
+        if self is executor:
+            applied.append((block.header.height, new.app_hash))
+        return new
+
+    # the reactor's passes over ready blocks (windows and applies inside,
+    # awaits included) and its message handler (block decoding, on the
+    # event loop, interleaved with the passes' awaits)
+    process, receive = client._process_ready_blocks, client.receive
+
+    async def timed_process():
+        t0 = time.perf_counter()
+        try:
+            return await process()
+        finally:
+            split["process"] += time.perf_counter() - t0
+
+    async def timed_receive(channel_id, peer, msg):
+        t0 = time.perf_counter()
+        try:
+            return await receive(channel_id, peer, msg)
+        finally:
+            split["receive"] += time.perf_counter() - t0
+
+    client._process_ready_blocks, client.receive = timed_process, timed_receive
+    verifier = default_verifier()
+    rec = RoundRecorder(torch, verifier)
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(
+        Registry(f"smoke_catchup_{label}")))
+    marks = {}
+
+    async def wait_for(cond, what, limit=30.0):
+        deadline = time.perf_counter() + limit
+        while not cond():
+            assert time.perf_counter() < deadline, f"catch-up ({label}): no {what}"
+            await asyncio.sleep(0.01)
+
+    async def drive():
+        await sched.start()
+        for _, t, sw in servers + [(cnk, ct, csw)]:
+            await t.listen()
+            await sw.start()
+        try:
+            def addr(h):
+                return NetAddress(h[0].id, "127.0.0.1", h[1].listen_port)
+
+            for nk, t, sw in liars:
+                await csw.dial_peer(addr((nk, t)))
+                await wait_for(lambda: nk.id in client.pool._peers, "status from the liar")
+            if liars:
+                # alone, the lying peer is asked for the first 20 heights
+                marks["start"] = time.perf_counter()
+                client.start_sync()
+                liar_id = liars[0][0].id
+                await wait_for(lambda: errors or getattr(client.pool._requesters.get(
+                    CATCHUP_LIAR_BLOCK), "peer_id", "") == liar_id, "request to the liar")
+            for nk, t, sw in honest:
+                await csw.dial_peer(addr((nk, t)))
+            await wait_for(lambda: all(h[0].id in client.pool._peers for h in honest),
+                           "status from the honest servers")
+            if not liars:
+                marks["start"] = time.perf_counter()
+                client.start_sync()
+            await asyncio.wait_for(caught.wait(), timeout)
+            marks["end"] = time.perf_counter()
+            marks["peers_left"] = set(csw.peers)
+        finally:
+            for _, t, sw in [(cnk, ct, csw)] + servers:
+                await sw.stop()
+            await sched.stop()
+
+    gc.collect()
+    ValidatorSet.verify_commits_light, ValidatorSet.verify_commit_light = timed_window, timed_one
+    BlockExecutor.validate_block, BlockExecutor.apply_block = timed_validate, timed_apply
+    set_default_scheduler(sched)
+    rec.install()
+    ops.reset_launches()
+    try:
+        asyncio.run(drive())
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()
+    finally:
+        rec.remove()
+        set_default_scheduler(None)
+        ValidatorSet.verify_commits_light, ValidatorSet.verify_commit_light = v_light, v_one
+        BlockExecutor.validate_block, BlockExecutor.apply_block = validate, apply
+    return {"label": label, "client": client, "bs": cli_bs, "caught_at": caught_at,
+            "marks": marks, "errors": errors, "windows": windows, "fallback": fallback,
+            "applied": applied, "split": split, "rec": rec, "ledger": ledger.entries(),
+            "launches": launches, "liar_id": liars[0][0].id if liars else None,
+            "honest_ids": [h[0].id for h in honest]}
+
+
+class StoreProvider:
+    """A light-client provider over a node's block and state stores: the
+    header of block h, the commit that proves it (block h + 1's LastCommit,
+    or the seen commit at the tip) and the validator set at h. `commits`
+    overrides the commit at some heights."""
+
+    def __init__(self, name: str, src, commits=None):
+        self.name, self.src, self.commits = name, src, commits or {}
+
+    async def light_block(self, height: int):
+        from tendermint_tpu_torch.light.types import LightBlock
+
+        if height == 0:
+            height = self.src.bs.height
+        block = self.src.bs.load_block(height)
+        if block is None:
+            return None
+        commit = (self.commits.get(height) or self.src.bs.load_block_commit(height)
+                  or self.src.bs.load_seen_commit(height))
+        return LightBlock(block.header, commit, self.src.state_store.load_validators(height))
+
+    def id(self) -> str:
+        return self.name
+
+
+def catchup_light(torch, ops, src, tip: int):
+    """Mode (c) of the catch-up phase: a LightClient trusted at height 1,
+    its primary and one witness StoreProviders over the source, verifies
+    to `tip` sequentially and then (a new client) by skipping, each round
+    through default_dispatch("light") and one started VerifyScheduler; then
+    a client trusted at CATCHUP_LIAR_BLOCK - 2 is served height
+    CATCHUP_LIAR_BLOCK - 1 with the lying peer's tampered commit, and must
+    reject it. Launch counts set to 0 before, read after."""
+    from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.light.client import LightClient, LightClientError, TrustOptions
+    from tendermint_tpu_torch.light.store import LightStore
+    from tendermint_tpu_torch.light.verifier import VerificationError
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tendermint_tpu_torch.store.kv import MemKV
+
+    now = CATCHUP_T0 + (src.heights + 60) * 10**9
+    bad_h = CATCHUP_LIAR_BLOCK - 1
+    bad_vals = src.state_store.load_validators(bad_h)
+    tampered = heaviest_third(bad_vals)
+    bad_commit = tampered_commit(src.bs.load_block_commit(bad_h), tampered)
+
+    def client(trust_h, primary, sequential):
+        return LightClient(
+            src.chain_id,
+            TrustOptions(CATCHUP_PERIOD_NS, trust_h, src.bs.load_block(trust_h).hash()),
+            primary, [StoreProvider("witness", src)], LightStore(MemKV()),
+            sequential=sequential, now_ns=lambda: now)
+
+    verifier = default_verifier()
+    rec = RoundRecorder(torch, verifier)
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(
+        Registry("smoke_catchup_light")))
+    out = {}
+
+    async def drive():
+        await sched.start()
+        try:
+            for name, sequential in (("sequential", True), ("skipping", False)):
+                c = client(1, StoreProvider("primary", src), sequential)
+                n0 = len(rec.rounds)
+                t0 = time.perf_counter()
+                lb = await c.verify_light_block_at_height(tip)
+                out[name] = {"s": time.perf_counter() - t0, "rounds": len(rec.rounds) - n0,
+                             "trusted": c.store.heights(), "hash": lb.header.hash()}
+            c = client(bad_h - 1, StoreProvider("lying-primary", src, {bad_h: bad_commit}), True)
+            n0 = len(rec.rounds)
+            try:
+                await c.verify_light_block_at_height(bad_h)
+            except (LightClientError, VerificationError) as e:
+                out["rejected"] = repr(e)
+            out["reject_rounds"] = rec.rounds[n0:]
+            out["reject_trusted"] = c.store.heights()
+        finally:
+            await sched.stop()
+
+    gc.collect()
+    set_default_scheduler(sched)
+    rec.install()
+    ops.reset_launches()
+    try:
+        asyncio.run(drive())
+        torch.cuda.synchronize()
+        out["launches"] = ops.kernel_launches()
+    finally:
+        rec.remove()
+        set_default_scheduler(None)
+    out.update(rec=rec, ledger=ledger.entries(), tampered=tampered, bad_h=bad_h,
+               bad_vals=bad_vals, bad_commit=bad_commit)
+    return out
+
+
+def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
+                  bare_walls: list):
+    """Phase 9: a node that joins or restarts catches up. Builds the served
+    chain (catchup_chain, CATCHUP_HEIGHTS blocks of the seeded validator
+    set), then mode (a): a fresh node blocksyncs it from two honest peers
+    over encrypted p2p (catchup_sync); mode (b): the same with a lying third
+    peer; mode (c): the light client over the same chain (catchup_light).
+    Checks each mode's result, the launches and every recorded round
+    (check_recorded), and prints the walls and splits beside phase 3's bare
+    window (`bare_walls`, seconds). Returns the launches of the three modes,
+    summed per kernel, and the checks' max_abs_err per kernel."""
+    from tendermint_tpu_torch.crypto import aead
+    from tendermint_tpu_torch.ops import ed25519_batch as ed
+
+    t0 = time.perf_counter()
+    aead_lib = aead._native_lib()
+    aead_s = time.perf_counter() - t0
+    assert aead_lib is not None, "the native AEAD (_tmcrypto.so) did not load"
+    print(f"main path: catch-up: AEAD route native, {aead_lib._name} (built or "
+          f"loaded in {aead_s:.2f} s)")
+    n_vals = len(vkeys)
+    src = catchup_chain(vkeys, powers, chain_id + "-catchup", CATCHUP_HEIGHTS)
+    tip = src.heights - 1  # the last height a commit proves
+    print(f"main path: catch-up: served chain of {src.heights} heights, "
+          f"{n_vals} validators, {CATCHUP_TXS} kvstore txs a block, built through "
+          f"the BlockExecutor in {src.build_s:.1f} s ({src.sign_s:.1f} s of it "
+          f"signing {src.heights * n_vals} precommits on the host)")
+    want_hash = {h: src.bs.load_block(h).hash() for h in range(1, src.heights + 1)}
+    want_app = {h: src.bs.load_block(h + 1).header.app_hash for h in range(1, tip + 1)}
+    total, errs = {}, {}
+    bare = ", ".join(f"{w * 1e3:.2f}" for w in bare_walls)
+    for liar in (False, True):
+        r = catchup_sync(torch, ops, src, liar)
+        label, launches, marks = r["label"], r["launches"], r["marks"]
+        assert r["caught_at"], f"catch-up ({label}): on_caught_up never fired"
+        assert r["bs"].height == tip, (label, r["bs"].height)
+        assert r["client"].state.last_block_height == tip
+        for h in range(1, tip + 1):
+            assert r["bs"].load_block(h).hash() == want_hash[h], (label, h)
+        got_app = dict(r["applied"])
+        assert sorted(got_app) == list(range(1, tip + 1)), (label, sorted(got_app)[:5])
+        for h in range(1, tip + 1):
+            assert got_app[h] == want_app[h], (label, "app hash", h)
+        assert launches["verify_prehashed_bigcache"] > 0, f"catch-up ({label}): kernel 6 not launched"
+        if not liar:
+            assert launches["neg_pubkey_bigtable"] >= 1, "catch-up (a): kernel 5 not launched"
+        assert launches["verify_prehashed_table"] > 0, f"catch-up ({label}): kernel 3 not launched"
+        flagged = [(hs, v) for hs, v in r["windows"] if not all(v)]
+        if liar:
+            bad = CATCHUP_LIAR_BLOCK - 1
+            assert any(hs[v.index(False)] == bad for hs, v in flagged), (
+                "catch-up (b): no window verdict flagged the lying peer's height", flagged)
+            punished = {pid for pid, _ in r["errors"]}
+            assert punished == {r["liar_id"]}, ("catch-up (b): punished", punished)
+            assert r["liar_id"] not in marks["peers_left"], "catch-up (b): the liar is still a peer"
+        else:
+            assert not flagged and not r["errors"], (flagged, r["errors"])
+        chk = check_recorded(torch, ed, host, r["rec"], rng, n_vals, f"catch-up ({label})")
+        for k, v in chk["err"].items():
+            errs[k] = max(errs.get(k, 0), v)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        wall = marks["end"] - marks["start"]
+        sp = r["split"]
+        busy = r["rec"].busy_ms() / 1e3
+        rounds = [d for d in r["rec"].dispatches if d["rows"] > n_vals]
+        other = wall - sp["window"] - sp["fallback"] - sp["apply"]
+        desc = ("two honest peers" if not liar else
+                f"two honest peers and a lying one (block {CATCHUP_LIAR_BLOCK}'s LastCommit "
+                f"tampered, {len(heaviest_third(src.state_store.load_validators(CATCHUP_LIAR_BLOCK - 1)))} "
+                f"signatures of more than 1/3 of the power)")
+        extra = ""
+        if liar:
+            hs, v = next((hs, v) for hs, v in flagged)
+            extra = (f"; the window over heights {hs[0]}-{hs[-1]} flagged height "
+                     f"{hs[v.index(False)]}; the pool punished the lying peer alone "
+                     f"({r['errors'][0][1]!r}) and it left the client's switch; the "
+                     f"reactor's per-block check re-judged heights {r['fallback'][:4]}")
+        print(f"main path: catch-up ({label}): a fresh node blocksynced {tip} heights "
+              f"from {desc} over encrypted p2p (ChaCha20-Poly1305, native) through "
+              f"BlocksyncReactor.start_sync(); on_caught_up at height "
+              f"{r['caught_at'][0][1]}; every block hash and the app hash after "
+              f"every height equal the source's{extra}; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})} | {smi}")
+        print(f"main path: catch-up ({label}): {len(r['windows'])} window rounds, "
+              f"(commits, rows, bucket, tier) "
+              f"{[(d['rows'] // n_vals, d['rows'], d['bucket'], d['tier']) for d in rounds]}; "
+              f"{len(r['fallback'])} per-block verifies outside apply_block; "
+              f"{len(r['applied'])} applied blocks, each one LastCommit round of "
+              f"{n_vals} rows on the small tier; every window round equal to its "
+              f"plain version at its shape ({chk['windows']} rounds, {chk['window_s']:.1f} s), "
+              f"the {chk['small_rounds']} small-tier rounds' {chk['small_rows']} rows "
+              f"through the plain version together ({chk['small_s']:.1f} s), "
+              f"{chk['sampled']} seeded rows equal to the host oracle (tolerance: exact)")
+        print(f"time: catch-up ({label}): {wall * 1e3:.2f} ms to catch up {tip} heights, "
+              f"{tip / wall:.1f} commits/s; split: window verify rounds "
+              f"{sp['window'] * 1e3:.2f} ms, per-block verifies outside apply "
+              f"{sp['fallback'] * 1e3:.2f} ms, apply_block {sp['apply'] * 1e3:.2f} ms "
+              f"(its LastCommit check {sp['validate'] * 1e3:.2f} ms), waiting on the "
+              f"pool or p2p and the reactor's own work {other * 1e3:.2f} ms (of the "
+              f"wall: the reactor's passes over ready blocks {sp['process'] * 1e3:.2f} "
+              f"ms, windows and applies inside, so outside them, pool ticks and "
+              f"requests, {(wall - sp['process']) * 1e3:.2f} ms; its message handler, "
+              f"block decoding on the event loop, {sp['receive'] * 1e3:.2f} ms); kernel "
+              f"wrapper calls on the card (CUDA events, launch gaps included) "
+              f"{busy * 1e3:.2f} ms, device busy share at most {busy / wall:.5f}; "
+              f"phase 3's bare window of {WINDOW} commits in this run {bare} ms | {smi}")
+        del r
+        gc.collect()
+    c = catchup_light(torch, ops, src, tip)
+    launches = c["launches"]
+    for name in ("sequential", "skipping"):
+        assert c[name]["hash"] == want_hash[tip], name
+    assert c["sequential"]["trusted"] == list(range(1, tip + 1)), c["sequential"]["trusted"][:5]
+    assert c["skipping"]["trusted"][-1] == tip
+    assert "rejected" in c, "catch-up (c): the tampered commit was accepted"
+    assert "invalid commit" in c["rejected"], c["rejected"]
+    assert c["bad_h"] not in c["reject_trusted"]
+    bad_rounds = [(items, seen) for items, seen in c["reject_rounds"] if not all(seen)]
+    assert bad_rounds, "catch-up (c): no round rejected a tampered row"
+    items, seen = bad_rounds[0]
+    want = [host.verify(it.pubkey, it.msg, it.sig) for it in items]
+    assert list(seen) == want and want.count(False) == len(c["tampered"]), "catch-up (c)"
+    assert launches["verify_prehashed_table"] > 0, "catch-up (c): kernel 3 not launched"
+    light_rounds = [e for e in c["ledger"] if "light" in e["rows"]]
+    assert len(light_rounds) >= tip, (len(light_rounds), tip)
+    assert all(d["tier"] == "small" for d in c["rec"].dispatches), "catch-up (c): not kernel 3"
+    chk = check_recorded(torch, ed, host, c["rec"], rng, n_vals, "catch-up (c)")
+    for k, v in chk["err"].items():
+        errs[k] = max(errs.get(k, 0), v)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    seq, skip = c["sequential"], c["skipping"]
+    print(f"main path: catch-up (c): LightClient trusted at height 1, a primary and a "
+          f"witness over the source's stores: sequential to {tip} in {seq['rounds']} "
+          f"rounds of {n_vals} rows, skipping in {skip['rounds']} rounds (trusted "
+          f"heights {skip['trusted']}), both to the source's header; height "
+          f"{c['bad_h']} with {len(c['tampered'])} tampered signatures rejected "
+          f"({c['rejected'][:80]}), its tampered rows alone false, as the host "
+          f"oracle; {len(light_rounds)} light-class ledger rounds, all on the small "
+          f"tier; the {chk['small_rounds']} rounds' {chk['small_rows']} rows equal to "
+          f"the plain version together, {chk['sampled']} seeded rows to the host "
+          f"oracle (tolerance: exact); launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} | {smi}")
+    print(f"time: catch-up (c): light client sequential {seq['s'] * 1e3 / (tip - 1):.2f} ms "
+          f"a step ({tip - 1} steps, {seq['s'] * 1e3:.2f} ms), skipping "
+          f"{skip['s'] * 1e3 / max(1, len(skip['trusted']) - 1):.2f} ms a step "
+          f"({len(skip['trusted']) - 1} steps, {skip['s'] * 1e3:.2f} ms, the witness "
+          f"cross-check included); kernel wrapper calls on the card "
+          f"{c['rec'].busy_ms():.2f} ms | {smi}")
     return total, errs
 
 
@@ -3301,7 +4037,17 @@ def main() -> int:
               f"{k}: {usages.get(k, 'not reported')}"
               for k in ("g1_aggregate_kernel", "g1_add_kernel")) + f" | {smi}")
 
-    # --- 9. result lines ----------------------------------------------------
+    # --- 9. the catch-up path ----------------------------------------------
+    catchup, catchup_errs = catchup_phase(torch, ops, host, smi, rng, vkeys, powers,
+                                          chain_id, bulk["host_hash"]["walls"])
+    for row in rows:
+        row["launches"] += catchup.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], catchup_errs.get(row["name"], 0))
+    print(f"main path: catch-up launches per kernel, the three modes "
+          f"{json.dumps({k: v for k, v in catchup.items() if v})} (added to the "
+          f"kernels line's launches)")
+
+    # --- 10. result lines ---------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

@@ -105,6 +105,24 @@ VERBATIM = [
     "p2p/upnp.py",
     "p2p/fuzz.py",
     "consensus/reactor.py",
+    # the catch-up half of the bulk consumers: the light client,
+    # blocksync, statesync and the ABCI gRPC transport
+    "light/types.py",
+    "light/store.py",
+    "light/verifier.py",
+    "light/client.py",
+    "light/__init__.py",
+    "blocksync/pool.py",
+    "blocksync/reactor.py",
+    "blocksync/__init__.py",
+    "statesync/chunks.py",
+    "statesync/syncer.py",
+    "statesync/stateprovider.py",
+    "statesync/reactor.py",
+    "statesync/__init__.py",
+    "proxy/multi_app_conn.py",
+    "proxy/__init__.py",
+    "abci/grpc_transport.py",
 ]
 
 _PROBE = r"""
@@ -115,7 +133,9 @@ names = [m.name for m in pkgutil.walk_packages(
     tendermint_tpu_torch.__path__, "tendermint_tpu_torch.")]
 for name in ("consensus.state_machine", "state.execution", "l2node.mock",
              "parallel.mesh", "ops.shard_reduce", "consensus.reactor",
-             "p2p.switch", "p2p.upnp", "crypto.aead", "libs.flowrate"):
+             "p2p.switch", "p2p.upnp", "crypto.aead", "libs.flowrate",
+             "light.client", "blocksync.reactor", "statesync.syncer",
+             "statesync.reactor", "proxy.multi_app_conn", "abci.grpc_transport"):
     assert "tendermint_tpu_torch." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -174,6 +194,25 @@ REWORDED = {
         "the framework's native equivalent of x/crypto's assembly AEAD (SURVEY.md\n"
         "§2.2). The Python",
     )],
+    "blocksync/reactor.py": [
+        ("        # (VERDICT r2 weak #3: the ~30s fixed-window build must happen in\n",
+         "        # (the ~30s fixed-window build must happen in\n"),
+        ("        batch — VERDICT r2 weak #3). Deduplicated by set hash; re-kicked\n",
+         "        batch). Deduplicated by set hash; re-kicked\n"),
+    ],
+    "light/client.py": [(
+        "        # must not run inline in the first one (VERDICT r2 weak #3).\n",
+        "        # must not run inline in the first one.\n",
+    )],
+    # the gRPC service name is a wire name, not an import path: a port node
+    # and a JAX-package app server (or the other way round) must name the
+    # same service, so the port keeps the reference's string
+    "abci/grpc_transport.py": [
+        ("per ABCI call under /tendermint_tpu_torch.abci.ABCIApplication/<Method>, bytes",
+         "per ABCI call under /tendermint_tpu.abci.ABCIApplication/<Method>, bytes"),
+        ('SERVICE = "tendermint_tpu_torch.abci.ABCIApplication"',
+         'SERVICE = "tendermint_tpu.abci.ABCIApplication"'),
+    ],
 }
 
 
@@ -252,6 +291,36 @@ def test_lazy_imports_resolve_inside_the_port(path):
         as_module = target.with_suffix(".py").is_file() or (target / "__init__.py").is_file()
         as_submodule = (target / f"{name}.py").is_file() or (target / name / "__init__.py").is_file()
         assert as_module or as_submodule, f"{path.name}:{line}: {'.'.join(mod)}.{name}"
+
+
+# function-level imports of the catch-up modules, (file, line, module, name):
+# each must resolve inside the port (test_lazy_imports_resolve_inside_the_port)
+CATCHUP_LAZY = [
+    ("light/verifier.py", 24, "parallel.scheduler", "default_dispatch"),
+    ("light/verifier.py", 38, "types.quorum_cert", "qc_dispatch"),
+    ("light/client.py", 188, "light.verifier", "_verify_commit_full_power"),
+    ("light/client.py", 246, "crypto.batch_verifier", "warm_validator_sets_in_executor"),
+    ("blocksync/reactor.py", 138, "crypto.batch_verifier", "warm_validator_sets_in_executor"),
+    ("blocksync/reactor.py", 286, "parallel.scheduler", "default_dispatch"),
+    ("blocksync/reactor.py", 386, "parallel.scheduler", "default_dispatch"),
+    ("abci/grpc_transport.py", 182, "proxy.multi_app_conn", "ClientCreator"),
+]
+
+
+@pytest.mark.parametrize("rel", sorted({c[0] for c in CATCHUP_LAZY}))
+def test_catchup_lazy_imports_are_found_and_resolve(rel):
+    """The lazy-import scan sees every function-level import of the
+    catch-up modules, and each names a module of the port that exports the
+    name."""
+    import importlib
+
+    found = {(line, ".".join(mod), name) for line, mod, name in _lazy_imports(PORT / rel)}
+    for f, line, mod, name in CATCHUP_LAZY:
+        if f != rel:
+            continue
+        assert (line, mod, name) in found, (f, line, mod, name, sorted(found))
+        module = importlib.import_module(f"tendermint_tpu_torch.{mod}")
+        assert hasattr(module, name), (mod, name)
 
 
 def test_aead_builds_its_own_library_into_the_port():
