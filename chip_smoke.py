@@ -237,7 +237,38 @@ Phases (any failure raises and the exit code is non-zero):
    device busy share and the launches, beside phase 3's bare window of the
    same run; for (c) ms a step, sequential and skipping. The launches add
    to the kernels line.
-10. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+10. The bulk rest and the chaos mesh (``bulk_rest_phase``), over phase 9's
+   chain, each part with the launch counts zeroed just before and read just
+   after, every verify round it caused held against the plain version
+   (``check_recorded``). (a) ``SWARM_CLIENTS`` (1,000) ``LightClient``s sync
+   from the trust root at height 1 to 128 through one ``LightServePlane``
+   over the source's stores (``tests/torch_lightserve_swarm.py``), its
+   ``ServeVerifier`` on a started ``VerifyScheduler``'s ``lightserve``
+   lane; then the swarm's divergent-witness scenario (a fork re-signed by
+   the 150 keys, the honest plane as witness: ``LightClientAttackEvidence``
+   into the honest node's ``EvidencePool``) and forged-header scenario (the
+   tampered witness removed). Checks: every client synced, hit rate > 0.9,
+   dedup rate > 0.99, executed verifications and device rounds far below
+   the client count. (b) That evidence through the honest node's pool
+   (``default_dispatch("evidence")``) and over encrypted p2p by its
+   ``EvidenceReactor`` into a second node's pool, both accepting it; a copy
+   with the heaviest third's signatures flipped rejected, the verdict on a
+   copy with one flipped reported (both packages' tally accepts it); a
+   ``DuplicateVoteEvidence`` of one validator accepted on the host oracle
+   (2 rows, under ``min_device_batch``) and its flipped copy rejected. (c)
+   ``CHAOS_VALIDATORS`` (16) validators over encrypted p2p
+   (``tests/torch_chaos_harness.py``, ``device="cuda"``) under a seeded
+   ``ScenarioRunner``: the storm of ``tests/test_chaos.py`` to height 4,
+   an even partition that commits nothing for 2 s, healed, two heights, n3
+   killed, one height, n3 restarted, one height; one chain at every
+   height; kernel 2's tables of the 16 new keys against the plain version.
+   (d) The backend guard: ``probe_backend()`` on the card, ``meta_block``,
+   a hanging child killed at its bound. Prints each part's figures (clients
+   a second, hit and dedup rates, rounds with rows and buckets, the
+   evidence verdicts, ms a height per chaos stage, the links' drops and
+   duplicates, kernel 3's launches on vote rounds and the others); the
+   launches add to the kernels line.
+11. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -345,8 +376,8 @@ NET_VALIDATORS = 32
 NET_HEIGHTS = 3
 # mode (c)'s topology: past 8 nodes each node dials its next NET_PEER_DEGREE
 # ring successors (the JAX package's committee net: bench.py's degree rule,
-# ring_peer_indices below), about 2 x NET_PEER_DEGREE encrypted connections
-# a node
+# tests/torch_chaos_harness.ring_peer_indices), about 2 x NET_PEER_DEGREE
+# encrypted connections a node
 NET_PEER_DEGREE = 4
 # phase 7's modes: (label, quorum certificates, over p2p)
 NET_MODES = (("legacy", False, False), ("qc", True, False), ("p2p", False, True))
@@ -1834,16 +1865,6 @@ def committee_config(cls, n: int, **fields):
     return cfg
 
 
-def ring_peer_indices(i: int, n: int, degree: int) -> list[int]:
-    """The ring-with-chords topology of a committee net: node i dials its
-    next `degree` ring successors (i+1 .. i+degree mod n), so every edge is
-    dialed once and each node ends with about 2 x degree connections."""
-    if n <= 1:
-        return []
-    degree = max(1, min(degree, n - 1))
-    return [(i + d) % n for d in range(1, degree + 1)]
-
-
 def p2p_node(secret: bytes, network: str, name: str, reactor):
     """(node key, transport, switch) of one p2p node: a NodeKey from
     `secret`, a MultiplexTransport (listening on 127.0.0.1 once started)
@@ -1910,6 +1931,7 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool,
     from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
     from tendermint_tpu_torch.p2p.transport import NetAddress
     from tendermint_tpu_torch.types.priv_validator import MockPV
+    from tests.torch_chaos_harness import ring_peer_indices
 
     tag = b"%d-%s" % (seed, b"qc" if qc else b"p2p" if p2p else b"legacy")
     pvs = [MockPV.from_secret(tag + b"-%d" % i) for i in range(n_vals)]
@@ -2064,23 +2086,41 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool,
     saved_ex.update(timed_async(BlockExecutor, "apply_block", splits))
     # single-vote checks split by whose vote: a node checks its own votes
     # (signed and queued to itself) and, without a reactor, every gossiped
-    # one; with one, the gossiped votes its VoteBatcher could not take (no
-    # key yet: a vote of a height the node has not reached). "rechecked"
-    # counts gossiped votes the node's batcher had already passed.
-    vote_checks = {"own": 0, "gossiped": 0, "rechecked": 0}
+    # one; with one, the gossiped votes its reactor delivered without a
+    # verdict because no key resolved yet (pubkey_for_vote None: a vote of
+    # a height the node has not reached). Each such vote object is held
+    # (so no id is reused during the run); "rechecked" counts gossiped
+    # checks of any other vote object, which the reactor passed or
+    # dropped, and must stay 0. "copies" counts gossiped checks of a vote
+    # whose signature the node's batcher passed in another copy (the same
+    # vote from another peer, after its key resolved).
+    vote_checks = {"own": 0, "gossiped": 0, "rechecked": 0, "copies": 0, "no_key": 0}
     passed = {}  # id(batcher) -> the signatures it pre-verified
     batcher_of = {id(sw.reactors["consensus"].cs): id(sw.reactors["consensus"].vote_batcher)
                   for nk, t, sw in handles}
     timed_vote = ConsensusState._verify_vote
+    pubkey_for_vote = ConsensusState.pubkey_for_vote
     submit, submit_many = VoteBatcher.submit, VoteBatcher.submit_many
+    no_key_votes = {}  # id -> vote: the votes delivered before their key resolved
 
     def counted_vote(self, vote, vals):
         own = (self._privval_pubkey is not None
                and vote.validator_address == self._privval_pubkey.address())
         vote_checks["own" if own else "gossiped"] += 1
-        if vote.signature in passed.get(batcher_of.get(id(self)), ()):
+        if own or id(self) not in batcher_of:
+            pass  # without a reactor the node checks every gossiped vote
+        elif no_key_votes.get(id(vote)) is not vote:
             vote_checks["rechecked"] += 1
+        elif vote.signature in passed.get(batcher_of.get(id(self)), ()):
+            vote_checks["copies"] += 1
         return timed_vote(self, vote, vals)
+
+    def counted_pubkey(self, vote):
+        pub = pubkey_for_vote(self, vote)
+        if pub is None:
+            vote_checks["no_key"] += 1
+            no_key_votes[id(vote)] = vote
+        return pub
 
     async def tracked_submit(self, pubkey, msg, sig, key_type="ed25519"):
         ok = await submit(self, pubkey, msg, sig, key_type=key_type)
@@ -2094,6 +2134,7 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool,
         return oks
 
     ConsensusState._verify_vote = counted_vote
+    ConsensusState.pubkey_for_vote = counted_pubkey
     VoteBatcher._verify_items = tracked_verify_items
     VoteBatcher.submit, VoteBatcher.submit_many = tracked_submit, tracked_submit_many
     gc.collect()
@@ -2109,6 +2150,7 @@ def run_net(torch, ops, seed: int, n_vals: int, heights: int, qc: bool,
         del verifier.prepare
         VoteBatcher._verify_items = verify_items
         VoteBatcher.submit, VoteBatcher.submit_many = submit, submit_many
+        ConsensusState.pubkey_for_vote = pubkey_for_vote
         restore(ConsensusState, saved_cs)
         restore(BlockExecutor, saved_ex)
     torch.cuda.synchronize()
@@ -2224,8 +2266,12 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
                 assert r["vote_launches"].get("small", 0) > 0, (
                     "p2p: verify_prehashed_table never ran a round with VoteBatcher rows")
                 assert r["vote_checks"]["rechecked"] == 0, (
-                    "p2p: the state machine checked a vote its VoteBatcher had passed",
+                    "p2p: the state machine checked a gossiped vote its reactor had a key "
+                    "for (pre-verified, or dropped as invalid)",
                     r["vote_checks"])
+                assert r["vote_checks"]["gossiped"] <= r["vote_checks"]["no_key"], (
+                    "p2p: the state machine checked a gossiped vote its reactor could "
+                    "have pre-verified", r["vote_checks"])
             if any(e["dispatched"] >= 512 for e in sig_rounds):
                 for name in ("neg_pubkey_bigtable", "verify_prehashed_bigcache"):
                     assert launches[name] > 0, f"{name} was not launched on the live net"
@@ -2346,7 +2392,10 @@ def consensus_phase(torch, ops, host, smi, seed: int, n_vals: int, heights: int)
         print(f"time: consensus net ({mode}) host split: single-vote checks "
               f"(host oracle, on the event loop; {r['vote_checks']['own']} of the "
               f"node's own votes, {r['vote_checks']['gossiped']} gossiped, "
-              f"{r['vote_checks']['rechecked']} of them pre-verified) "
+              f"{r['vote_checks']['rechecked']} of them delivered with a key, "
+              f"{r['vote_checks']['copies']} copies of a vote the batcher passed "
+              f"from another peer; {r['vote_checks']['no_key']} votes delivered "
+              f"before their key resolved) "
               f"{sp.get('_verify_vote', 0.0) * 1e3:.1f} "
               f"ms = {sp.get('_verify_vote', 0.0) / wall:.3f} of the wall; "
               f"LastCommit validation (executor threads, scheduler waits "
@@ -2512,23 +2561,32 @@ class RoundRecorder:
     thread), and each kernel wrapper call's tier, bucket, rows, CUDA events
     recorded just before and after it (before the verdict copy; an upper
     bound on the card's busy time) and its operands and verdicts (cloned;
-    a table store equal to the last kept one is shared)."""
+    a table store equal to the last kept one is shared). With `tag`, each
+    round's tag(items), taken when it is prepared, rides along to its
+    dispatches (`round_tags`, a dispatch's "tag")."""
 
-    def __init__(self, torch, verifier):
-        self.torch, self.verifier = torch, verifier
-        self.rounds, self.dispatches = [], []
+    def __init__(self, torch, verifier, tag=None):
+        self.torch, self.verifier, self.tag = torch, verifier, tag
+        self.rounds, self.dispatches, self.round_tags = [], [], []
+        self._tls = threading.local()
 
     def install(self):
         torch, verifier = self.torch, self.verifier
         prepare, dispatch = verifier.prepare, verifier._dispatch
 
         def recorded_prepare(items):
+            tag = self.tag(items) if self.tag is not None else None
             handle = prepare(items)
             run = handle.run
 
             def recorded_run():
-                out = run()
+                self._tls.tag = tag
+                try:
+                    out = run()
+                finally:
+                    self._tls.tag = None
                 self.rounds.append((list(items), [bool(v) for v in out]))
+                self.round_tags.append(tag)
                 return out
 
             handle.run = recorded_run
@@ -2554,7 +2612,8 @@ class RoundRecorder:
             if last is not None and torch.equal(last[0], a[0]) and torch.equal(last[1], a[1]):
                 kept[0], kept[1] = last[0], last[1]
             self.dispatches.append({"tier": tier, "bucket": b, "rows": n, "start": start,
-                                    "end": end, "operands": kept, "seen": out.copy()})
+                                    "end": end, "operands": kept, "seen": out.copy(),
+                                    "tag": getattr(self._tls, "tag", None)})
             return out
 
         verifier.prepare, verifier._dispatch = recorded_prepare, recorded_dispatch
@@ -2570,14 +2629,15 @@ class RoundRecorder:
 
 def check_recorded(torch, ed, host, rec, rng, window_min_rows: int, label: str) -> dict:
     """Holds a mode's recorded rounds: each round of more than
-    window_min_rows rows (a window) against its tier's plain version at the
-    shape it was dispatched; the small-tier rounds of one commit together
+    window_min_rows rows or off the small tier (a window) against its
+    tier's plain version at the shape it was dispatched; the other
+    small-tier rounds together
     (plain_over_rounds); CATCHUP_SAMPLE_ROWS seeded rows of the rounds
     against the host oracle. Returns the check's figures."""
     plain_of = {"big": ed.verify_prehashed_bigcache_plain,
                 "small": ed.verify_prehashed_table_plain}
     err = {}
-    windows = [d for d in rec.dispatches if d["rows"] > window_min_rows]
+    windows = [d for d in rec.dispatches if d["rows"] > window_min_rows or d["tier"] != "small"]
     t0 = time.perf_counter()
     for d in windows:
         assert d["tier"] in plain_of, (label, d["tier"])
@@ -2903,7 +2963,8 @@ def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
     Checks each mode's result, the launches and every recorded round
     (check_recorded), and prints the walls and splits beside phase 3's bare
     window (`bare_walls`, seconds). Returns the launches of the three modes,
-    summed per kernel, and the checks' max_abs_err per kernel."""
+    summed per kernel, the checks' max_abs_err per kernel and the served
+    chain (phase 10 serves it again)."""
     from tendermint_tpu_torch.crypto import aead
     from tendermint_tpu_torch.ops import ed25519_batch as ed
 
@@ -3043,6 +3104,566 @@ def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
           f"({len(skip['trusted']) - 1} steps, {skip['s'] * 1e3:.2f} ms, the witness "
           f"cross-check included); kernel wrapper calls on the card "
           f"{c['rec'].busy_ms():.2f} ms | {smi}")
+    return total, errs, src
+
+
+# --- the bulk rest and the chaos mesh ------------------------------------------
+
+# light clients of the serving plane's swarm (tools/lightserve_bench.py's count)
+SWARM_CLIENTS = 1000
+# validators of the chaos mesh: at 4 most vote rounds fall under
+# min_device_batch (8) and never reach the card; phase 7's mode (c) showed
+# 32 cost 6-16 s a height
+CHAOS_VALIDATORS = 16
+# the seeded storm of tests/test_chaos.py: latency, jitter, drop, duplicate
+CHAOS_SEED = 7
+CHAOS_STORM = {"latency_s": 0.005, "jitter_s": 0.01, "drop": 0.02, "duplicate": 0.02}
+CHAOS_STORM_HEIGHT = 4
+CHAOS_SKEW = 1.2  # n3's clock under the storm
+CHAOS_STALL_S = 2.0  # the 8|8 partition must commit nothing for this long
+CHAOS_SETTLE_S = 1.5  # ... once no height has moved for this long
+CHAOS_TIMEOUT_S = 150  # a bound on each wait of the mesh
+# the mesh's whole wall: past it a wait fails at once, so a slow host fails
+# the smoke here, with the nodes' states, well before the chip tool's limit
+CHAOS_WALL_S = 240
+# heights the mesh commits after the heal, and after the kill and the restart
+CHAOS_HEAL_HEIGHTS = 2
+CHAOS_KILL_HEIGHTS = 1
+# the chip tool's limit on the whole smoke, which prints its walls beside it
+SMOKE_LIMIT_S = 1200
+# round timeouts of the chaos mesh (seconds, and their growth a round): a
+# proposer killed, or restarted and still catching up, costs one propose
+# timeout, not committee_config's 16 s
+CHAOS_TIMEOUTS = {"timeout_propose": 5.0, "timeout_propose_delta": 1.0,
+                  "timeout_prevote": 2.0, "timeout_prevote_delta": 0.5,
+                  "timeout_precommit": 2.0, "timeout_precommit_delta": 0.5}
+GUARD_HANG_S = 2.0  # the bound of the guard's probe of a hanging child
+
+
+def run_bounded(coro, teardown_s: float = 30.0):
+    """asyncio.run(coro) with a bounded teardown: leftover tasks are
+    cancelled and waited for at most teardown_s, and the default executor
+    is not joined (a thread still blocked on a round of the stopped loop
+    must not hold a failing run; main exits without joining it)."""
+    loop = asyncio.new_event_loop()
+    asyncio.set_event_loop(loop)
+    try:
+        return loop.run_until_complete(coro)
+    finally:
+        tasks = [t for t in asyncio.all_tasks(loop) if not t.done()]
+        for t in tasks:
+            t.cancel()
+        if tasks:
+            loop.run_until_complete(asyncio.wait(tasks, timeout=teardown_s))
+        loop.run_until_complete(loop.shutdown_asyncgens())
+        asyncio.set_event_loop(None)
+        loop.close()
+
+
+def ledger_rounds(ledger) -> list:
+    """(classes, rows, bucket, merged submissions) of each ledger round."""
+    return [("+".join(e["classes"]), e["requested"], e["dispatched"], e["submissions"])
+            for e in ledger]
+
+
+def serve_swarm(torch, ops, src, vkeys, n_clients: int, now_ns: int):
+    """Part (a) of phase 10: n_clients LightClients sync src's chain from
+    the trust root at height 1 to its last proven height through one
+    LightServePlane over the source node's stores (tests/
+    torch_lightserve_swarm.py's run_swarm), its ServeVerifier on a started
+    VerifyScheduler's lightserve lane, that scheduler the process default;
+    then the swarm's divergent-witness and forged-header scenarios. Launch
+    counts set to 0 before, read after; every round recorded."""
+    from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+    from tests.torch_lightserve_swarm import run_swarm, served_chain
+
+    chain = served_chain(src.bs, src.state_store, src.state_store.load_validators(1),
+                         [MockPV(k) for k in vkeys], src.chain_id, now_ns=lambda: now_ns)
+    rec = RoundRecorder(torch, default_verifier())
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(Registry("smoke_lightserve")))
+    gc.collect()
+    set_default_scheduler(sched)
+    rec.install()
+    ops.reset_launches()
+    try:
+        stats = run_swarm(n_clients=n_clients, chain=chain, scheduler=sched)
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()
+    finally:
+        rec.remove()
+        set_default_scheduler(None)
+    return {"stats": stats, "rec": rec, "ledger": ledger.entries(), "launches": launches}
+
+
+def gossip_evidence(torch, ops, src, vkeys, ev, timeout: float = 30.0):
+    """Part (b) of phase 10: the honest node's EvidencePool (over the
+    source's stores) verifies and accepts `ev` from an executor thread
+    (default_dispatch("evidence") through a started VerifyScheduler); its
+    EvidenceReactor gossips it over encrypted p2p to a second node's pool
+    (over a copy of the block store), which verifies and accepts it on
+    receipt. Then copies with one signature and with the heaviest third of
+    the power's signatures flipped, and a DuplicateVoteEvidence of one
+    validator (and a copy with a flipped signature), each through the
+    honest pool. Launch counts set to 0 before, read after."""
+    import copy
+
+    from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
+    from tendermint_tpu_torch.evidence import EvidencePool, EvidenceReactor
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.p2p.transport import NetAddress
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tendermint_tpu_torch.store.kv import MemKV
+    from tendermint_tpu_torch.types.block import Commit
+    from tendermint_tpu_torch.types.block_id import BlockID
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+    from tendermint_tpu_torch.types.part_set import PartSetHeader
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    pool_a = EvidencePool(MemKV(), src.state_store, src.bs)
+    pool_b = EvidencePool(MemKV(), src.state_store, catchup_store(src))
+    node_a = p2p_node(b"evidence-a", "smoke-evidence", "evidence", EvidenceReactor(pool_a))
+    node_b = p2p_node(b"evidence-b", "smoke-evidence", "evidence", EvidenceReactor(pool_b))
+    vals = src.state_store.load_validators(ev.height())
+    tampered = heaviest_third(vals)
+
+    def flipped(indices):
+        commit = Commit.decode(ev.conflicting_commit)
+        for i in indices:
+            sig = commit.signatures[i].signature
+            commit.signatures[i].signature = sig[:5] + bytes([sig[5] ^ 1]) + sig[6:]
+        bad = copy.copy(ev)
+        bad.conflicting_commit = commit.encode()
+        return bad
+
+    # an equivocation of the first validator at the height before the fork
+    dup_h = ev.height()
+    meta = src.bs.load_block_meta(dup_h)
+    val = vals.validators[0]
+    pv = next(MockPV(k) for k in vkeys if k.public_key().address() == val.address)
+
+    def vote(block_hash):
+        v = Vote(type=VoteType.PRECOMMIT, height=dup_h, round=0,
+                 block_id=BlockID(block_hash, PartSetHeader(1, block_hash)),
+                 timestamp_ns=meta.header.time_ns, validator_address=val.address,
+                 validator_index=0)
+        pv.sign_vote(src.chain_id, v)
+        return v
+
+    va, vb = vote(b"\x01" * 32), vote(b"\x02" * 32)
+    dup = DuplicateVoteEvidence.from_votes(va, vb, vals.total_voting_power(),
+                                           val.voting_power, meta.header.time_ns)
+    vb_bad = copy.deepcopy(vb)
+    vb_bad.signature = bytes([vb_bad.signature[0] ^ 1]) + vb_bad.signature[1:]
+    dup_bad = DuplicateVoteEvidence.from_votes(va, vb_bad, vals.total_voting_power(),
+                                               val.voting_power, meta.header.time_ns)
+    rec = RoundRecorder(torch, default_verifier())
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(Registry("smoke_evidence")))
+    out = {"verdicts": {}}
+
+    async def judge(name, evidence):
+        loop = asyncio.get_running_loop()
+        n0 = len(rec.rounds)
+        t0 = time.perf_counter()
+        try:
+            await loop.run_in_executor(None, pool_a.add_evidence, evidence)
+            verdict = "accepted"
+        except ValueError as e:
+            verdict = f"rejected ({e})"
+        out["verdicts"][name] = (verdict, time.perf_counter() - t0,
+                                 [len(items) for items, _ in rec.rounds[n0:]])
+
+    async def drive():
+        await sched.start()
+        for _, t, sw in (node_a, node_b):
+            await t.listen()
+            await sw.start()
+        try:
+            await node_a[2].dial_peer(NetAddress(node_b[0].id, "127.0.0.1",
+                                                 node_b[1].listen_port))
+            t0 = time.perf_counter()
+            await judge("light-client attack", ev)
+            deadline = time.perf_counter() + timeout
+            while pool_b.size() < 1:
+                assert time.perf_counter() < deadline, "evidence: no gossip to the second pool"
+                await asyncio.sleep(0.02)
+            out["gossip_s"] = time.perf_counter() - t0
+            out["b_pending"] = [e.encode() for e in pool_b.pending_evidence()]
+            await judge("attack, one signature flipped", flipped([0]))
+            await judge("attack, the heaviest third flipped", flipped(tampered))
+            await judge("duplicate vote", dup)
+            await judge("duplicate vote, a signature flipped", dup_bad)
+        finally:
+            for _, t, sw in (node_a, node_b):
+                await sw.stop()
+            await sched.stop()
+
+    gc.collect()
+    set_default_scheduler(sched)
+    rec.install()
+    ops.reset_launches()
+    try:
+        asyncio.run(drive())
+        torch.cuda.synchronize()
+        out["launches"] = ops.kernel_launches()
+    finally:
+        rec.remove()
+        set_default_scheduler(None)
+    out.update(rec=rec, ledger=ledger.entries(), a_pending=pool_a.pending_evidence(),
+               tampered=tampered, dup=dup)
+    return out
+
+
+def chaos_mesh(torch, ops, n_vals: int, device: str = "cuda"):
+    """Part (c) of phase 10: n_vals validators over encrypted p2p built by
+    tests/torch_chaos_harness.py on `device`, the process verifier behind
+    one started VerifyScheduler as the process default (every gossiped vote
+    through its node's VoteBatcher), with ChaosNetwork installed by a
+    ScenarioRunner: the seeded storm (CHAOS_STORM, n3's clock at
+    CHAOS_SKEW from height 2) to CHAOS_STORM_HEIGHT; an even partition that
+    must commit nothing for CHAOS_STALL_S, healed, CHAOS_HEAL_HEIGHTS more
+    heights; n3 killed, CHAOS_KILL_HEIGHTS without it, restarted with fresh
+    p2p around its state, CHAOS_KILL_HEIGHTS more on every node; every wait
+    inside CHAOS_WALL_S. Launch counts set to 0 before,
+    read after; every round recorded, tagged with its VoteBatcher rows."""
+    from tendermint_tpu_torch.chaos import LinkPolicy, Scenario, ScenarioRunner, Step
+    from tendermint_tpu_torch.consensus.state_machine import ConsensusConfig
+    from tendermint_tpu_torch.consensus.vote_batcher import VoteBatcher
+    from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tests.torch_chaos_harness import build_chaos_handles, chain_hashes, start_mesh, stop_mesh
+
+    config = committee_config(ConsensusConfig, n_vals, **CHAOS_TIMEOUTS)
+    handles = build_chaos_handles(n_vals, config=config, device=device)
+    names = [h.name for h in handles]
+    scenario = Scenario(
+        seed=CHAOS_SEED,
+        steps=[Step(at_height=2, action="clock_skew", params={"node": "n3", "scale": CHAOS_SKEW})],
+        default_policy=LinkPolicy(**CHAOS_STORM),
+    )
+    runner = ScenarioRunner(handles, scenario)
+    vote_ids, vote_lock = set(), threading.Lock()
+    batcher_rounds = []
+    verify_items = VoteBatcher._verify_items
+
+    def tracked_verify_items(self, items):
+        with vote_lock:
+            batcher_rounds.append(len(items))
+            vote_ids.update(id(it) for it in items)
+        try:
+            return verify_items(self, items)
+        finally:
+            with vote_lock:
+                vote_ids.difference_update(id(it) for it in items)
+
+    def vote_rows(items):
+        with vote_lock:
+            return sum(id(it) in vote_ids for it in items)
+
+    verifier = default_verifier()
+    rec = RoundRecorder(torch, verifier, tag=vote_rows)
+    ledger = DispatchLedger()
+    sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(Registry("smoke_chaos")))
+    stages, checked = [], {}
+
+    def low():
+        return min(h.height() for h in runner.live_nodes())
+
+    def states():
+        return [(h.name, h.alive, h.height(), h.cs.rs.round, str(h.cs.rs.step),
+                 len(h.switch.peers)) for h in handles]
+
+    end = time.perf_counter() + CHAOS_WALL_S
+
+    async def bounded(aw, what, walled=True):
+        limit = min(CHAOS_TIMEOUT_S, end - time.perf_counter()) if walled else CHAOS_TIMEOUT_S
+        try:
+            return await asyncio.wait_for(aw, max(0.0, limit))
+        except asyncio.TimeoutError:
+            raise AssertionError(f"chaos mesh: {what} took over {limit:.1f} s (each wait "
+                                 f"{CHAOS_TIMEOUT_S} s, the mesh {CHAOS_WALL_S} s); "
+                                 f"(node, alive, height, round, step, peers) {states()}") from None
+
+    async def wait_all(height):
+        print(f"chaos mesh: waiting for height {height}; {states()}", file=sys.stderr,
+              flush=True)
+        await bounded(asyncio.gather(*(h.cs.wait_for_height(height, timeout=CHAOS_TIMEOUT_S)
+                                       for h in runner.live_nodes())), f"height {height}")
+
+    async def one_chain(upto):
+        for k in range(1, upto + 1):
+            hashes = await chain_hashes(handles, k)
+            assert len(hashes) == 1, f"chaos mesh: {len(hashes)} chains at height {k}"
+            checked[k] = True
+
+    async def drive():
+        await sched.start()
+        await start_mesh(handles)
+        try:
+            t0, h0 = time.perf_counter(), 0
+            await bounded(runner.run(until_height=CHAOS_STORM_HEIGHT, timeout=CHAOS_TIMEOUT_S),
+                          "the storm")
+            stages.append(("storm", time.perf_counter() - t0, low() - h0))
+            await one_chain(low())
+            before = max(h.height() for h in handles)
+            await runner.net.partition("split", [names[: n_vals // 2], names[n_vals // 2:]])
+            for h in handles:
+                for peer_id in h.switch.peers:
+                    other = runner.net._name_for(peer_id)
+                    assert runner.net.allowed(h.name, other), (h.name, other)
+            # the height in flight still commits where its precommits had
+            # arrived, and a node that lags inside its half catches up to
+            # it: wait until each half stands at one height and no height
+            # has moved for CHAOS_SETTLE_S
+            halves = [handles[: n_vals // 2], handles[n_vals // 2:]]
+            stalled, quiet = [h.height() for h in handles], time.perf_counter()
+            deadline = min(quiet + CHAOS_TIMEOUT_S, end)
+            while (time.perf_counter() - quiet < CHAOS_SETTLE_S
+                   or any(len({h.height() for h in half}) > 1 for half in halves)):
+                await asyncio.sleep(0.1)
+                now = [h.height() for h in handles]
+                if now != stalled:
+                    stalled, quiet = now, time.perf_counter()
+                assert time.perf_counter() < deadline, ("the partition never settled", states())
+            assert max(stalled) <= before + 1, ("an even partition committed", before, stalled)
+            await asyncio.sleep(CHAOS_STALL_S)
+            assert [h.height() for h in handles] == stalled, (
+                "an even partition committed", stalled, states())
+            t0, h0 = time.perf_counter(), low()
+            await runner.net.heal("split")
+            await wait_all(max(stalled) + CHAOS_HEAL_HEIGHTS)
+            stages.append(("partition healed", time.perf_counter() - t0, low() - h0))
+            stages.append(("stalled", stalled))
+            await one_chain(low())
+            t0, h0 = time.perf_counter(), low()
+            await bounded(runner._execute(Step(action="kill", params={"node": "n3"})),
+                          "the kill")
+            await wait_all(h0 + CHAOS_KILL_HEIGHTS)
+            stages.append(("n3 killed", time.perf_counter() - t0, low() - h0))
+            t0, h0 = time.perf_counter(), low()
+            await bounded(runner._execute(Step(action="restart", params={"node": "n3"})),
+                          "the restart")
+            target = max(h.height() for h in handles) + CHAOS_KILL_HEIGHTS
+            await wait_all(target)
+            stages.append(("n3 restarted", time.perf_counter() - t0, low() - h0))
+            await one_chain(target)
+        finally:
+            await bounded(stop_mesh(handles), "stopping the mesh", walled=False)
+            await sched.stop()
+
+    gc.collect()
+    VoteBatcher._verify_items = tracked_verify_items
+    set_default_scheduler(sched)
+    rec.install()
+    ops.reset_launches()
+    try:
+        run_bounded(drive())
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()
+    finally:
+        rec.remove()
+        set_default_scheduler(None)
+        VoteBatcher._verify_items = verify_items
+    entries = runner.net.trace.entries
+    links = {"drop": sum(1 for e in entries if len(e) > 3 and e[3] == "drop"),
+             "duplicate": sum(e[6] for e in entries if len(e) > 6 and e[3] == "deliver"),
+             "deliver": sum(1 for e in entries if len(e) > 3 and e[3] == "deliver")}
+    return {"handles": handles, "stages": stages, "checked": sorted(checked), "rec": rec,
+            "ledger": ledger.entries(), "launches": launches, "links": links,
+            "batcher_rounds": batcher_rounds,
+            "min_batch": verifier._min_device_batch, "verifier": verifier, "device": device}
+
+
+def guard_probe(smi: str):
+    """Part (d) of phase 10: the backend guard on the card: the default
+    probe (a child putting one tensor operation on cuda:0), meta_block, and
+    a probe of a child that hangs, killed at GUARD_HANG_S."""
+    import torch
+
+    from tendermint_tpu_torch.chaos import backend_guard
+
+    t0 = time.perf_counter()
+    st = backend_guard.probe_backend()
+    probe_s = time.perf_counter() - t0
+    assert st.available and st.kind == "ok" and st.backend == "cuda", st.as_dict()
+    meta = backend_guard.meta_block(live=True)
+    assert meta["backend"] == "cuda" and meta["device_count"] == torch.cuda.device_count()
+    assert meta["device_name"] == torch.cuda.get_device_name(0), meta
+    t0 = time.perf_counter()
+    hang = backend_guard.probe_backend(
+        probe_cmd=[sys.executable, "-c", "import time; time.sleep(600)"], timeout_s=GUARD_HANG_S)
+    hang_s = time.perf_counter() - t0
+    assert not hang.available and hang.kind == "timeout" and hang.rc == 124, hang.as_dict()
+    assert hang_s < GUARD_HANG_S + 5.0, hang_s
+    print(f"main path: bulk rest (d): backend guard: probe_backend() {json.dumps(st.as_dict())} "
+          f"in {probe_s:.2f} s (a child process: torch, one tensor operation on cuda:0, "
+          f"synchronized); meta_block(live=True) {json.dumps(meta)}; a hanging child "
+          f"{json.dumps(hang.as_dict())} after {hang_s:.2f} s (bound {GUARD_HANG_S} s) | {smi}")
+
+
+def bulk_rest_phase(torch, ops, host, smi, rng, src, vkeys,
+                    n_clients: int = SWARM_CLIENTS, chaos_vals: int = CHAOS_VALIDATORS):
+    """Phase 10: the light-client serving plane at full width over phase
+    9's chain (serve_swarm), the swarm's attack evidence through two pools
+    over p2p (gossip_evidence), the chaos mesh (chaos_mesh) and the backend
+    guard (guard_probe). Checks each part, holds every recorded round
+    against the plain version (check_recorded), kernel 2's tables of the
+    mesh's new keys against theirs, and prints the figures. Returns the
+    launches of the parts, summed per kernel, and the checks' max_abs_err
+    per kernel."""
+    from tendermint_tpu_torch.ops import ed25519_batch as ed
+    from tendermint_tpu_torch.types.evidence import LightClientAttackEvidence, decode_evidence
+
+    n_vals = len(vkeys)
+    tip = src.heights - 1
+    now_ns = CATCHUP_T0 + (src.heights + 60) * 10**9
+    total, errs = {}, {}
+
+    def add(launches, chk):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in chk["err"].items():
+            errs[k] = max(errs.get(k, 0), v)
+
+    def shown(launches):
+        return json.dumps({k: v for k, v in launches.items() if v})
+
+    # (a) the serving plane
+    a = serve_swarm(torch, ops, src, vkeys, n_clients, now_ns)
+    st, launches = a["stats"], a["launches"]
+    assert st["synced"] == st["n_clients"] == n_clients, (st["synced"], n_clients)
+    assert st["target_height"] == tip, st["target_height"]
+    assert st["cache"]["hit_rate"] > 0.9, st["cache"]
+    assert st["verify"]["dedup_rate"] > 0.99, st["verify"]
+    assert st["verify"]["executed"] <= 8, st["verify"]
+    device_rounds = st["registry_delta"]["device_dispatch_count"]
+    assert device_rounds + st["scheduler_rounds"] < n_clients / 10, (device_rounds, st)
+    sc = st["scenarios"]
+    assert sc["divergent_witness"]["attack_detected"], sc
+    assert sc["divergent_witness"]["evidence_pool_size"] >= 1, sc
+    assert sc["evidence_is_light_attack"], sc
+    assert sc["forged_header"]["synced"] and sc["forged_header"]["forged_witness_removed"], sc
+    assert launches["verify_prehashed_table"] > 0, "bulk rest (a): kernel 3 not launched"
+    chk = check_recorded(torch, ed, host, a["rec"], rng, 511, "bulk rest (a)")
+    add(launches, chk)
+    serve_rounds = [r for r in ledger_rounds(a["ledger"]) if "lightserve" in r[0]]
+    dispatched = [(d["rows"], d["bucket"], d["tier"]) for d in a["rec"].dispatches]
+    big = launches.get("verify_prehashed_bigcache", 0)
+    print(f"main path: bulk rest (a): {n_clients} LightClients synced heights 1 -> {tip} of "
+          f"the {n_vals}-validator chain through one LightServePlane (ServeVerifier on the "
+          f"scheduler's lightserve lane); cache {json.dumps(st['cache'])}; verify "
+          f"{json.dumps(st['verify'])}; scheduler rounds {st['scheduler_rounds']} "
+          f"({st['scheduler_coalesced_rounds']} coalesced), device dispatches "
+          f"{device_rounds}; lightserve rounds (classes, rows, bucket, merged submissions) "
+          f"{serve_rounds}; every round of the part (the scenarios' included) "
+          f"{ledger_rounds(a['ledger'])}; device rounds (rows, bucket, tier) {dispatched}; "
+          f"big tier {'reached' if big else 'not reached (no coalesced round of 512 rows)'}; "
+          f"divergent witness: LightClientAttackEvidence raised, accepted by the honest "
+          f"node's pool; forged header: the witness removed, the client synced; every "
+          f"round equal to the plain version ({chk['small_rounds']} small-tier rounds' "
+          f"{chk['small_rows']} rows together, {chk['windows']} big-tier at their shape), "
+          f"{chk['sampled']} seeded rows to the host oracle (tolerance: exact); launches "
+          f"{shown(launches)} | {smi}")
+    print(f"time: bulk rest (a): {st['clients_per_s']} clients/s ({st['wall_s']} s for "
+          f"{n_clients} clients), cache hit rate {st['cache']['hit_rate']}, dedup rate "
+          f"{st['verify']['dedup_rate']}, {st['verify']['executed']} executed verifications, "
+          f"device rounds per {n_clients} clients {device_rounds}; kernel wrapper calls on "
+          f"the card {a['rec'].busy_ms():.2f} ms | {smi}")
+
+    # (b) attack evidence through two pools over p2p
+    ev = decode_evidence(bytes.fromhex(sc["divergent_witness"]["evidence_hex"]))
+    assert isinstance(ev, LightClientAttackEvidence)
+    b = gossip_evidence(torch, ops, src, vkeys, ev)
+    v = b["verdicts"]
+    assert v["light-client attack"][0] == "accepted", v
+    assert b["b_pending"] == [ev.encode()], "bulk rest (b): the second pool's pending list"
+    assert v["attack, the heaviest third flipped"][0].startswith("rejected"), v
+    assert v["duplicate vote"][0] == "accepted", v
+    assert "invalid signature" in v["duplicate vote, a signature flipped"][0], v
+    assert all(n < 8 for n in v["duplicate vote"][2]), v["duplicate vote"]
+    launches = b["launches"]
+    assert launches["verify_prehashed_table"] > 0, "bulk rest (b): kernel 3 not launched"
+    evidence_rounds = [e for e in b["ledger"] if "evidence" in e["rows"]]
+    assert evidence_rounds, "bulk rest (b): no round on the evidence lane"
+    chk = check_recorded(torch, ed, host, b["rec"], rng, 511, "bulk rest (b)")
+    add(launches, chk)
+    desc = "; ".join(f"{k}: {r[0][:90]} ({r[1] * 1e3:.2f} ms, rounds of {r[2]} rows)"
+                     for k, r in v.items())
+    print(f"main path: bulk rest (b): the swarm's LightClientAttackEvidence (common height "
+          f"{ev.common_height}, {n_vals} signatures) through the honest node's "
+          f"EvidencePool (default_dispatch(\"evidence\"), {len(evidence_rounds)} evidence-lane "
+          f"rounds (classes, rows, bucket, merged submissions) {ledger_rounds(evidence_rounds)}), "
+          f"gossiped by its EvidenceReactor over encrypted p2p to a second node whose pool "
+          f"verified and accepted it ({b['gossip_s'] * 1e3:.2f} ms, the same bytes); {desc}; "
+          f"the flipped copy of {len(b['tampered'])} signatures (more than 1/3 of the power) "
+          f"rejected; the copy with one signature flipped "
+          f"{v['attack, one signature flipped'][0][:60]} (reported, not checked: both "
+          f"packages' tally counts the valid signatures alone, and {n_vals - 1} of them hold "
+          f"more than 2/3; ROADMAP.md section C); the duplicate vote's "
+          f"2 rows are under min_device_batch (8): checked on the host oracle, as designed; "
+          f"every round equal to the plain version, {chk['sampled']} seeded rows to the "
+          f"host oracle (tolerance: exact); launches {shown(launches)} | {smi}")
+
+    # (c) the chaos mesh
+    c = chaos_mesh(torch, ops, chaos_vals)
+    launches = c["launches"]
+    assert launches["verify_prehashed_table"] > 0, "bulk rest (c): kernel 3 not launched"
+    assert launches["neg_pubkey_table"] > 0, "bulk rest (c): kernel 2 not launched"
+    small = [d for d in c["rec"].dispatches if d["tier"] == "small"]
+    vote_dispatches = [d for d in small if d["tag"]]
+    other_dispatches = [d for d in small if not d["tag"]]
+    assert vote_dispatches, "bulk rest (c): no VoteBatcher round reached the card"
+    chk = check_recorded(torch, ed, host, c["rec"], rng, 511, "bulk rest (c)")
+    # kernel 2's tables of the mesh's keys, as the table cache holds them
+    cache = c["verifier"]._small
+    keys = [h.cs.priv_validator.get_pub_key().data for h in c["handles"]]
+    rows_t = torch.tensor([cache._idx[k] for k in keys], dtype=torch.int64,
+                          device=cache.tables.device)
+    pk = torch.tensor([list(k) for k in keys], dtype=torch.uint8, device=cache.tables.device)
+    plain_t, plain_v = ed.neg_pubkey_table_plain(pk)
+    e2 = max(max_abs_err(cache.tables[rows_t], plain_t), max_abs_err(cache.valid[rows_t], plain_v))
+    assert e2 == 0, "bulk rest (c): kernel 2's tables of the mesh's keys != plain"
+    chk["err"]["neg_pubkey_table"] = e2
+    add(launches, chk)
+    under = sum(1 for items, _ in c["rec"].rounds if len(items) < c["min_batch"])
+    vote_rounds = sum(1 for t in c["rec"].round_tags if t)
+    stages = {s[0]: s[1:] for s in c["stages"]}
+    per_h = "; ".join(f"{name} {s * 1e3 / max(1, n):.1f} ms a height ({n} heights, "
+                      f"{s * 1e3:.1f} ms)" for name, (s, n) in
+                      ((k, stages[k]) for k in ("storm", "partition healed", "n3 killed",
+                                                 "n3 restarted")))
+    print(f"main path: bulk rest (c): chaos mesh of {chaos_vals} validators over encrypted "
+          f"p2p (tests/torch_chaos_harness.py, device {c['device']}, full mesh), seed "
+          f"{CHAOS_SEED}: "
+          f"storm {json.dumps(CHAOS_STORM)} with n3's clock at {CHAOS_SKEW}x to height "
+          f"{CHAOS_STORM_HEIGHT}; an even split committed nothing for {CHAOS_STALL_S} s "
+          f"(heights {stages['stalled'][0]}), healed; n3 killed and restarted; one chain at "
+          f"every height 1-{c['checked'][-1]}; links: {c['links']['drop']} messages dropped, "
+          f"{c['links']['duplicate']} duplicated of {c['links']['deliver']} delivered; "
+          f"{len(c['batcher_rounds'])} VoteBatcher rounds of {sum(c['batcher_rounds'])} votes, "
+          f"{len(c['rec'].rounds)} verifier rounds ({vote_rounds} with VoteBatcher rows, the "
+          f"rest LastCommit and proposal checks), {under} under min_device_batch "
+          f"({c['min_batch']}) on the host oracle; kernel 3 launches {len(vote_dispatches)} "
+          f"on rounds with VoteBatcher rows, "
+          f"{len(other_dispatches)} on the others; kernel "
+          f"2's tables of the {chaos_vals} new keys equal the plain version; every round "
+          f"equal to the plain version ({chk['small_rounds']} small-tier rounds' "
+          f"{chk['small_rows']} rows together), {chk['sampled']} seeded rows to the host "
+          f"oracle (tolerance: exact); launches {shown(launches)} | {smi}")
+    busy = c["rec"].busy_ms()
+    print(f"time: bulk rest (c): {per_h}; kernel wrapper calls on the card {busy:.2f} ms | {smi}")
+
+    # (d) the backend guard on the card
+    guard_probe(smi)
     return total, errs
 
 
@@ -3365,6 +3986,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    # each phase's wall, against the chip tool's limit on the whole run
+    phase_walls, lap_at = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        phase_walls[phase], lap_at[0] = round(now - lap_at[0], 1), now
 
     # --- 1. build -----------------------------------------------------------
     smi = nvidia_smi_line()
@@ -3382,6 +4009,8 @@ def main() -> int:
 
     def T(rows) -> torch.Tensor:
         return torch.tensor([list(r) for r in rows], dtype=torch.uint8)
+
+    lap("1 build")
 
     # --- 2. kernel vs plain -------------------------------------------------
     keys = [host.PrivKey(rng.bytes(32)) for _ in range(200)]
@@ -3570,6 +4199,8 @@ def main() -> int:
           f"equal their plain versions (tolerance: exact; reduce_mod_l on "
           f"{len(digests)} digests, max_abs_err {reduce_err})")
 
+    lap("2 kernel vs plain")
+
     # --- 3. main paths ------------------------------------------------------
     chain_id = "chip-smoke"
     vkeys = [host.PrivKey(rng.bytes(32)) for _ in range(args.validators)]
@@ -3698,6 +4329,8 @@ def main() -> int:
               f"x{reps}; bitmap False on exactly the {len(tampered)} tampered "
               f"rows; 256-row sample = host oracle; launches "
               f"{json.dumps(bulk[label]['launches'])}")
+
+    lap("3 main paths")
 
     # --- 4. timings ---------------------------------------------------------
     rows_store = verifier._small.tables.shape[0]
@@ -3947,6 +4580,8 @@ def main() -> int:
                   f"{(e['queue_wait_s'] - e['host_prep_s']) * 1e3:.2f} ms; gc pauses "
                   f"{gc_s * 1e3:.2f} ms | {smi}")
 
+    lap("4 timings")
+
     # --- 5. the quorum-certificate path -------------------------------------
     qc_rows, point_sets, k12 = qc_phase(torch, rng, dev, smi, ops, types, vset,
                                         chain_id, entries)
@@ -3962,6 +4597,8 @@ def main() -> int:
               f"{k}: {usages.get(k, 'not reported')}"
               for k in ("miller_kernel", "chunk_product_kernel", "final_exp_kernel"))
           + f" | {smi}")
+
+    lap("5 qc")
 
     # --- 6. the mixed-key path and the L2 block's merkle leaves ----------
     mix_rows, secp_arrays, k10, k9 = mixed_phase(torch, np, rng, dev, smi, ops, types,
@@ -3980,6 +4617,8 @@ def main() -> int:
           f"window's live rows); ptxas: "
           f"{usages.get('secp_verify_kernel', 'not reported')} | {smi}")
 
+    lap("6 mixed")
+
     # --- 7. the in-process consensus net -------------------------------------
     net, net_errs = consensus_phase(torch, ops, host, smi, args.seed,
                                     NET_VALIDATORS, NET_HEIGHTS)
@@ -3989,6 +4628,8 @@ def main() -> int:
     print(f"main path: consensus net launches per kernel, the three modes "
           f"{json.dumps({k: v for k, v in net.items() if v})} (added to the "
           f"kernels line's launches)")
+
+    lap("7 consensus net")
 
     # --- 8. the multi-device path -------------------------------------------
     mesh_rows, mesh_launches, sharded_ms = mesh_phase(
@@ -4037,8 +4678,10 @@ def main() -> int:
               f"{k}: {usages.get(k, 'not reported')}"
               for k in ("g1_aggregate_kernel", "g1_add_kernel")) + f" | {smi}")
 
+    lap("8 multi-device")
+
     # --- 9. the catch-up path ----------------------------------------------
-    catchup, catchup_errs = catchup_phase(torch, ops, host, smi, rng, vkeys, powers,
+    catchup, catchup_errs, catchup_src = catchup_phase(torch, ops, host, smi, rng, vkeys, powers,
                                           chain_id, bulk["host_hash"]["walls"])
     for row in rows:
         row["launches"] += catchup.get(row["name"], 0)
@@ -4047,7 +4690,22 @@ def main() -> int:
           f"{json.dumps({k: v for k, v in catchup.items() if v})} (added to the "
           f"kernels line's launches)")
 
-    # --- 10. result lines ---------------------------------------------------
+    lap("9 catch-up")
+
+    # --- 10. the bulk rest and the chaos mesh -------------------------------
+    t0 = time.perf_counter()
+    rest, rest_errs = bulk_rest_phase(torch, ops, host, smi, rng, catchup_src, vkeys)
+    for row in rows:
+        row["launches"] += rest.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], rest_errs.get(row["name"], 0))
+    print(f"main path: bulk rest launches per kernel, the four parts "
+          f"{json.dumps({k: v for k, v in rest.items() if v})} (added to the kernels "
+          f"line's launches); phase 10 took {time.perf_counter() - t0:.1f} s | {smi}")
+    del catchup_src
+
+    lap("10 bulk rest")
+
+    # --- 11. result lines ---------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,
@@ -4057,6 +4715,9 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         },
     })
+    whole = sum(phase_walls.values())
+    print(f"time: smoke walls per phase (s) {json.dumps(phase_walls)}; whole {whole:.1f} s, "
+          f"against the chip tool's limit of {SMOKE_LIMIT_S} s | {smi}")
     print(kernels_line)
     print(smi)
     print(last)
@@ -4064,4 +4725,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        # a failing phase may leave a worker thread blocked on a stopped
+        # event loop: report and exit now rather than join it
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    sys.exit(rc)

@@ -100,6 +100,7 @@ class Switch(Service):
         # chaos seam: predicate(peer_id) -> bool consulted before a peer
         # is added; partitions/blackholes install one (chaos/network.py)
         self.conn_gate: Optional[Callable[[str], bool]] = None
+        self._stopping = False
 
     def add_reactor(self, name: str, reactor: Reactor) -> None:
         for ch in reactor.get_channels():
@@ -115,11 +116,17 @@ class Switch(Service):
     # --- lifecycle --------------------------------------------------------
 
     async def on_start(self) -> None:
+        self._stopping = False
         for r in self.reactors.values():
             await r.on_start()
         self.spawn(self._accept_routine(), "accept")
 
     async def on_stop(self) -> None:
+        # accept and redial routines run until on_stop returns: a peer
+        # they add from here on would outlive the loop below and hold
+        # transport.close() for good (the listener's wait_closed waits
+        # for every accepted connection), so _add_peer refuses it
+        self._stopping = True
         for peer in list(self.peers.values()):
             await self._stop_and_remove(peer, "switch stopping")
         for r in self.reactors.values():
@@ -263,6 +270,9 @@ class Switch(Service):
                 # leak it as a running ghost in every reactor
                 sconn.close()
                 raise ValueError("duplicate peer")
+        if self._stopping:
+            sconn.close()
+            raise ValueError("switch stopping")
 
         descs = [
             d
