@@ -268,7 +268,31 @@ Phases (any failure raises and the exit code is non-zero):
    evidence verdicts, ms a height per chaos stage, the links' drops and
    duplicates, kernel 3's launches on vote rounds and the others); the
    launches add to the kernels line.
-11. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+11. The verify service and the sequencer plane (``service_phase``): one
+   ``ServiceThread`` on the card, with its own ``BatchVerifier``
+   (``min_device_batch`` ``SERVICE_MIN_BATCH``), serves three clients over a
+   Unix socket: two ``RemoteVerifyScheduler``s in this process and one in a
+   child process that imports only the port (``SERVICE_CHILD``). (a) One
+   commit of phase 3 alone (kernel 2 builds the service's tables, kernel 3
+   verifies), then each client submits phase 3's commits at once and one of
+   them a 39-commit window of phase 9's chain (one commit tampered by the
+   heaviest third; kernels 5 and 6), raw and through
+   ``verify_commits_light``: verdicts bit-identical to an in-proc
+   ``VerifyScheduler``'s; the tenants, rounds against submissions, round
+   trips (median, p99), PING round trips (the IPC alone) and a 150-row
+   commit through the service against in-proc, in turns. (b) The service
+   stopped with the three attached (inside 5 s, its thread dead), a
+   submission while it is down on the client's own verifier on the card
+   with the degrade event ``service unreachable``, a restart on the same
+   path that every client re-attaches to. (c) The BFT -> sequencer upgrade
+   of ``tests/torch_sequencer_net.py``: 3 validators over encrypted p2p,
+   node 0 the sequencer, two followers, the process default scheduler a
+   ``RemoteVerifyScheduler`` to the service; the votes before the upgrade
+   on kernel 3 through the service, the followers' ``secp_recover`` rounds
+   after it (on the service's host). Every round of the service's verifier
+   held against the plain version, its kernel 2 and 5 tables against
+   theirs; the launches add to the kernels line.
+12. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -3121,7 +3145,7 @@ CHAOS_STORM = {"latency_s": 0.005, "jitter_s": 0.01, "drop": 0.02, "duplicate": 
 CHAOS_STORM_HEIGHT = 4
 CHAOS_SKEW = 1.2  # n3's clock under the storm
 CHAOS_STALL_S = 2.0  # the 8|8 partition must commit nothing for this long
-CHAOS_SETTLE_S = 1.5  # ... once no height has moved for this long
+CHAOS_SETTLE_S = 1.5  # ... once no node's height, round or step has moved for this long
 CHAOS_TIMEOUT_S = 150  # a bound on each wait of the mesh
 # the mesh's whole wall: past it a wait fails at once, so a slow host fails
 # the smoke here, with the nodes' states, well before the chip tool's limit
@@ -3422,18 +3446,27 @@ def chaos_mesh(torch, ops, n_vals: int, device: str = "cuda"):
                     assert runner.net.allowed(h.name, other), (h.name, other)
             # the height in flight still commits where its precommits had
             # arrived, and a node that lags inside its half catches up to
-            # it: wait until each half stands at one height and no height
-            # has moved for CHAOS_SETTLE_S
+            # it; a half that holds +2/3 prevotes from before the split
+            # goes on to precommit inside it, its heights standing: wait
+            # until each half stands at one height and no node's height,
+            # round or step has moved for CHAOS_SETTLE_S (a half that
+            # lacks the other's votes ends stuck at one step, at most one
+            # propose timeout on)
             halves = [handles[: n_vals // 2], handles[n_vals // 2:]]
-            stalled, quiet = [h.height() for h in handles], time.perf_counter()
+
+            def standing():
+                return [(h.height(), h.cs.rs.round, str(h.cs.rs.step)) for h in handles]
+
+            seen, quiet = standing(), time.perf_counter()
             deadline = min(quiet + CHAOS_TIMEOUT_S, end)
             while (time.perf_counter() - quiet < CHAOS_SETTLE_S
                    or any(len({h.height() for h in half}) > 1 for half in halves)):
                 await asyncio.sleep(0.1)
-                now = [h.height() for h in handles]
-                if now != stalled:
-                    stalled, quiet = now, time.perf_counter()
+                now = standing()
+                if now != seen:
+                    seen, quiet = now, time.perf_counter()
                 assert time.perf_counter() < deadline, ("the partition never settled", states())
+            stalled = [h.height() for h in handles]
             assert max(stalled) <= before + 1, ("an even partition committed", before, stalled)
             await asyncio.sleep(CHAOS_STALL_S)
             assert [h.height() for h in handles] == stalled, (
@@ -3664,6 +3697,444 @@ def bulk_rest_phase(torch, ops, host, smi, rng, src, vkeys,
 
     # (d) the backend guard on the card
     guard_probe(smi)
+    return total, errs
+
+
+# --- phase 11: the verify service and the sequencer plane ---------------------
+
+SERVICE_WINDOW = 39  # commits of phase 9's chain in the window (blocksync/pool.py's most)
+SERVICE_WINDOW_BAD = 20  # the window's commit whose heaviest third is tampered
+SERVICE_TURNS = 10  # turns of one 150-row commit, through the service and in-proc
+SERVICE_PINGS = 200  # PING frames timed on a raw connection
+SERVICE_STOP_S = 5.0  # the bound on a stop with clients attached
+SERVICE_TIMEOUT_S = 120  # a bound on each wait of the phase
+# the service verifier's min_device_batch: the 3-validator net's vote rounds
+# (2 rows a node a step) reach the card; the commits and the window are far above
+SERVICE_MIN_BATCH = 2
+SEQ_VALIDATORS = 3  # the sequencer and two followers (tests/torch_sequencer_net.py)
+SEQ_UPGRADE = 3  # the BFT height the net hands off at
+SEQ_V2_BLOCKS = 10  # BlockV2s each follower applies past it
+SEQ_BLOCK_INTERVAL = 0.1  # the sequencer's production interval, seconds
+
+# The third client: a child process importing only the port (JAX made to
+# fail), attached to the service. It reads SUBMIT frames (u32 length +
+# payload, the wire's own) from the file named by argv[2], waits for "go" on
+# stdin, submits them all at once, prints their verdict bitmaps; then waits
+# for the service to go away and come back, prints its ipc_stats, submits
+# the first frame again and prints that bitmap. One JSON object a line.
+SERVICE_CHILD = r'''
+import asyncio, json, os, struct, sys, time
+sys.modules["jax"] = None
+sys.path.insert(0, os.environ["SMOKE_ROOT"])
+import numpy as np
+from tendermint_tpu_torch.parallel.verify_service import (
+    RemoteVerifyScheduler, _Cursor, _HDR, decode_submit)
+
+
+def frames(path):
+    data, off = open(path, "rb").read(), 0
+    while off < len(data):
+        (n,) = struct.unpack(">I", data[off:off + 4])
+        cur = _Cursor(data[off + 4:off + 4 + n])
+        cur.take(_HDR.size)
+        yield decode_submit(cur)
+        off += 4 + n
+
+
+def say(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+async def until(cond, limit):
+    end = time.monotonic() + limit
+    while not cond() and time.monotonic() < end:
+        await asyncio.sleep(0.01)
+    return cond()
+
+
+async def main(sock, path):
+    subs = list(frames(path))
+    remote = RemoteVerifyScheduler(sock, retry_base=0.02, origin="smoke-child")
+    await remote.start()
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] == "tendermint_tpu")
+    say(attached=await until(lambda: remote.connected, 60), reference_modules=leaked)
+    await asyncio.get_running_loop().run_in_executor(None, sys.stdin.readline)
+
+    async def one(items, klass):
+        t0 = time.perf_counter()
+        v = await remote.submit(items, klass)
+        return np.packbits(np.asarray(v, dtype=np.uint8)).tobytes().hex(), time.perf_counter() - t0
+
+    got = await asyncio.gather(*(one(i, k) for i, k in subs))
+    say(bitmaps=[g[0] for g in got], rtt_s=[g[1] for g in got], stats=remote.ipc_stats())
+    say(lost=await until(lambda: not remote.connected, 60))
+    say(reattached=await until(lambda: remote.connected, 60), stats=remote.ipc_stats())
+    bitmap, rtt = await one(*subs[0])
+    say(again=bitmap, rtt_s=rtt, stats=remote.ipc_stats())
+    await remote.stop()
+
+
+asyncio.run(main(sys.argv[1], sys.argv[2]))
+'''
+
+
+def service_phase(torch, ops, host, smi, rng, vset, chain_id, commits, src, device="cuda"):
+    """Phase 11: one ServiceThread owns the card and serves three clients
+    over a Unix socket: two RemoteVerifySchedulers in this process and one
+    in a child process (SERVICE_CHILD). (a) Each submits phase 3's
+    150-validator commits at once, one of them also a SERVICE_WINDOW-commit
+    window of phase 9's chain (the raw rows, then verify_commits_light
+    through its classed adapter): verdicts bit-identical to an in-proc
+    VerifyScheduler's on the process verifier; the service's tenants,
+    rounds against submissions, round trips. (b) The service stopped with
+    the three attached (inside SERVICE_STOP_S), a submission while it is
+    down on the client's own verifier with the degrade event "service
+    unreachable", a restart on the same path that every client re-attaches
+    to. (c) The BFT -> sequencer upgrade with two followers over encrypted
+    p2p (tests/torch_sequencer_net.py), the process default scheduler a
+    RemoteVerifyScheduler to the service: the votes before it and the
+    followers' secp_recover rounds after it cross the socket. Launch counts
+    zeroed before each part and read after it; every round of the service's
+    verifier held against the plain version (check_recorded), its kernel 2
+    and kernel 5 tables against theirs. Returns the launches summed per
+    kernel and the checks' max_abs_err per kernel."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from tendermint_tpu_torch import obs
+    from tendermint_tpu_torch.crypto import batch_verifier as bv
+    from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
+    from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.ops import ed25519_batch as ed
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tendermint_tpu_torch.types.block_id import BlockID
+    from tendermint_tpu_torch.parallel.verify_service import (
+        MSG_PING, MSG_PONG, RemoteVerifyScheduler, ServiceThread, _HDR, encode_submit,
+        read_frame, write_frame)
+    from tests.torch_sequencer_net import build_upgrade_net, run_upgrade
+
+    n_vals = len(vset.validators)
+    commit_items = [[it for it in vset._gather_items(chain_id, c, True)[0]]
+                    for _, c in commits]
+    vset9 = src.state_store.load_validators(1)
+    window = []
+    for h in range(1, SERVICE_WINDOW + 1):
+        block, commit = src.bs.load_block(h), src.bs.load_block(h + 1).last_commit
+        if h == SERVICE_WINDOW_BAD:
+            commit = tampered_commit(commit, heaviest_third(vset9))
+        window.append((BlockID(block.hash(), block.make_part_set().header), h, commit))
+    window_items = [it for _, h, c in window
+                    for it in vset9._gather_items(src.chain_id, c, True)[0]]
+    want_window = [h != SERVICE_WINDOW_BAD for h in range(1, SERVICE_WINDOW + 1)]
+
+    tmp = tempfile.mkdtemp(prefix="smk")
+    sock = os.path.join(tmp, "v.sock")
+    if len(sock.encode()) > 100:  # a UDS address holds 107 bytes
+        shutil.rmtree(tmp)
+        tmp = os.path.relpath(tempfile.mkdtemp(prefix=".smk", dir=ROOT))
+        sock = os.path.join(tmp, "v.sock")
+    frames_path = os.path.join(tmp, "commits.bin")
+    with open(frames_path, "wb") as f:
+        for k, items in enumerate(commit_items):
+            payload = encode_submit(k + 1, items, "consensus")
+            f.write(len(payload).to_bytes(4, "big") + payload)
+
+    svc_verifier = bv.BatchVerifier(device=device, min_device_batch=SERVICE_MIN_BATCH)
+    ledger = DispatchLedger()
+
+    def service():
+        sched = VerifyScheduler(verifier=svc_verifier, ledger=ledger,
+                                metrics=SchedulerMetrics(Registry("smoke_service")))
+        svc = ServiceThread(sock, device=device, scheduler=sched)
+        svc.start()
+        return svc
+
+    rec = RoundRecorder(torch, svc_verifier)
+    rec.install()
+    local = bv.default_verifier()  # the clients' own verifier, and the in-proc scheduler's
+    inproc = VerifyScheduler(verifier=local, ledger=DispatchLedger(),
+                             metrics=SchedulerMetrics(Registry("smoke_service_inproc")))
+    tracer = obs.Tracer(enabled=True)
+    total, errs, out = {}, {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    svc = service()
+    child = subprocess.Popen(
+        [sys.executable, "-c", SERVICE_CHILD, sock, frames_path],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, SMOKE_ROOT=ROOT))
+
+    def child_line() -> dict:
+        line = child.stdout.readline()
+        assert line, f"verify service: the child client exited ({child.poll()})"
+        return json.loads(line)
+
+    async def bounded(aw, what):
+        try:
+            return await asyncio.wait_for(aw, SERVICE_TIMEOUT_S)
+        except asyncio.TimeoutError:
+            raise AssertionError(f"verify service: {what} took over "
+                                 f"{SERVICE_TIMEOUT_S} s") from None
+
+    async def until(cond, what):
+        end = time.monotonic() + SERVICE_TIMEOUT_S
+        while not cond():
+            assert time.monotonic() < end, f"verify service: {what}"
+            await asyncio.sleep(0.01)
+
+    def bits(v) -> str:
+        return np.packbits(np.asarray(v, dtype=np.uint8)).tobytes().hex()
+
+    async def drive():
+        nonlocal svc
+        loop = asyncio.get_running_loop()
+        await inproc.start()
+        a = RemoteVerifyScheduler(sock, verifier=local, tracer=tracer, retry_base=0.02,
+                                  origin="smoke-a")
+        b = RemoteVerifyScheduler(sock, verifier=local, tracer=tracer, retry_base=0.02,
+                                  origin="smoke-b")
+        for r in (a, b):
+            await r.start()
+        try:
+            await until(lambda: a.connected and b.connected, "the in-process clients attach")
+            hello = await loop.run_in_executor(None, child_line)
+            assert hello["attached"] and not hello["reference_modules"], hello
+
+            # (a) three tenants' commits at once, then the window
+            rtts = []
+
+            async def timed(r, items, klass):
+                t0 = time.perf_counter()
+                v = await r.submit(items, klass)
+                rtts.append(time.perf_counter() - t0)
+                return bits(v)
+
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            # one commit alone first: its round is the small tier (kernel 2
+            # builds the keys' tables, kernel 3 verifies); the burst after
+            # it coalesces
+            first = await bounded(timed(a, commit_items[0], "consensus"), "the first commit")
+            child.stdin.write("go\n")
+            child.stdin.flush()
+            mine = await bounded(asyncio.gather(
+                *(timed(r, items, "consensus") for r in (a, b) for items in commit_items)),
+                "the commits")
+            theirs = await loop.run_in_executor(None, child_line)
+            win_bits = await bounded(timed(a, window_items, "blocksync"), "the window")
+            win_verdicts = await bounded(loop.run_in_executor(
+                None, vset9.verify_commits_light, src.chain_id, window, a.classed("blocksync")),
+                "verify_commits_light through the service")
+            out["a_s"] = time.perf_counter() - t0
+            launches = ops.kernel_launches()
+            add(launches)
+            out["a_launches"] = {k: v for k, v in launches.items() if v}
+            for name in ("neg_pubkey_table", "verify_prehashed_table",
+                         "neg_pubkey_bigtable", "verify_prehashed_bigcache"):
+                assert launches[name] > 0, f"verify service (a): {name} not launched"
+            ref = [bits(await inproc.submit(items, "consensus")) for items in commit_items]
+            ref_win = bits(await inproc.submit(window_items, "blocksync"))
+            assert first == ref[0], "verify service (a): the first commit's verdicts"
+            assert mine == ref * 2 and theirs["bitmaps"] == ref, "verify service (a): verdicts"
+            assert win_bits == ref_win, "verify service (a): the window's rows"
+            assert win_verdicts == want_window, win_verdicts
+            stats = [r.ipc_stats() for r in (a, b)] + [theirs["stats"]]
+            assert all(s["degrades"] == 0 for s in stats), stats
+            tenants = {k: dict(v) for k, v in svc.server.client_stats.items()}
+            assert len(tenants) == 3 and all(v["rows"] > 0 for v in tenants.values()), tenants
+            out.update(rtts=rtts + theirs["rtt_s"], stats=stats, tenants=tenants,
+                       entries=list(ledger.entries()))
+
+            # the IPC alone (PING frames) and one commit's turns
+            reader, writer = await asyncio.open_unix_connection(sock)
+            pings = []
+            for k in range(SERVICE_PINGS):
+                t1 = time.perf_counter()
+                write_frame(writer, _HDR.pack(MSG_PING, k) + b"x" * 32)
+                await writer.drain()
+                frame = await read_frame(reader)
+                pings.append(time.perf_counter() - t1)
+                assert _HDR.unpack(frame[:_HDR.size]) == (MSG_PONG, k)
+            writer.close()
+            turns = {"service": [], "in-proc": []}
+            for k in range(SERVICE_TURNS):
+                items = commit_items[k % len(commit_items)]
+                for name, r in (("service", a), ("in-proc", inproc)):
+                    t1 = time.perf_counter()
+                    await r.submit(items, "consensus")
+                    turns[name].append((time.perf_counter() - t1) * 1e3)
+            out.update(pings=pings, turns=turns)
+
+            # (b) stop with the three attached, degrade, restart
+            thread = svc._thread
+            t1 = time.perf_counter()
+            svc.stop()
+            out["stop_s"] = time.perf_counter() - t1
+            assert out["stop_s"] < SERVICE_STOP_S and not thread.is_alive(), out["stop_s"]
+            await until(lambda: not a.connected and not b.connected, "the clients see it go")
+            lost = await loop.run_in_executor(None, child_line)
+            assert lost["lost"], lost
+            ops.reset_launches()
+            down = bits(await bounded(a.submit(commit_items[0], "consensus"), "degraded"))
+            launches = ops.kernel_launches()
+            add(launches)
+            assert down == ref[0], "verify service (b): degraded verdicts"
+            assert launches["verify_prehashed_table"] > 0, \
+                "verify service (b): the client's verifier did not launch kernel 3"
+            events = [e.to_json()["fields"] for e in tracer.records()
+                      if e.name == "verify_service.degrade"]
+            assert events and events[-1]["reason"] == "service unreachable", events
+            out.update(b_launches={k: v for k, v in launches.items() if v},
+                       degrade=events[-1], degrade_device=str(local.device))
+            svc = service()
+            await until(lambda: a.connected and b.connected, "the clients re-attach")
+            back = await loop.run_in_executor(None, child_line)
+            again = await loop.run_in_executor(None, child_line)
+            assert back["reattached"] and again["again"] == ref[0], (back, again)
+            out["reconnects"] = [r.ipc_stats()["reconnects"] for r in (a, b)] + [
+                again["stats"]["reconnects"]]
+            assert out["reconnects"] == [2, 2, 2], out["reconnects"]
+
+            # (c) the upgrade behind the service
+            seq0 = max((e["seq"] for e in ledger.entries()), default=-1)
+            set_default_scheduler(b)
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            nodes = build_upgrade_net(SEQ_VALIDATORS, SEQ_UPGRADE,
+                                      block_interval=SEQ_BLOCK_INTERVAL)
+            res = await run_upgrade(nodes, SEQ_UPGRADE, SEQ_V2_BLOCKS,
+                                    timeout=SERVICE_TIMEOUT_S)
+            out["c_s"] = time.perf_counter() - t1
+            launches = ops.kernel_launches()
+            add(launches)
+            entries = [e for e in ledger.entries() if e["seq"] > seq0]
+            out.update(upgrade=res, c_launches={k: v for k, v in launches.items() if v},
+                       c_entries=entries, c_stats=b.ipc_stats())
+            assert res["bft_heights"] == [SEQ_UPGRADE] * SEQ_VALIDATORS, res
+            assert all(h >= SEQ_UPGRADE + SEQ_V2_BLOCKS for h in res["follower_v2"]), res
+            assert res["signers"] == [res["sequencer_address"]] * (SEQ_VALIDATORS - 1), res
+            assert launches["verify_prehashed_table"] > 0, \
+                "verify service (c): no vote round reached kernel 3"
+            assert sum(e["requested"] for e in entries if e["engine"] == "secp_recover") \
+                >= (SEQ_VALIDATORS - 1) * SEQ_V2_BLOCKS, entries
+            assert b.ipc_stats()["degrades"] == out["c_stats"]["degrades"] == 0
+
+            # the end: a stop with the clients still attached
+            thread = svc._thread
+            t1 = time.perf_counter()
+            svc.stop()
+            out["stop2_s"] = time.perf_counter() - t1
+            assert out["stop2_s"] < SERVICE_STOP_S and not thread.is_alive(), out["stop2_s"]
+        finally:
+            set_default_scheduler(None)
+            for r in (a, b):
+                await r.stop()
+            await inproc.stop()
+
+    try:
+        run_bounded(drive())
+        assert child.wait(SERVICE_TIMEOUT_S) == 0, "verify service: the child client failed"
+    finally:
+        if child.poll() is None:
+            child.kill()
+        if svc._thread is not None:
+            svc.stop()
+        rec.remove()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # every round of the service's verifier against the plain version, its
+    # tables against theirs
+    chk = check_recorded(torch, ed, host, rec, rng, 511, "verify service")
+    errs.update(chk["err"])
+    keys = [v.pub_key.data for v in vset.validators]
+    for cache, plain, name in ((svc_verifier._small, ed.neg_pubkey_table_plain,
+                                "neg_pubkey_table"),
+                               (svc_verifier._big, ed.neg_pubkey_bigtable_plain,
+                                "neg_pubkey_bigtable")):
+        rows_t = torch.tensor([cache._idx[k] for k in keys], dtype=torch.int64,
+                              device=cache.tables.device)
+        pk = torch.tensor([list(k) for k in keys], dtype=torch.uint8, device=cache.tables.device)
+        plain_t, plain_v = plain(pk)
+        e = max(max_abs_err(cache.tables[rows_t], plain_t),
+                max_abs_err(cache.valid[rows_t], plain_v))
+        assert e == 0, f"verify service: {name}'s tables of the {n_vals} keys != plain"
+        errs[name] = max(errs.get(name, 0), e)
+
+    def shown(launches):
+        return json.dumps({k: v for k, v in launches.items() if v})
+
+    entries = out["entries"]
+    sig_rounds = [e for e in entries if e["engine"] == "sig"]
+    subs = sum(e["submissions"] for e in sig_rounds)
+    rtt = sorted(out["rtts"])
+    ping = sorted(out["pings"])
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3
+
+    up = out["upgrade"]
+    c_entries = out["c_entries"]
+    votes = [e for e in c_entries if e["engine"] == "sig"]
+    on_card = sum(1 for e in votes if e["requested"] >= SERVICE_MIN_BATCH)
+    recover = [e for e in c_entries if e["engine"] == "secp_recover"]
+    print(f"main path: verify service (a): one ServiceThread ({device}, its own "
+          f"BatchVerifier, min_device_batch {SERVICE_MIN_BATCH}) serving 3 clients over a "
+          f"Unix socket (2 RemoteVerifySchedulers in this process, 1 in a child process "
+          f"importing only the port); each submitted phase 3's {len(commit_items)} commits of "
+          f"{n_vals} rows at once, client a also the {SERVICE_WINDOW}-commit window of phase "
+          f"9's chain ({len(window_items)} rows, commit {SERVICE_WINDOW_BAD} tampered by the "
+          f"heaviest third) raw and through verify_commits_light: verdicts bit-identical to "
+          f"an in-proc VerifyScheduler's on the process verifier, the window's "
+          f"[True]*{SERVICE_WINDOW_BAD - 1} + [False] + [True]*"
+          f"{SERVICE_WINDOW - SERVICE_WINDOW_BAD}; tenants {json.dumps(out['tenants'])}; "
+          f"{len(sig_rounds)} service rounds for {subs} submissions (classes, rows, bucket, "
+          f"merged submissions) {ledger_rounds(sig_rounds)}; launches "
+          f"{shown(out['a_launches'])} | {smi}")
+    print(f"time: verify service (a): {out['a_s'] * 1e3:.2f} ms for the three clients' "
+          f"commits and the window; submit -> verdicts round trips ({len(rtt)}) median "
+          f"{pct(rtt, 0.5):.3f} ms, p99 {pct(rtt, 0.99):.3f} ms; ipc_stats "
+          f"{json.dumps([{k: s[k] for k in ('rtt_count', 'rtt_sum_s', 'remote_submissions')} for s in out['stats']])}; "
+          f"PING round trips ({SERVICE_PINGS}, the IPC alone) median {pct(ping, 0.5):.4f} ms, "
+          f"p99 {pct(ping, 0.99):.4f} ms; a {n_vals}-row commit in {SERVICE_TURNS} turns, "
+          f"through the service {statistics.median(out['turns']['service']):.3f} ms "
+          f"(median; {min(out['turns']['service']):.3f}-{max(out['turns']['service']):.3f}) "
+          f"against in-proc {statistics.median(out['turns']['in-proc']):.3f} ms "
+          f"({min(out['turns']['in-proc']):.3f}-{max(out['turns']['in-proc']):.3f}); kernel "
+          f"wrapper calls on the card {rec.busy_ms():.2f} ms | {smi}")
+    print(f"main path: verify service (b): stopped with the 3 clients attached in "
+          f"{out['stop_s'] * 1e3:.1f} ms (bound {SERVICE_STOP_S} s), the service thread dead; "
+          f"a submission while it was down ran on client a's own verifier "
+          f"({out['degrade_device']}), degrade event {json.dumps(out['degrade'])}, verdicts "
+          f"equal, launches {shown(out['b_launches'])}; restarted on the same path, every "
+          f"client re-attached (reconnects {out['reconnects']}), the child's resubmission "
+          f"equal | {smi}")
+    print(f"main path: verify service (c): the BFT -> sequencer upgrade "
+          f"(tests/torch_sequencer_net.py) of {SEQ_VALIDATORS} validators over encrypted p2p, "
+          f"full mesh, node 0 the sequencer and {SEQ_VALIDATORS - 1} followers, the process "
+          f"default scheduler a RemoteVerifyScheduler to the service: BFT heights "
+          f"{up['bft_heights']} (upgrade at {SEQ_UPGRADE}); the sequencer at V2 height "
+          f"{up['sequencer_v2']}, the followers at {up['follower_v2']} "
+          f"({[h - SEQ_UPGRADE for h in up['follower_v2']]} BlockV2s applied), every "
+          f"follower's last block recovered to the sequencer's address; {len(votes)} "
+          f"signature rounds before the upgrade, {on_card} of them of at least "
+          f"{SERVICE_MIN_BATCH} rows (on the card), rows a round "
+          f"{json.dumps(sorted(Counter(e['requested'] for e in votes).items()))}; "
+          f"{len(recover)} secp_recover rounds after it (on the service's host) for "
+          f"{sum(e['requested'] for e in recover)} recoveries, recoveries a round "
+          f"{json.dumps(sorted(Counter(e['requested'] for e in recover).items()))}; "
+          f"{out['c_s']:.2f} s; launches {shown(out['c_launches'])}; the end: stopped again "
+          f"with 2 clients attached in {out['stop2_s'] * 1e3:.1f} ms | {smi}")
+    print(f"main path: verify service: every round of the service's verifier in the three "
+          f"parts equal to the plain version ({chk['windows']} at their shape, "
+          f"{chk['small_rounds']} small-tier rounds' {chk['small_rows']} rows together), "
+          f"kernel 2's and kernel 5's tables of the {n_vals} keys equal theirs, "
+          f"{chk['sampled']} seeded rows to the host oracle (tolerance: exact) | {smi}")
     return total, errs
 
 
@@ -4701,11 +5172,24 @@ def main() -> int:
     print(f"main path: bulk rest launches per kernel, the four parts "
           f"{json.dumps({k: v for k, v in rest.items() if v})} (added to the kernels "
           f"line's launches); phase 10 took {time.perf_counter() - t0:.1f} s | {smi}")
-    del catchup_src
 
     lap("10 bulk rest")
 
-    # --- 11. result lines ---------------------------------------------------
+    # --- 11. the verify service and the sequencer plane ---------------------
+    t0 = time.perf_counter()
+    svc_launches, service_errs = service_phase(torch, ops, host, smi, rng, vset, chain_id,
+                                          commits[: args.heights], catchup_src)
+    for row in rows:
+        row["launches"] += svc_launches.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], service_errs.get(row["name"], 0))
+    print(f"main path: verify service launches per kernel, the three parts "
+          f"{json.dumps({k: v for k, v in svc_launches.items() if v})} (added to the kernels "
+          f"line's launches); phase 11 took {time.perf_counter() - t0:.1f} s | {smi}")
+    del catchup_src
+
+    lap("11 verify service")
+
+    # --- 12. result lines ---------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

@@ -160,6 +160,7 @@ class SocketServer:
         self._app = app
         self._host, self._port = host, port
         self._server: Optional[asyncio.AbstractServer] = None
+        self._writers: set[asyncio.StreamWriter] = set()
 
     @property
     def port(self) -> int:
@@ -175,11 +176,22 @@ class SocketServer:
     async def stop(self) -> None:
         if self._server:
             self._server.close()
-            await self._server.wait_closed()
+            # an attached client holds its connection open, and
+            # wait_closed() awaits every connection since py3.12: close
+            # them, again for any accepted before close() whose handler
+            # had yet to start, until the server is closed
+            closed = asyncio.ensure_future(self._server.wait_closed())
+            while True:
+                for w in list(self._writers):
+                    w.close()
+                done, _ = await asyncio.wait([closed], timeout=0.05)
+                if done:
+                    break
 
     async def _handle(
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
+        self._writers.add(writer)
         try:
             while True:
                 frame = await _read_frame(reader)
@@ -194,4 +206,5 @@ class SocketServer:
         except (asyncio.IncompleteReadError, ConnectionError, EOFError):
             pass
         finally:
+            self._writers.discard(writer)
             writer.close()

@@ -13,12 +13,12 @@ is absent. Its node builder is therefore ``make_node`` of
 module builds both packages' namespaces when imported); the validators and
 genesis of ``tests/helpers.py`` likewise, with the same seeds.
 
-Left out until their modules are ported: ``ChaosVerifyService`` (it wraps
-``parallel/verify_service.py``, item A3 of ROADMAP.md) and
-``health_factory`` (it builds ``obs/health.py``'s monitor, item A5). The
-reference's helpers for per-node tracers, weighted powers, stubbed
-verifiers, ring topologies and gossip-tick counts come with the callers
-that need them.
+``ChaosVerifyService`` kills and restarts the port's verify service on
+``device`` (``tests/test_torch_verify_service.py`` on ``device="cpu"``).
+Left out until its module is ported: ``health_factory`` (it builds
+``obs/health.py``'s monitor). The reference's helpers for per-node
+tracers, weighted powers, stubbed verifiers, ring topologies and
+gossip-tick counts come with the callers that need them.
 """
 
 from __future__ import annotations
@@ -105,6 +105,47 @@ def process_verifier(device: str = "cuda"):
     if verifier.device.type != dev.type:
         raise ValueError(f"the process verifier is on {verifier.device}, not {dev}")
     return verifier
+
+
+
+class ChaosVerifyService:
+    """Kill-and-restart wrapper around the port's in-proc verify service
+    (``parallel/verify_service.ServiceThread``), the twin of
+    ``tests/chaos_harness.py``'s: ``kill()`` tears the service down
+    mid-flight (clients' pending submissions degrade to their local
+    verifier, never hang), ``restart()`` brings a fresh service up on the
+    SAME socket path (clients' backoff loops re-attach). `device` is the
+    card the service verifies on ("cpu" without CUDA); the other keyword
+    arguments go to ``VerifyServiceServer`` (a stub verifier through
+    ``scheduler=VerifyScheduler(verifier=...)`` keeps a run device-free)."""
+
+    def __init__(self, path: str, device: str = "cuda", **kw):
+        self.path = path
+        self.device = device
+        self._kw = kw
+        self.service = None
+        self.restarts = 0
+
+    def start(self) -> None:
+        from tendermint_tpu_torch.parallel.verify_service import ServiceThread
+
+        self.service = ServiceThread(self.path, device=self.device, **self._kw)
+        self.service.start()
+
+    def kill(self) -> None:
+        """Tear the service down (connections die, socket unlinks)."""
+        if self.service is not None:
+            self.service.stop()
+            self.service = None
+
+    def restart(self) -> None:
+        self.kill()
+        self.start()
+        self.restarts += 1
+
+    @property
+    def alive(self) -> bool:
+        return self.service is not None
 
 
 # --- the mesh ----------------------------------------------------------------
