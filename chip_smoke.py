@@ -292,7 +292,28 @@ Phases (any failure raises and the exit code is non-zero):
    after it (on the service's host). Every round of the service's verifier
    held against the plain version, its kernel 2 and 5 tables against
    theirs; the launches add to the kernels line.
-12. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+12. The event plane (``events_phase``): a joining node catches up with its
+   events published, indexed and queryable. Phase 9's chain is blocksynced
+   from one honest server over encrypted p2p (``catchup_sync``) by a fresh
+   node whose app, the port's kvstore, runs in a child process started
+   through the port's ABCI CLI (``EVENTS_APP``: ``abci.cli``'s ``kvstore``
+   command) and is reached over the ABCI socket by a ``SocketClient``;
+   its ``BlockExecutor`` publishes to an ``EventBus`` made on the sync's
+   event loop, an ``IndexerService`` over a ``KVIndexer`` on a
+   ``SqliteKV`` and three subscribers (every NewBlock, the txs past height
+   ``EVENTS_TX_AFTER``, the key ``EVENTS_KEY``) drained while it syncs
+   (``EventPlane``). Checks: the chain as in phase 9; 128 NewBlocks in
+   order with the source's hashes, heights 101-128's 84 txs, one tx of
+   the key; every one of the 384 txs from ``get_tx`` with its height and
+   index, ``search_txs`` and ``search_blocks`` in the indexer's
+   ``type.key=value`` form; the CLI's ``info`` (height 128, the app hash
+   after it) and ``query``; every recorded round against its plain
+   version and the host oracle (``check_recorded``). Prints the sync's
+   wall beside phase 9 (a)'s, the publishes' and the indexer's shares of
+   it, the socket app's share of ``apply_block``, the messages and the
+   launches, which add to the kernels line. The child is killed at the
+   phase's end, pass or fail.
+13. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -2558,10 +2579,11 @@ def catchup_store(src, liar_block: int | None = None):
     return bs
 
 
-def catchup_node(src, store=None):
+def catchup_node(src, store=None, app=None, event_bus=None):
     """(state, executor, block store, l2) of a node of src's chain from
-    genesis: its own KVStoreApplication through LocalClient, MemKV state
-    store, MockL2Node; `store` (a server's) or a fresh block store."""
+    genesis: `app` (an ABCI client) or its own KVStoreApplication through
+    LocalClient, MemKV state store, MockL2Node; `store` (a server's) or a
+    fresh block store; the executor publishes to `event_bus` if given."""
     from tendermint_tpu_torch.abci.client import LocalClient
     from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
     from tendermint_tpu_torch.l2node.mock import MockL2Node
@@ -2576,7 +2598,8 @@ def catchup_node(src, store=None):
     state_store.bootstrap(state)
     bs = store if store is not None else BlockStore(MemKV())
     l2 = MockL2Node(txs_per_block=CATCHUP_TXS)
-    return state, BlockExecutor(state_store, bs, LocalClient(KVStoreApplication()), l2), bs, l2
+    app = app if app is not None else LocalClient(KVStoreApplication())
+    return state, BlockExecutor(state_store, bs, app, l2, event_bus=event_bus), bs, l2
 
 
 class RoundRecorder:
@@ -2692,19 +2715,24 @@ def check_recorded(torch, ed, host, rec, rng, window_min_rows: int, label: str) 
             "sampled": min(CATCHUP_SAMPLE_ROWS, len(rows)), "oracle_s": oracle_s}
 
 
-def catchup_sync(torch, ops, src, liar: bool, timeout: float = CATCHUP_TIMEOUT_S):
+def catchup_sync(torch, ops, src, liar: bool, timeout: float = CATCHUP_TIMEOUT_S,
+                 n_honest: int = 2, plane=None):
     """One fresh node blocksyncs src's chain from genesis over encrypted p2p
-    (modes a and b of the catch-up phase). Two honest servers, each a
-    BlocksyncReactor(active=False) over a copy of the source's block store
-    with its own NodeKey, MultiplexTransport on 127.0.0.1 and Switch; with
-    `liar` a third whose block CATCHUP_LIAR_BLOCK carries a LastCommit with
-    tampered signatures of more than 1/3 of the power, dialed first and
-    alone until the client's pool has asked it for its first heights. The
-    client's BlocksyncReactor syncs with start_sync() through one started
-    VerifyScheduler as the process default (its windows through
-    default_dispatch("blocksync")). The launch counts are set to 0 just
-    before the sync and read when it caught up. Returns what the checks and
-    the report need."""
+    (modes a and b of the catch-up phase, and phase 12). `n_honest` honest
+    servers, each a BlocksyncReactor(active=False) over a copy of the
+    source's block store with its own NodeKey, MultiplexTransport on
+    127.0.0.1 and Switch; with `liar` one more whose block
+    CATCHUP_LIAR_BLOCK carries a LastCommit with tampered signatures of
+    more than 1/3 of the power, dialed first and alone until the client's
+    pool has asked it for its first heights. The client's BlocksyncReactor
+    syncs with start_sync() through one started VerifyScheduler as the
+    process default (its windows through default_dispatch("blocksync")).
+    With `plane` (an EventPlane) the client's app is the plane's ABCI
+    client and its executor publishes to the plane; the plane starts on
+    the sync's event loop before the servers are dialed and settles once
+    the client caught up. The launch counts are set to 0 just before the
+    sync and read when it caught up. Returns what the checks and the
+    report need."""
     from tendermint_tpu_torch.blocksync.reactor import BlocksyncReactor
     from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
     from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
@@ -2714,16 +2742,17 @@ def catchup_sync(torch, ops, src, liar: bool, timeout: float = CATCHUP_TIMEOUT_S
     from tendermint_tpu_torch.state.execution import BlockExecutor
     from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
-    label = "b" if liar else "a"
+    label = "b" if liar else "e" if plane is not None else "a"
     servers = []
-    for i, store in enumerate([catchup_store(src), catchup_store(src)]
+    for i, store in enumerate([catchup_store(src) for _ in range(n_honest)]
                               + ([catchup_store(src, CATCHUP_LIAR_BLOCK)] if liar else [])):
         state, executor, bs, l2 = catchup_node(src, store)
         r = BlocksyncReactor(state, executor, bs, l2, active=False)
         servers.append(p2p_node(b"catchup-%s-server%d" % (label.encode(), i),
                                 "smoke-catchup", "blocksync", r))
-    honest, liars = servers[:2], servers[2:]
-    state, executor, cli_bs, cli_l2 = catchup_node(src)
+    honest, liars = servers[:n_honest], servers[n_honest:]
+    state, executor, cli_bs, cli_l2 = catchup_node(
+        src, app=plane.app if plane is not None else None, event_bus=plane)
     caught = asyncio.Event()
     caught_at = []
 
@@ -2824,6 +2853,8 @@ def catchup_sync(torch, ops, src, liar: bool, timeout: float = CATCHUP_TIMEOUT_S
 
     async def drive():
         await sched.start()
+        if plane is not None:
+            await plane.start()
         for _, t, sw in servers + [(cnk, ct, csw)]:
             await t.listen()
             await sw.start()
@@ -2851,10 +2882,14 @@ def catchup_sync(torch, ops, src, liar: bool, timeout: float = CATCHUP_TIMEOUT_S
             await asyncio.wait_for(caught.wait(), timeout)
             marks["end"] = time.perf_counter()
             marks["peers_left"] = set(csw.peers)
+            if plane is not None:
+                await plane.settle()
         finally:
             for _, t, sw in [(cnk, ct, csw)] + servers:
                 await sw.stop()
             await sched.stop()
+            if plane is not None:
+                await plane.close()
 
     gc.collect()
     ValidatorSet.verify_commits_light, ValidatorSet.verify_commit_light = timed_window, timed_one
@@ -2987,8 +3022,8 @@ def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
     Checks each mode's result, the launches and every recorded round
     (check_recorded), and prints the walls and splits beside phase 3's bare
     window (`bare_walls`, seconds). Returns the launches of the three modes,
-    summed per kernel, the checks' max_abs_err per kernel and the served
-    chain (phase 10 serves it again)."""
+    summed per kernel, the checks' max_abs_err per kernel, the served chain
+    (phases 10-12 serve it again) and modes (a) and (b)'s walls, seconds."""
     from tendermint_tpu_torch.crypto import aead
     from tendermint_tpu_torch.ops import ed25519_batch as ed
 
@@ -3007,7 +3042,7 @@ def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
           f"signing {src.heights * n_vals} precommits on the host)")
     want_hash = {h: src.bs.load_block(h).hash() for h in range(1, src.heights + 1)}
     want_app = {h: src.bs.load_block(h + 1).header.app_hash for h in range(1, tip + 1)}
-    total, errs = {}, {}
+    total, errs, walls = {}, {}, {}
     bare = ", ".join(f"{w * 1e3:.2f}" for w in bare_walls)
     for liar in (False, True):
         r = catchup_sync(torch, ops, src, liar)
@@ -3040,7 +3075,7 @@ def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
             errs[k] = max(errs.get(k, 0), v)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        wall = marks["end"] - marks["start"]
+        wall = walls[label] = marks["end"] - marks["start"]
         sp = r["split"]
         busy = r["rec"].busy_ms() / 1e3
         rounds = [d for d in r["rec"].dispatches if d["rows"] > n_vals]
@@ -3128,7 +3163,7 @@ def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
           f"({len(skip['trusted']) - 1} steps, {skip['s'] * 1e3:.2f} ms, the witness "
           f"cross-check included); kernel wrapper calls on the card "
           f"{c['rec'].busy_ms():.2f} ms | {smi}")
-    return total, errs, src
+    return total, errs, src, walls
 
 
 # --- the bulk rest and the chaos mesh ------------------------------------------
@@ -4136,6 +4171,321 @@ def service_phase(torch, ops, host, smi, rng, vset, chain_id, commits, src, devi
           f"kernel 2's and kernel 5's tables of the {n_vals} keys equal theirs, "
           f"{chk['sampled']} seeded rows to the host oracle (tolerance: exact) | {smi}")
     return total, errs
+
+
+# --- the event plane: a joining node's events, its tx index, its socket app --
+
+# subscriber (b) takes the txs of the heights past EVENTS_TX_AFTER, subscriber
+# (c) one kvstore key of the chain (the mock L2 node's txs are tx-<h>-<i>=v<i>)
+EVENTS_TX_AFTER = 100
+EVENTS_KEY = "tx-64-1"
+EVENTS_QUERIES = {
+    "blocks": "tm.event = 'NewBlock'",
+    "late_txs": f"tm.event = 'Tx' AND tx.height > {EVENTS_TX_AFTER}",
+    "one_key": f"app.key = '{EVENTS_KEY}'",
+}
+EVENTS_TX_HEIGHT = 64  # the block whose txs the indexer returns in order
+EVENTS_BLOCKS_AFTER = 120  # the heights whose block index entries are read back
+EVENTS_WAIT_S = 60  # a bound on each wait of the phase
+# the node's app: the port's kvstore served by the port's ABCI CLI in a child
+# process (the port has no __main__ yet: a parser built by abci.cli.register)
+EVENTS_APP = r"""
+import argparse, sys
+from tendermint_tpu_torch.abci import cli
+p = argparse.ArgumentParser()
+cli.register(p.add_subparsers(dest="cmd"))
+a = p.parse_args(["abci-cli", "kvstore", "--port", "0"])
+sys.exit(a.fn(a))
+"""
+
+
+class EventPlane:
+    """A joining node's event plane, the reference node's wiring
+    (node/node.py:371-381) with its app out of process: the node's ABCI
+    client is a SocketClient to the app server on `port`; its BlockExecutor
+    publishes to this object, which times each publish_* and hands it to an
+    EventBus made on the sync's event loop; an IndexerService over a
+    KVIndexer on a SqliteKV in `db_dir` and the three EVENTS_QUERIES
+    subscribers hang off that bus, each subscriber drained by a task while
+    the sync runs. `split` holds the seconds in the publishes, the
+    indexer's writes and the app's socket calls."""
+
+    def __init__(self, port: int, db_dir: str, src):
+        from tendermint_tpu_torch.abci.client import SocketClient
+        from tendermint_tpu_torch.state.txindex import KVIndexer
+        from tendermint_tpu_torch.store.kv import SqliteKV
+
+        split = self.split = {"publish": 0.0, "publishes": 0, "index": 0.0, "app": 0.0,
+                              "app_calls": 0, "settle": 0.0}
+
+        class TimedSocketClient(SocketClient):
+            async def call(self, method, *args):
+                t0 = time.perf_counter()
+                try:
+                    return await super().call(method, *args)
+                finally:
+                    split["app"] += time.perf_counter() - t0
+                    split["app_calls"] += 1
+
+        class TimedIndexer(KVIndexer):
+            def index_tx(self, result):
+                t0 = time.perf_counter()
+                super().index_tx(result)
+                split["index"] += time.perf_counter() - t0
+
+            def index_block(self, height, events):
+                t0 = time.perf_counter()
+                super().index_block(height, events)
+                split["index"] += time.perf_counter() - t0
+
+        self.app = TimedSocketClient(port=port)
+        self.kv = SqliteKV(os.path.join(db_dir, "tx_index.db"))
+        self.indexer = TimedIndexer(self.kv)
+        self.tip = src.heights - 1
+        self.last_tx = src.bs.load_block(self.tip).data.txs[-1]
+        self.bus = self.service = None
+        self.got = {name: [] for name in EVENTS_QUERIES}
+        self.cancelled, self._drains = [], []
+
+    async def start(self) -> None:
+        from tendermint_tpu_torch.libs.pubsub import Query
+        from tendermint_tpu_torch.state.txindex import IndexerService
+        from tendermint_tpu_torch.types.event_bus import EventBus
+
+        await self.app.connect()
+        self.bus = EventBus()
+        self.service = IndexerService(self.indexer, self.bus)
+        subs = {name: self.bus.subscribe(f"smoke/{name}", Query(q))
+                for name, q in EVENTS_QUERIES.items()}
+        await self.service.start()
+        self._drains = [asyncio.create_task(self._drain(name, sub))
+                        for name, sub in subs.items()]
+
+    async def _drain(self, name, sub) -> None:
+        from tendermint_tpu_torch.libs.pubsub import SubscriptionCancelled
+
+        try:
+            while True:
+                self.got[name].append(await sub.next())
+        except SubscriptionCancelled as e:
+            self.cancelled.append((name, str(e)))
+
+    async def _timed(self, publish, *args) -> None:
+        t0 = time.perf_counter()
+        await publish(*args)
+        self.split["publish"] += time.perf_counter() - t0
+        self.split["publishes"] += 1
+
+    async def publish_new_block(self, block, result_events=None) -> None:
+        await self._timed(self.bus.publish_new_block, block, result_events)
+
+    async def publish_new_block_header(self, header) -> None:
+        await self._timed(self.bus.publish_new_block_header, header)
+
+    async def publish_tx(self, height, tx_hash, tx, result_events=None) -> None:
+        await self._timed(self.bus.publish_tx, height, tx_hash, tx, result_events)
+
+    async def settle(self) -> None:
+        """Waits, bounded, until the indexer holds the tip's block and its
+        last tx and every subscriber has its messages: IndexerService.stop()
+        cancels its drains at once, and events still queued would be lost."""
+        from tendermint_tpu_torch.crypto import tmhash
+
+        want = {"blocks": self.tip, "one_key": 1,
+                "late_txs": (self.tip - EVENTS_TX_AFTER) * CATCHUP_TXS}
+        t0 = time.perf_counter()
+        while not (self.indexer.search_blocks(f"block.height={self.tip}") == [self.tip]
+                   and self.indexer.get_tx(tmhash.sum(self.last_tx)) is not None
+                   and all(len(self.got[k]) >= n for k, n in want.items())):
+            assert not self.cancelled, f"event plane: a subscriber was cancelled {self.cancelled}"
+            assert time.perf_counter() - t0 < EVENTS_WAIT_S, (
+                "event plane: the indexer or a subscriber did not settle",
+                {k: len(v) for k, v in self.got.items()})
+            await asyncio.sleep(0.01)
+        self.split["settle"] = time.perf_counter() - t0
+
+    async def close(self) -> None:
+        if self.service is not None:
+            await self.service.stop()
+        for t in self._drains:
+            t.cancel()
+        await asyncio.gather(*self._drains, return_exceptions=True)
+        await self.app.close()
+
+
+def abci_cli(port: int, *args: str) -> str:
+    """What the port's ABCI CLI prints for one command against the app
+    server on `port` (a parser built by abci.cli.register, run in this
+    process on a thread joined within EVENTS_WAIT_S); fails on a non-zero
+    exit."""
+    import contextlib
+    import io
+
+    from tendermint_tpu_torch.abci import cli
+
+    p = argparse.ArgumentParser()
+    cli.register(p.add_subparsers(dest="cmd"))
+    ns = p.parse_args(["abci-cli", *args, "--port", str(port)])
+    out, rc = io.StringIO(), []
+
+    def run():
+        with contextlib.redirect_stdout(out):
+            rc.append(ns.fn(ns))
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(EVENTS_WAIT_S)
+    assert rc == [0], f"event plane: abci-cli {args} returned {rc} (nothing: no end)"
+    return out.getvalue().strip()
+
+
+def check_index(idx, blocks, tip: int) -> dict:
+    """Phase 12's checks of the indexer `idx` after the sync: every tx of
+    the chain (`blocks`, height -> Block) from get_tx with its height and
+    index, then the searches in the indexer's own query form,
+    "type.key=value" (state/txindex.py:126): every tx by its creator in
+    (height, index) order, EVENTS_TX_HEIGHT's txs by key, the block index
+    past EVENTS_BLOCKS_AFTER. Returns what the report prints."""
+    from tendermint_tpu_torch.crypto import tmhash
+
+    all_txs = [(h, i, tx) for h in range(1, tip + 1) for i, tx in enumerate(blocks[h].data.txs)]
+    for h, i, tx in all_txs:
+        res = idx.get_tx(tmhash.sum(tx))
+        assert res is not None and (res.height, res.index, res.tx) == (h, i, tx), (h, i)
+    by_creator = [(x.height, x.index, x.tx) for x in idx.search_txs("app.creator=kvstore", 1000)]
+    assert by_creator == all_txs, len(by_creator)
+    at_height = [(h, i) for h, i, _ in by_creator if h == EVENTS_TX_HEIGHT]
+    assert at_height == [(EVENTS_TX_HEIGHT, i) for i in range(CATCHUP_TXS)], at_height
+    for i in range(CATCHUP_TXS):
+        one = idx.search_txs(f"app.key=tx-{EVENTS_TX_HEIGHT}-{i}")
+        assert [(x.height, x.index) for x in one] == [(EVENTS_TX_HEIGHT, i)], i
+    late_blocks = {h: idx.search_blocks(f"block.height={h}")
+                   for h in range(EVENTS_BLOCKS_AFTER + 1, tip + 2)}
+    assert late_blocks == {**{h: [h] for h in range(EVENTS_BLOCKS_AFTER + 1, tip + 1)},
+                           tip + 1: []}, late_blocks
+    range_form = (idx.search_txs(f"tx.height = {EVENTS_TX_HEIGHT}"),
+                  idx.search_blocks(f"block.height > {EVENTS_BLOCKS_AFTER}"))
+    return {"txs": len(all_txs), "at_height": len(at_height), "range_form": range_form}
+
+
+def events_phase(torch, ops, host, smi, rng, src, wall_a: float):
+    """Phase 12: a joining node catches up with its event plane on. Phase
+    9's chain, src, is blocksynced from one honest server over encrypted
+    p2p (catchup_sync) by a fresh node, on a process verifier of its own
+    (no key tables yet), whose app, the port's kvstore, sits
+    behind the ABCI socket in a child process started through the port's
+    ABCI CLI (EVENTS_APP), whose BlockExecutor publishes to an EventBus,
+    with an IndexerService over a KVIndexer on a SqliteKV and three
+    subscribers drained while it syncs (EventPlane). Checks the synced
+    chain as phase 9 does, every subscriber's messages, the indexer's tx
+    results and searches, the app through the CLI's info and query, and
+    every recorded round against its plain version and the host oracle
+    (check_recorded). Prints the sync's wall beside phase 9 (a)'s (`wall_a`,
+    seconds), its publish and index shares, the socket app's share of
+    apply_block, the messages and the launches. Returns the launches and
+    the checks' max_abs_err per kernel."""
+    import select
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch.crypto import batch_verifier as bv
+    from tendermint_tpu_torch.crypto import tmhash
+    from tendermint_tpu_torch.ops import ed25519_batch as ed
+
+    tip = src.heights - 1
+    n_vals = len(src.state.validators.validators)
+    blocks = {h: src.bs.load_block(h) for h in range(1, tip + 2)}
+    want_app = {h: blocks[h + 1].header.app_hash for h in range(1, tip + 1)}
+    tmp = tempfile.mkdtemp(prefix="smoke-events-")
+    # a joining node is a fresh process whose verifier holds no key tables
+    # (phase 9's built the 150 keys' tables): the phase runs on a new
+    # process verifier, so kernels 2 and 5 build them again
+    kept, bv._default = bv._default, None
+    child = plane = None
+    try:
+        bv.default_verifier("cuda")
+        t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", EVENTS_APP], cwd=ROOT,
+                                 stdout=subprocess.PIPE)
+        ready, _, _ = select.select([child.stdout], [], [], EVENTS_WAIT_S)
+        assert ready, "event plane: the kvstore app server printed no listening line"
+        line = child.stdout.readline().decode()
+        m = re.search(r"listening on (\d+) \(socket\)", line)
+        assert m, f"event plane: the app server printed {line!r}"
+        port, app_start_s = int(m.group(1)), time.perf_counter() - t0
+        plane = EventPlane(port, tmp, src)
+        r = catchup_sync(torch, ops, src, liar=False, n_honest=1, plane=plane)
+        info = abci_cli(port, "info")
+        query = abci_cli(port, "query", f"tx-{tip}-{CATCHUP_TXS - 1}")
+        index = check_index(plane.indexer, blocks, tip)
+    finally:
+        if child is not None:
+            child.kill()
+            child.wait(timeout=EVENTS_WAIT_S)
+        bv._default = kept
+        if plane is not None:
+            plane.kv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches, marks, sp, ps = r["launches"], r["marks"], r["split"], plane.split
+    # the synced chain, as phase 9 checks it
+    assert r["caught_at"], "event plane: on_caught_up never fired"
+    assert r["bs"].height == tip and r["client"].state.last_block_height == tip
+    for h in range(1, tip + 1):
+        assert r["bs"].load_block(h).hash() == blocks[h].hash(), ("event plane", h)
+    got_app = dict(r["applied"])
+    assert sorted(got_app) == list(range(1, tip + 1))
+    assert all(got_app[h] == want_app[h] for h in range(1, tip + 1)), "event plane: app hash"
+    assert not r["errors"] and all(all(v) for _, v in r["windows"]), r["errors"]
+    # 1. blocks and txs on the bus
+    assert not plane.cancelled, plane.cancelled
+    got = plane.got
+    assert [m.data.header.height for m in got["blocks"]] == list(range(1, tip + 1))
+    assert [m.data.hash() for m in got["blocks"]] == [blocks[h].hash() for h in range(1, tip + 1)]
+    late = [(h, tx) for h in range(EVENTS_TX_AFTER + 1, tip + 1) for tx in blocks[h].data.txs]
+    assert [(m.data[0], m.data[2]) for m in got["late_txs"]] == late, len(got["late_txs"])
+    assert [m.data[2] for m in got["one_key"]] == [
+        tx for tx in blocks[EVENTS_TX_HEIGHT].data.txs if tx.startswith(EVENTS_KEY.encode() + b"=")]
+    # 3. the app over the socket, through the CLI
+    assert f"last_block_height={tip} " in info, info
+    assert info.endswith(f"last_block_app_hash=0x{want_app[tip].hex()}"), info
+    assert f"value=b'v{CATCHUP_TXS - 1}'" in query and f"height={tip}" in query, query
+    # 4. the kernels
+    for name in ("verify_prehashed_bigcache", "neg_pubkey_bigtable", "verify_prehashed_table"):
+        assert launches[name] > 0, f"event plane: {name} not launched"
+    chk = check_recorded(torch, ed, host, r["rec"], rng, n_vals, "event plane")
+    wall = marks["end"] - marks["start"]
+    rounds = [d for d in r["rec"].dispatches if d["rows"] > n_vals]
+    busy = r["rec"].busy_ms() / 1e3
+    print(f"main path: events: a fresh node blocksynced {tip} heights from one honest peer "
+          f"over encrypted p2p, its app (kvstore) behind the ABCI socket in a child process "
+          f"(up in {app_start_s:.2f} s), its BlockExecutor publishing to an EventBus with an "
+          f"IndexerService over a KVIndexer on a SqliteKV; every block hash and app hash equal "
+          f"the source's; subscribers received blocks {len(got['blocks'])} (heights 1-{tip} in "
+          f"order, hashes the source's), txs past height {EVENTS_TX_AFTER} "
+          f"{len(got['late_txs'])}, key {EVENTS_KEY} {len(got['one_key'])}; the indexer "
+          f"returned all {index['txs']} txs with height and index, app.creator=kvstore in "
+          f"(height, index) order with height {EVENTS_TX_HEIGHT}'s {index['at_height']}, "
+          f"block.height={EVENTS_BLOCKS_AFTER + 1}..{tip} each its height; the range form "
+          f"(\"tx.height = {EVENTS_TX_HEIGHT}\", \"block.height > {EVENTS_BLOCKS_AFTER}\") "
+          f"gave {len(index['range_form'][0])} and {len(index['range_form'][1])}: outside the "
+          f"KV indexer's "
+          f"type.key=value form; the CLI: {info!r}, {query!r} (the app hash after height "
+          f"{tip}, the source's); wall {wall * 1e3:.2f} ms ({tip / wall:.1f} commits/s) beside "
+          f"phase 9 (a)'s {wall_a * 1e3:.2f} ms (two honest peers, app in process, no bus) "
+          f"in this run; of the wall: {ps['publishes']} publishes {ps['publish'] * 1e3:.2f} ms "
+          f"({ps['publish'] / wall:.4f}), the indexer's writes {ps['index'] * 1e3:.2f} ms "
+          f"({ps['index'] / wall:.4f}); the socket app's {ps['app_calls']} calls "
+          f"{ps['app'] * 1e3:.2f} ms of apply_block's {sp['apply'] * 1e3:.2f} ms "
+          f"({ps['app'] / sp['apply']:.4f}); the settle after caught-up "
+          f"{ps['settle'] * 1e3:.2f} ms; {len(r['windows'])} window rounds (commits, rows, "
+          f"bucket, tier) {[(d['rows'] // n_vals, d['rows'], d['bucket'], d['tier']) for d in rounds]}, "
+          f"{len(r['applied'])} LastCommit rounds; every window round equal to its plain "
+          f"version at its shape ({chk['windows']}), the {chk['small_rounds']} small-tier "
+          f"rounds' {chk['small_rows']} rows through the plain version together, "
+          f"{chk['sampled']} seeded rows to the host oracle (tolerance: exact); kernel wrapper "
+          f"calls on the card {busy * 1e3:.2f} ms; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} | {smi}")
+    return launches, chk["err"]
 
 
 # --- the multi-device path: a mesh of shards ---------------------------------
@@ -5152,8 +5502,8 @@ def main() -> int:
     lap("8 multi-device")
 
     # --- 9. the catch-up path ----------------------------------------------
-    catchup, catchup_errs, catchup_src = catchup_phase(torch, ops, host, smi, rng, vkeys, powers,
-                                          chain_id, bulk["host_hash"]["walls"])
+    catchup, catchup_errs, catchup_src, catchup_walls = catchup_phase(
+        torch, ops, host, smi, rng, vkeys, powers, chain_id, bulk["host_hash"]["walls"])
     for row in rows:
         row["launches"] += catchup.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"], catchup_errs.get(row["name"], 0))
@@ -5185,11 +5535,24 @@ def main() -> int:
     print(f"main path: verify service launches per kernel, the three parts "
           f"{json.dumps({k: v for k, v in svc_launches.items() if v})} (added to the kernels "
           f"line's launches); phase 11 took {time.perf_counter() - t0:.1f} s | {smi}")
-    del catchup_src
 
     lap("11 verify service")
 
-    # --- 12. result lines ---------------------------------------------------
+    # --- 12. the event plane: a joining node's events, index and socket app -
+    t0 = time.perf_counter()
+    ev_launches, events_errs = events_phase(torch, ops, host, smi, rng, catchup_src,
+                                            catchup_walls["a"])
+    for row in rows:
+        row["launches"] += ev_launches.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], events_errs.get(row["name"], 0))
+    print(f"main path: event plane launches per kernel "
+          f"{json.dumps({k: v for k, v in ev_launches.items() if v})} (added to the kernels "
+          f"line's launches); phase 12 took {time.perf_counter() - t0:.1f} s | {smi}")
+    del catchup_src
+
+    lap("12 event plane")
+
+    # --- 13. result lines ---------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

@@ -13,14 +13,19 @@ machine that drives them, for an NVIDIA H100 (Hopper, sm_90a):
     parallel/  the verify dispatch scheduler and the fn-lane engine table
     consensus/ the state machine, WAL, replay, commit pipeline, pacing,
                the micro-batcher, the vote and BLS batchers
-    state/     the block executor, the state and its store
+    state/     the block executor, the state and its store, the tx and
+               block indexer and the SQL event sink
     store/     the KV stores and the block store
-    abci/      the app interface, the local client and the kvstore app
+    abci/      the app interface, the local and socket clients, the
+               kvstore app and the ABCI CLI
     l2node/    the L2 node interface and its in-memory mock
     privval/   the file and remote signers
     evidence/  evidence verification
-    types/     chain types; ValidatorSet.verify_commit* run on this verifier
-    libs/      protoio, bits, log, service, metrics, events, fail, autofile
+    types/     chain types; ValidatorSet.verify_commit* run on this verifier;
+               the event bus
+    libs/      protoio, bits, log, service, metrics, events, pubsub, fail,
+               autofile, flowrate, tmjson, math, clist, cmap, rand, timer,
+               sync, cli
     obs/       the span tracer, the device-cost ledger and its report
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
