@@ -261,8 +261,11 @@ Phases (any failure raises and the exit code is non-zero):
    ``ScenarioRunner``: the storm of ``tests/test_chaos.py`` to height 4,
    an even partition that commits nothing for 2 s, healed, two heights, n3
    killed, one height, n3 restarted, one height; one chain at every
-   height; kernel 2's tables of the 16 new keys against the plain version.
-   (d) The backend guard: ``probe_backend()`` on the card, ``meta_block``,
+   height; kernel 2's tables of the 16 new keys against the plain version;
+   the storm under a ``ProfileCapture``'s loop profile (``device=False``,
+   armed on the mesh's event-loop thread), its samples' shares by the port
+   directory of their innermost frame (p2p, crypto/aead, chaos, consensus;
+   ``loop_shares``). (d) The backend guard: ``probe_backend()`` on the card, ``meta_block``,
    a hanging child killed at its bound. Prints each part's figures (clients
    a second, hit and dedup rates, rounds with rows and buckets, the
    evidence verdicts, ms a height per chaos stage, the links' drops and
@@ -311,9 +314,35 @@ Phases (any failure raises and the exit code is non-zero):
    version and the host oracle (``check_recorded``). Prints the sync's
    wall beside phase 9 (a)'s, the publishes' and the indexer's shares of
    it, the socket app's share of ``apply_block``, the messages and the
-   launches, which add to the kernels line. The child is killed at the
-   phase's end, pass or fail.
-13. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+   launches, which add to the kernels line. The node then goes to phase 13
+   before its teardown; the child is killed at phase 13's end, pass or fail.
+13. The operator plane (``operator_phase``): phase 12's node, with what
+   ``tendermint_tpu/node/node.py`` wires beside its stores (a
+   ``LightServePlane``, a ``HealthMonitor`` bound to the scheduler's
+   metrics and ledger, the serving plane's metrics and the tracer, a
+   ``ProfileCapture`` on cuda, a started ``VerifyScheduler`` as the process
+   default), served by the port's ``RPCServer`` on 127.0.0.1. Over HTTP
+   JSON-RPC: (a) ``profile_start`` with the device trace (a second start
+   refused with -32000); a ``LightProxy``'s ``LightClient``, trusted at
+   height 1 with an ``RPCProvider`` to the node as primary and another as
+   witness, syncs 1 -> 128 sequentially through
+   ``default_dispatch("light")``; a consumer reads commit, validators, block
+   (every ``OPERATOR_STRIDE``-th height and the tip) and status through the
+   proxy; ``OPERATOR_CLIENTS`` (64) ``RPCProvider`` clients skip 1 -> 128 at
+   once; ``profile_stop``. (b) ``tx_search`` and ``tx`` on the indexer,
+   ``abci_query`` and ``abci_info`` through the socket app, ``health``,
+   ``dump_health``, ``dump_dispatch_ledger``, ``dump_traces``. Checks:
+   every header, commit and validator set the proxy returns against the
+   source chain; every recorded round against its plain version and the
+   host oracle; the device trace on, its file there, its per-kernel
+   launches (``TRACE_KERNELS``) equal to the phase's counts; the loop
+   profile's samples; the ledger route's rounds against the ledger's;
+   ``tx_search`` against the indexer's ``search_txs``. Prints the proxy's
+   ms a step beside catch-up (c)'s, the clients' wall and rounds, the
+   trace's per-kernel split (``cudaLaunchKernel``, queue gap, device time),
+   the loop profile's top stacks, the health roll-up and the launches,
+   which add to the kernels line.
+14. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
@@ -335,6 +364,7 @@ import subprocess
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -2482,8 +2512,6 @@ def catchup_chain(vkeys, powers, chain_id: str, n_heights: int):
     LastCommit check on the process verifier) and BlockStore.save_block. A
     block's time is CATCHUP_T0 plus its height in seconds. Returns what the
     servers, the client and the light providers need."""
-    from types import SimpleNamespace
-
     from tendermint_tpu_torch.abci.client import LocalClient
     from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
     from tendermint_tpu_torch.l2node.mock import MockL2Node
@@ -2910,6 +2938,7 @@ def catchup_sync(torch, ops, src, liar: bool, timeout: float = CATCHUP_TIMEOUT_S
             "marks": marks, "errors": errors, "windows": windows, "fallback": fallback,
             "applied": applied, "split": split, "rec": rec, "ledger": ledger.entries(),
             "launches": launches, "liar_id": liars[0][0].id if liars else None,
+            "state_store": executor._state_store,
             "honest_ids": [h[0].id for h in honest]}
 
 
@@ -3023,7 +3052,8 @@ def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
     (check_recorded), and prints the walls and splits beside phase 3's bare
     window (`bare_walls`, seconds). Returns the launches of the three modes,
     summed per kernel, the checks' max_abs_err per kernel, the served chain
-    (phases 10-12 serve it again) and modes (a) and (b)'s walls, seconds."""
+    (phases 10-12 serve it again) and modes (a) and (b)'s walls and mode
+    (c)'s sequential step ("c_step"), seconds."""
     from tendermint_tpu_torch.crypto import aead
     from tendermint_tpu_torch.ops import ed25519_batch as ed
 
@@ -3163,6 +3193,7 @@ def catchup_phase(torch, ops, host, smi, rng, vkeys, powers, chain_id: str,
           f"({len(skip['trusted']) - 1} steps, {skip['s'] * 1e3:.2f} ms, the witness "
           f"cross-check included); kernel wrapper calls on the card "
           f"{c['rec'].busy_ms():.2f} ms | {smi}")
+    walls["c_step"] = seq["s"] / (tip - 1)
     return total, errs, src, walls
 
 
@@ -3391,13 +3422,20 @@ def chaos_mesh(torch, ops, n_vals: int, device: str = "cuda"):
     heights; n3 killed, CHAOS_KILL_HEIGHTS without it, restarted with fresh
     p2p around its state, CHAOS_KILL_HEIGHTS more on every node; every wait
     inside CHAOS_WALL_S. Launch counts set to 0 before,
-    read after; every round recorded, tagged with its VoteBatcher rows."""
+    read after; every round recorded, tagged with its VoteBatcher rows; the
+    storm under a ProfileCapture's loop profile (device=False) armed on the
+    mesh's event-loop thread, its samples' shares by port directory
+    (loop_shares)."""
+    import shutil
+    import tempfile
+
     from tendermint_tpu_torch.chaos import LinkPolicy, Scenario, ScenarioRunner, Step
     from tendermint_tpu_torch.consensus.state_machine import ConsensusConfig
     from tendermint_tpu_torch.consensus.vote_batcher import VoteBatcher
     from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
     from tendermint_tpu_torch.libs.metrics import Registry, SchedulerMetrics
     from tendermint_tpu_torch.obs.ledger import DispatchLedger
+    from tendermint_tpu_torch.obs.profiler import ProfileCapture
     from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
     from tests.torch_chaos_harness import build_chaos_handles, chain_hashes, start_mesh, stop_mesh
 
@@ -3432,7 +3470,8 @@ def chaos_mesh(torch, ops, n_vals: int, device: str = "cuda"):
     rec = RoundRecorder(torch, verifier, tag=vote_rows)
     ledger = DispatchLedger()
     sched = VerifyScheduler(ledger=ledger, metrics=SchedulerMetrics(Registry("smoke_chaos")))
-    stages, checked = [], {}
+    stages, checked, loop = [], {}, {}
+    profile_dir = tempfile.mkdtemp(prefix="smoke-chaos-profile-")
 
     def low():
         return min(h.height() for h in runner.live_nodes())
@@ -3469,8 +3508,15 @@ def chaos_mesh(torch, ops, n_vals: int, device: str = "cuda"):
         await start_mesh(handles)
         try:
             t0, h0 = time.perf_counter(), 0
-            await bounded(runner.run(until_height=CHAOS_STORM_HEIGHT, timeout=CHAOS_TIMEOUT_S),
-                          "the storm")
+            # the storm's loop profile, sampled on this (the loop's) thread
+            capture = ProfileCapture(profile_dir)
+            capture.start(label="storm", device=False)
+            sampler = capture._sampler
+            try:
+                await bounded(runner.run(until_height=CHAOS_STORM_HEIGHT,
+                                         timeout=CHAOS_TIMEOUT_S), "the storm")
+            finally:
+                loop.update(session=capture.stop(), stacks=sampler.stacks)
             stages.append(("storm", time.perf_counter() - t0, low() - h0))
             await one_chain(low())
             before = max(h.height() for h in handles)
@@ -3541,13 +3587,14 @@ def chaos_mesh(torch, ops, n_vals: int, device: str = "cuda"):
         rec.remove()
         set_default_scheduler(None)
         VoteBatcher._verify_items = verify_items
+        shutil.rmtree(profile_dir, ignore_errors=True)
     entries = runner.net.trace.entries
     links = {"drop": sum(1 for e in entries if len(e) > 3 and e[3] == "drop"),
              "duplicate": sum(e[6] for e in entries if len(e) > 6 and e[3] == "deliver"),
              "deliver": sum(1 for e in entries if len(e) > 3 and e[3] == "deliver")}
     return {"handles": handles, "stages": stages, "checked": sorted(checked), "rec": rec,
             "ledger": ledger.entries(), "launches": launches, "links": links,
-            "batcher_rounds": batcher_rounds,
+            "batcher_rounds": batcher_rounds, "loop": loop,
             "min_batch": verifier._min_device_batch, "verifier": verifier, "device": device}
 
 
@@ -3729,6 +3776,15 @@ def bulk_rest_phase(torch, ops, host, smi, rng, src, vkeys,
           f"oracle (tolerance: exact); launches {shown(launches)} | {smi}")
     busy = c["rec"].busy_ms()
     print(f"time: bulk rest (c): {per_h}; kernel wrapper calls on the card {busy:.2f} ms | {smi}")
+    lp, shares = c["loop"]["session"]["loop_profile"], loop_shares(c["loop"]["stacks"])
+    assert lp["samples"] > 0 and shares["samples"] == lp["samples"], (lp["samples"], shares)
+    top = [(t["count"], " < ".join(t["stack"][:3])) for t in lp["top_stacks"][:3]]
+    print(f"trace: bulk rest (c): the storm's loop profile (ProfileCapture, device=False, armed "
+          f"on the mesh's event-loop thread; {lp['samples']} samples at "
+          f"{c['loop']['session']['loop_sample_interval_s']} s over "
+          f"{c['loop']['session']['duration_s']} s): shares of the samples by the directory of "
+          f"their innermost port frame {json.dumps(shares['shares'])}; top stacks (samples, "
+          f"innermost frames) {top} | {smi}")
 
     # (d) the backend guard on the card
     guard_probe(smi)
@@ -4368,7 +4424,7 @@ def check_index(idx, blocks, tip: int) -> dict:
     return {"txs": len(all_txs), "at_height": len(at_height), "range_form": range_form}
 
 
-def events_phase(torch, ops, host, smi, rng, src, wall_a: float):
+def events_phase(torch, ops, host, smi, rng, src, wall_a: float, operator=None):
     """Phase 12: a joining node catches up with its event plane on. Phase
     9's chain, src, is blocksynced from one honest server over encrypted
     p2p (catchup_sync) by a fresh node, on a process verifier of its own
@@ -4382,8 +4438,11 @@ def events_phase(torch, ops, host, smi, rng, src, wall_a: float):
     every recorded round against its plain version and the host oracle
     (check_recorded). Prints the sync's wall beside phase 9 (a)'s (`wall_a`,
     seconds), its publish and index shares, the socket app's share of
-    apply_block, the messages and the launches. Returns the launches and
-    the checks' max_abs_err per kernel."""
+    apply_block, the messages and the launches. Then, with `operator`, it
+    hands the synced node (its stores, EventBus, indexer, the app server's
+    port) to operator(node) before its teardown: the child app is killed
+    after it, pass or fail. Returns the launches, the checks' max_abs_err
+    per kernel and what operator returned."""
     import select
     import shutil
     import tempfile
@@ -4418,6 +4477,73 @@ def events_phase(torch, ops, host, smi, rng, src, wall_a: float):
         info = abci_cli(port, "info")
         query = abci_cli(port, "query", f"tx-{tip}-{CATCHUP_TXS - 1}")
         index = check_index(plane.indexer, blocks, tip)
+        launches, marks, sp, ps = r["launches"], r["marks"], r["split"], plane.split
+        # the synced chain, as phase 9 checks it
+        assert r["caught_at"], "event plane: on_caught_up never fired"
+        assert r["bs"].height == tip and r["client"].state.last_block_height == tip
+        for h in range(1, tip + 1):
+            assert r["bs"].load_block(h).hash() == blocks[h].hash(), ("event plane", h)
+        got_app = dict(r["applied"])
+        assert sorted(got_app) == list(range(1, tip + 1))
+        assert all(got_app[h] == want_app[h] for h in range(1, tip + 1)), "event plane: app hash"
+        assert not r["errors"] and all(all(v) for _, v in r["windows"]), r["errors"]
+        # 1. blocks and txs on the bus
+        assert not plane.cancelled, plane.cancelled
+        got = plane.got
+        assert [m.data.header.height for m in got["blocks"]] == list(range(1, tip + 1))
+        assert [m.data.hash() for m in got["blocks"]] == [blocks[h].hash() for h in range(1, tip + 1)]
+        late = [(h, tx) for h in range(EVENTS_TX_AFTER + 1, tip + 1) for tx in blocks[h].data.txs]
+        assert [(m.data[0], m.data[2]) for m in got["late_txs"]] == late, len(got["late_txs"])
+        assert [m.data[2] for m in got["one_key"]] == [
+            tx for tx in blocks[EVENTS_TX_HEIGHT].data.txs if tx.startswith(EVENTS_KEY.encode() + b"=")]
+        # 3. the app over the socket, through the CLI
+        assert f"last_block_height={tip} " in info, info
+        assert info.endswith(f"last_block_app_hash=0x{want_app[tip].hex()}"), info
+        assert f"value=b'v{CATCHUP_TXS - 1}'" in query and f"height={tip}" in query, query
+        # 4. the kernels
+        for name in ("verify_prehashed_bigcache", "neg_pubkey_bigtable", "verify_prehashed_table"):
+            assert launches[name] > 0, f"event plane: {name} not launched"
+        chk = check_recorded(torch, ed, host, r["rec"], rng, n_vals, "event plane")
+        wall = marks["end"] - marks["start"]
+        rounds = [d for d in r["rec"].dispatches if d["rows"] > n_vals]
+        busy = r["rec"].busy_ms() / 1e3
+        print(f"main path: events: a fresh node blocksynced {tip} heights from one honest peer "
+              f"over encrypted p2p, its app (kvstore) behind the ABCI socket in a child process "
+              f"(up in {app_start_s:.2f} s), its BlockExecutor publishing to an EventBus with an "
+              f"IndexerService over a KVIndexer on a SqliteKV; every block hash and app hash equal "
+              f"the source's; subscribers received blocks {len(got['blocks'])} (heights 1-{tip} in "
+              f"order, hashes the source's), txs past height {EVENTS_TX_AFTER} "
+              f"{len(got['late_txs'])}, key {EVENTS_KEY} {len(got['one_key'])}; the indexer "
+              f"returned all {index['txs']} txs with height and index, app.creator=kvstore in "
+              f"(height, index) order with height {EVENTS_TX_HEIGHT}'s {index['at_height']}, "
+              f"block.height={EVENTS_BLOCKS_AFTER + 1}..{tip} each its height; the range form "
+              f"(\"tx.height = {EVENTS_TX_HEIGHT}\", \"block.height > {EVENTS_BLOCKS_AFTER}\") "
+              f"gave {len(index['range_form'][0])} and {len(index['range_form'][1])}: outside the "
+              f"KV indexer's "
+              f"type.key=value form; the CLI: {info!r}, {query!r} (the app hash after height "
+              f"{tip}, the source's); wall {wall * 1e3:.2f} ms ({tip / wall:.1f} commits/s) beside "
+              f"phase 9 (a)'s {wall_a * 1e3:.2f} ms (two honest peers, app in process, no bus) "
+              f"in this run; of the wall: {ps['publishes']} publishes {ps['publish'] * 1e3:.2f} ms "
+              f"({ps['publish'] / wall:.4f}), the indexer's writes {ps['index'] * 1e3:.2f} ms "
+              f"({ps['index'] / wall:.4f}); the socket app's {ps['app_calls']} calls "
+              f"{ps['app'] * 1e3:.2f} ms of apply_block's {sp['apply'] * 1e3:.2f} ms "
+              f"({ps['app'] / sp['apply']:.4f}); the settle after caught-up "
+              f"{ps['settle'] * 1e3:.2f} ms; {len(r['windows'])} window rounds (commits, rows, "
+              f"bucket, tier) {[(d['rows'] // n_vals, d['rows'], d['bucket'], d['tier']) for d in rounds]}, "
+              f"{len(r['applied'])} LastCommit rounds; every window round equal to its plain "
+              f"version at its shape ({chk['windows']}), the {chk['small_rounds']} small-tier "
+              f"rounds' {chk['small_rows']} rows through the plain version together, "
+              f"{chk['sampled']} seeded rows to the host oracle (tolerance: exact); kernel wrapper "
+              f"calls on the card {busy * 1e3:.2f} ms; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})} | {smi}")
+        operated = None
+        if operator is not None:
+            # the node as it stands, before its teardown: its stores, its
+            # bus and indexer, the app server and the process verifier
+            operated = operator(SimpleNamespace(
+                block_store=r["bs"], state_store=r["state_store"], event_bus=plane.bus,
+                indexer=plane.indexer, indexer_service=plane.service, app_port=port,
+                chain_id=src.chain_id, tip=tip, want_app=want_app[tip], blocks=blocks))
     finally:
         if child is not None:
             child.kill()
@@ -4426,66 +4552,364 @@ def events_phase(torch, ops, host, smi, rng, src, wall_a: float):
         if plane is not None:
             plane.kv.close()
         shutil.rmtree(tmp, ignore_errors=True)
-    launches, marks, sp, ps = r["launches"], r["marks"], r["split"], plane.split
-    # the synced chain, as phase 9 checks it
-    assert r["caught_at"], "event plane: on_caught_up never fired"
-    assert r["bs"].height == tip and r["client"].state.last_block_height == tip
-    for h in range(1, tip + 1):
-        assert r["bs"].load_block(h).hash() == blocks[h].hash(), ("event plane", h)
-    got_app = dict(r["applied"])
-    assert sorted(got_app) == list(range(1, tip + 1))
-    assert all(got_app[h] == want_app[h] for h in range(1, tip + 1)), "event plane: app hash"
-    assert not r["errors"] and all(all(v) for _, v in r["windows"]), r["errors"]
-    # 1. blocks and txs on the bus
-    assert not plane.cancelled, plane.cancelled
-    got = plane.got
-    assert [m.data.header.height for m in got["blocks"]] == list(range(1, tip + 1))
-    assert [m.data.hash() for m in got["blocks"]] == [blocks[h].hash() for h in range(1, tip + 1)]
-    late = [(h, tx) for h in range(EVENTS_TX_AFTER + 1, tip + 1) for tx in blocks[h].data.txs]
-    assert [(m.data[0], m.data[2]) for m in got["late_txs"]] == late, len(got["late_txs"])
-    assert [m.data[2] for m in got["one_key"]] == [
-        tx for tx in blocks[EVENTS_TX_HEIGHT].data.txs if tx.startswith(EVENTS_KEY.encode() + b"=")]
-    # 3. the app over the socket, through the CLI
-    assert f"last_block_height={tip} " in info, info
-    assert info.endswith(f"last_block_app_hash=0x{want_app[tip].hex()}"), info
-    assert f"value=b'v{CATCHUP_TXS - 1}'" in query and f"height={tip}" in query, query
-    # 4. the kernels
-    for name in ("verify_prehashed_bigcache", "neg_pubkey_bigtable", "verify_prehashed_table"):
-        assert launches[name] > 0, f"event plane: {name} not launched"
-    chk = check_recorded(torch, ed, host, r["rec"], rng, n_vals, "event plane")
-    wall = marks["end"] - marks["start"]
-    rounds = [d for d in r["rec"].dispatches if d["rows"] > n_vals]
-    busy = r["rec"].busy_ms() / 1e3
-    print(f"main path: events: a fresh node blocksynced {tip} heights from one honest peer "
-          f"over encrypted p2p, its app (kvstore) behind the ABCI socket in a child process "
-          f"(up in {app_start_s:.2f} s), its BlockExecutor publishing to an EventBus with an "
-          f"IndexerService over a KVIndexer on a SqliteKV; every block hash and app hash equal "
-          f"the source's; subscribers received blocks {len(got['blocks'])} (heights 1-{tip} in "
-          f"order, hashes the source's), txs past height {EVENTS_TX_AFTER} "
-          f"{len(got['late_txs'])}, key {EVENTS_KEY} {len(got['one_key'])}; the indexer "
-          f"returned all {index['txs']} txs with height and index, app.creator=kvstore in "
-          f"(height, index) order with height {EVENTS_TX_HEIGHT}'s {index['at_height']}, "
-          f"block.height={EVENTS_BLOCKS_AFTER + 1}..{tip} each its height; the range form "
-          f"(\"tx.height = {EVENTS_TX_HEIGHT}\", \"block.height > {EVENTS_BLOCKS_AFTER}\") "
-          f"gave {len(index['range_form'][0])} and {len(index['range_form'][1])}: outside the "
-          f"KV indexer's "
-          f"type.key=value form; the CLI: {info!r}, {query!r} (the app hash after height "
-          f"{tip}, the source's); wall {wall * 1e3:.2f} ms ({tip / wall:.1f} commits/s) beside "
-          f"phase 9 (a)'s {wall_a * 1e3:.2f} ms (two honest peers, app in process, no bus) "
-          f"in this run; of the wall: {ps['publishes']} publishes {ps['publish'] * 1e3:.2f} ms "
-          f"({ps['publish'] / wall:.4f}), the indexer's writes {ps['index'] * 1e3:.2f} ms "
-          f"({ps['index'] / wall:.4f}); the socket app's {ps['app_calls']} calls "
-          f"{ps['app'] * 1e3:.2f} ms of apply_block's {sp['apply'] * 1e3:.2f} ms "
-          f"({ps['app'] / sp['apply']:.4f}); the settle after caught-up "
-          f"{ps['settle'] * 1e3:.2f} ms; {len(r['windows'])} window rounds (commits, rows, "
-          f"bucket, tier) {[(d['rows'] // n_vals, d['rows'], d['bucket'], d['tier']) for d in rounds]}, "
-          f"{len(r['applied'])} LastCommit rounds; every window round equal to its plain "
-          f"version at its shape ({chk['windows']}), the {chk['small_rounds']} small-tier "
-          f"rounds' {chk['small_rows']} rows through the plain version together, "
-          f"{chk['sampled']} seeded rows to the host oracle (tolerance: exact); kernel wrapper "
-          f"calls on the card {busy * 1e3:.2f} ms; launches "
-          f"{json.dumps({k: v for k, v in launches.items() if v})} | {smi}")
-    return launches, chk["err"]
+    return launches, chk["err"], operated
+
+
+# --- phase 13: the operator plane ----------------------------------------------
+
+OPERATOR_CLIENTS = 64  # RPCProvider light clients that skip 1 -> tip at once
+OPERATOR_STRIDE = 8  # the consumer reads every OPERATOR_STRIDE-th height through the proxy
+OPERATOR_WAIT_S = 120  # a bound on each wait of the phase
+# the port's CUDA kernels as a device trace names them -> the wrappers that
+# launch them (one launch a wrapper call)
+TRACE_KERNELS = {
+    "neg_pubkey_table_kernel": ("neg_pubkey_table",),
+    "verify_table_kernel": ("verify_prehashed_table",),
+    "verify_generic_kernel": ("verify_prehashed",),
+    "dbl_chain_kernel": ("dbl_chain",),
+    "neg_pubkey_bigtable_kernel": ("neg_pubkey_bigtable",),
+    "verify_bigcache_kernel": ("verify_prehashed_bigcache", "verify_prehashed_bigcache_mxu"),
+    "challenge_kernel": ("challenge_batch",),
+    "reduce_mod_l_kernel": ("reduce_mod_l",),
+    "sha256_kernel": ("sha256_batch",),
+    "secp_verify_kernel": ("secp_verify_prehashed",),
+}
+
+
+def loop_shares(stacks) -> dict:
+    """Shares of a loop profile's samples (stacks: innermost-first
+    "file:line:function" tuples -> samples) by the port directory of each
+    sample's innermost port frame: p2p, crypto/aead, chaos, consensus, the
+    rest of the port, or none (the loop idle in the selector, or in the
+    standard library alone). The sampler keeps file names without their
+    directories: a name two directories of the port share counts as the
+    rest, but reactor.py, which the mesh's switches run only as the
+    consensus reactor; a name of the standard library's top level or of
+    the packages an event loop runs (asyncio, concurrent.futures, ...) is
+    not read as the port's."""
+    import sysconfig
+
+    groups = {"p2p": "p2p", "crypto/aead.py": "crypto/aead", "chaos": "chaos",
+              "consensus": "consensus"}
+    lib = sysconfig.get_paths()["stdlib"]
+    stdlib = {f for d in ("", "asyncio", "concurrent/futures", "collections", "json",
+                          "logging", "http", "importlib")
+              for f in (os.listdir(os.path.join(lib, d)) if os.path.isdir(os.path.join(lib, d))
+                        else ()) if f.endswith(".py")}
+    port = os.path.join(ROOT, "tendermint_tpu_torch")
+    where: dict = {}
+    for dirpath, _, files in os.walk(port):
+        rel = os.path.relpath(dirpath, port)
+        for f in files:
+            if f.endswith(".py"):
+                group = groups.get(f"{rel}/{f}", groups.get(rel.split(os.sep)[0], "other port"))
+                where.setdefault(f, set()).add(group)
+    where = {f: g for f, g in where.items() if f not in stdlib}
+    owner = {f: next(iter(g)) if len(g) == 1 else "other port" for f, g in where.items()}
+    owner["reactor.py"] = "consensus"
+    counts = dict.fromkeys(["p2p", "crypto/aead", "chaos", "consensus", "other port", "none"], 0)
+    total = 0
+    for stack, n in stacks.items():
+        total += n
+        for frame in stack:
+            name = frame.split(":", 1)[0]
+            if name in owner:
+                counts[owner[name]] += n
+                break
+        else:
+            counts["none"] += n
+    return {"samples": total, "shares": {k: round(v / max(1, total), 4) for k, v in counts.items()}}
+
+
+def operator_phase(torch, ops, host, smi, rng, handed, step_c: float):
+    """Phase 13: an operator profiles a node over its RPC while a light
+    proxy serves verified blocks through it. The node is phase 12's, handed
+    over before its teardown (`handed`: its block and state stores, its
+    EventBus and indexer, its kvstore app's port in the child process, on
+    phase 12's process verifier), with what tendermint_tpu/node/node.py
+    wires beside them: a LightServePlane over its stores, a HealthMonitor
+    bound to the scheduler's metrics and ledger, the serving plane's metrics
+    and the tracer, a ProfileCapture (device "cuda") and a started
+    VerifyScheduler as the process default, served by the port's RPCServer
+    on 127.0.0.1. Over HTTP JSON-RPC: (a) profile_start with the device
+    trace (a second start must fail with -32000), a LightProxy's
+    LightClient (trusted at height 1, an RPCProvider to the node as primary
+    and another as witness) syncs 1 -> tip sequentially through
+    default_dispatch("light"), a consumer reads commit, validators, block
+    and status through the proxy, OPERATOR_CLIENTS RPCProvider clients skip
+    1 -> tip at once, profile_stop; (b) tx_search and tx, abci_query and
+    abci_info through the socket app, health, dump_health,
+    dump_dispatch_ledger and dump_traces. Checks every header, commit and
+    validator set the proxy returns against the source chain, every
+    recorded round against its plain version and the host oracle
+    (check_recorded), the device trace on with its file and its per-kernel
+    launches equal to the phase's counts, the loop profile's samples, the
+    ledger route's rounds against the ledger's, tx_search against the
+    indexer's search_txs. Prints the proxy's ms a step beside catch-up
+    (c)'s in-process `step_c` (seconds) of this run, the clients' wall and
+    rounds, the trace's per-kernel split (launch, queue, device), the loop
+    profile's top stacks, the health roll-up and the launches. Returns the
+    launches, the checks' max_abs_err per kernel and the phase's wall."""
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch import obs
+    from tendermint_tpu_torch.abci.client import SocketClient
+    from tendermint_tpu_torch.crypto import tmhash
+    from tendermint_tpu_torch.crypto.batch_verifier import default_verifier
+    from tendermint_tpu_torch.libs.metrics import HealthMetrics, Registry, SchedulerMetrics
+    from tendermint_tpu_torch.light.client import LightClient, TrustOptions
+    from tendermint_tpu_torch.light.proxy import LightProxy
+    from tendermint_tpu_torch.light.store import LightStore
+    from tendermint_tpu_torch.lightserve import LightServePlane
+    from tendermint_tpu_torch.ops import ed25519_batch as ed
+    from tendermint_tpu_torch.parallel import VerifyScheduler, set_default_scheduler
+    from tendermint_tpu_torch.rpc.client import HTTPClient, RPCClientError
+    from tendermint_tpu_torch.rpc.light_provider import RPCProvider
+    from tendermint_tpu_torch.rpc.server import RPCServer
+    from tendermint_tpu_torch.store.kv import MemKV
+
+    t_phase = time.perf_counter()
+    tip, chain_id, bs, ss = handed.tip, handed.chain_id, handed.block_store, handed.state_store
+    n_vals = len(ss.load_validators(tip).validators)
+    now = CATCHUP_T0 + (tip + 61) * 10**9
+    out_dir = tempfile.mkdtemp(prefix="smoke-profiles-")
+    tracer = obs.Tracer(enabled=True)
+    kept_tracer = obs.default_tracer()
+    sched = VerifyScheduler(ledger=obs.DispatchLedger(),
+                            metrics=SchedulerMetrics(Registry("smoke_operator")))
+    plane = LightServePlane(bs, ss, chain_id)
+    monitor = obs.HealthMonitor(tracer=tracer, metrics=HealthMetrics(Registry("smoke_operator")))
+    monitor.bind_scheduler(sched.metrics)
+    monitor.bind_ledger(sched.ledger)
+    monitor.bind_lightserve(plane.cache.metrics)
+    monitor.bind_tracer(tracer)
+    node = SimpleNamespace(
+        node_key=SimpleNamespace(id="smoke-operator"),
+        config=SimpleNamespace(base=SimpleNamespace(moniker="smoke-operator"),
+                               rpc=SimpleNamespace(unsafe=False)),
+        consensus=SimpleNamespace(is_running=False),
+        block_store=bs, state_store=ss, event_bus=handed.event_bus, indexer=handed.indexer,
+        app=None, lightserve=plane, health_monitor=monitor, verify_scheduler=sched,
+        profiler=obs.ProfileCapture(out_dir, device="cuda"), tracer=tracer)
+    verifier = default_verifier()
+    rec = RoundRecorder(torch, verifier)
+    got: dict = {"reads": {}}
+
+    def light_client(primary, witness, sequential):
+        return LightClient(chain_id, TrustOptions(CATCHUP_PERIOD_NS, 1, bs.load_block(1).hash()),
+                           primary, [witness], LightStore(MemKV()), sequential=sequential,
+                           now_ns=lambda: now)
+
+    async def drive():
+        node.app = SocketClient(port=handed.app_port)
+        await node.app.connect()
+        await sched.start()
+        await monitor.start()
+        server = RPCServer(node, host="127.0.0.1", port=0)
+        await server.start()
+        addr = f"127.0.0.1:{server.port}"
+        http = HTTPClient(addr)
+        proxy = pc = None
+        clients = []
+        try:
+            # (a) the profiled proxy sync
+            ops.reset_launches()
+            got["started"] = await http.call("profile_start", label="operator", device=True)
+            try:
+                await http.call("profile_start", label="second", device=True)
+            except RPCClientError as e:
+                got["second"] = e
+            lc = light_client(RPCProvider(chain_id, addr), RPCProvider(chain_id, addr), True)
+            proxy = LightProxy(lc, addr, listen_host="127.0.0.1", listen_port=0)
+            await proxy.start()
+            t0 = time.perf_counter()
+            lb = await asyncio.wait_for(lc.verify_light_block_at_height(tip), OPERATOR_WAIT_S)
+            got["seq_s"] = time.perf_counter() - t0
+            got["seq_rounds"] = len(rec.rounds)
+            got["proxy_trusted"], got["proxy_hash"] = lc.store.heights(), lb.header.hash()
+            pc = HTTPClient(f"127.0.0.1:{proxy.listen_port}")
+            t0 = time.perf_counter()
+            for h in sorted({*range(1, tip + 1, OPERATOR_STRIDE), tip}):
+                got["reads"][h] = (await pc.commit(height=h), await pc.validators(height=h),
+                                   await pc.block(height=h))
+            got["status"] = await pc.status()
+            got["read_s"] = time.perf_counter() - t0
+            clients = [light_client(RPCProvider(chain_id, addr), RPCProvider(chain_id, addr), False)
+                       for _ in range(OPERATOR_CLIENTS)]
+            n0, t0 = len(rec.rounds), time.perf_counter()
+            lbs = await asyncio.wait_for(asyncio.gather(
+                *(c.verify_light_block_at_height(tip) for c in clients)), OPERATOR_WAIT_S)
+            got["swarm_s"], got["swarm_rounds"] = time.perf_counter() - t0, len(rec.rounds) - n0
+            got["swarm_rows"] = sum(len(items) for items, _ in rec.rounds[n0:])
+            got["swarm_hashes"] = {x.header.hash() for x in lbs}
+            got["swarm_trusted"] = [c.store.heights() for c in clients]
+            got["stopped"] = await http.call("profile_stop")
+            torch.cuda.synchronize()
+            got["launches"] = ops.kernel_launches()
+            # (b) the node's routes
+            query = "app.creator=kvstore"
+            got["tx_search"] = await http.call("tx_search", query=query, per_page=1000)
+            got["search_txs"] = handed.indexer.search_txs(query, 1000)
+            last_tx = handed.blocks[tip].data.txs[-1]
+            got["tx"] = await http.call("tx", hash=tmhash.sum(last_tx).hex())
+            key = f"tx-{tip}-{CATCHUP_TXS - 1}".encode()
+            got["abci_query"] = await http.call("abci_query", path="", data=key.hex())
+            got["abci_info"] = await http.call("abci_info")
+            got["health"] = await http.call("health")
+            got["dump_health"] = await http.call("dump_health")
+            got["ledger_route"] = await http.call("dump_dispatch_ledger", entries=0)
+            got["ledger"] = sched.ledger.summary()
+            got["dump_traces"] = await http.call("dump_traces", heights=4)
+        finally:
+            for c in clients:
+                for prov in [c.primary, *c.witnesses]:
+                    await prov.client.close()
+            if pc is not None:
+                await pc.close()
+            if proxy is not None:
+                await asyncio.wait_for(proxy.stop(), OPERATOR_WAIT_S)
+            await http.close()
+            await asyncio.wait_for(server.stop(), OPERATOR_WAIT_S)
+            await monitor.stop()
+            await sched.stop()
+            await node.app.close()
+
+    gc.collect()
+    obs.set_default_tracer(tracer)
+    set_default_scheduler(sched)
+    rec.install()
+    try:
+        run_bounded(drive())
+    finally:
+        rec.remove()
+        set_default_scheduler(None)
+        obs.set_default_tracer(kept_tracer)
+    try:
+        launches, stopped = got["launches"], got["stopped"]
+        # the proxy's sync and what it served
+        blocks = handed.blocks
+        assert got["proxy_trusted"] == list(range(1, tip + 1)), got["proxy_trusted"][:5]
+        assert got["proxy_hash"] == blocks[tip].hash()
+        for h, (commit, vals, blk) in got["reads"].items():
+            hdr, c = blocks[h].header, blocks[h + 1].last_commit
+            sh = commit["signed_header"]
+            assert sh["header"] == {
+                "chain_id": chain_id, "height": h, "time": hdr.time_ns,
+                "app_hash": hdr.app_hash.hex().upper(),
+                "validators_hash": hdr.validators_hash.hex().upper(),
+                "next_validators_hash": hdr.next_validators_hash.hex().upper()}, h
+            assert sh["commit"] == {"height": c.height, "round": c.round,
+                                    "block_id": {"hash": hdr.hash().hex().upper()}}, h
+            want_vals = ss.load_validators(h).validators
+            assert vals["count"] == vals["total"] == len(want_vals), h
+            assert [(v["address"], v["pub_key"], v["voting_power"]) for v in vals["validators"]] == [
+                (v.address.hex().upper(), v.pub_key.data.hex(), v.voting_power)
+                for v in want_vals], h
+            assert blk["block_id"]["hash"] == blk["block"]["header"]["hash"] == \
+                hdr.hash().hex().upper(), h
+            assert blk["block"]["data"]["txs"] == [tx.hex().upper() for tx in blocks[h].data.txs]
+        st = got["status"]["sync_info"]
+        assert (st["latest_block_height"], st["latest_block_hash"]) == (
+            tip, blocks[tip].hash().hex().upper()), st
+        assert got["swarm_hashes"] == {blocks[tip].hash()}
+        assert all(t[-1] == tip for t in got["swarm_trusted"])
+        # the profile session and the device trace
+        assert got["started"]["started"] is True
+        dt0 = got["started"]["device_trace"]
+        assert dt0["enabled"] is True and dt0["activities"] == ["CPU", "CUDA"], dt0
+        second = got.get("second")
+        assert second is not None and second.code == -32000, "a second profile_start ran"
+        dt = stopped["device_trace"]
+        assert dt["enabled"] is True and "stop_error" not in dt, dt
+        assert os.path.isfile(dt["path"]), dt["path"]
+        trace_mb = os.path.getsize(dt["path"]) / 2**20
+        by_wrapper: dict = {}
+        port_rows = [k for k in dt["kernels"] if k["name"] in TRACE_KERNELS]
+        for k in port_rows:
+            for w in TRACE_KERNELS[k["name"]]:
+                if launches.get(w):
+                    by_wrapper[w] = by_wrapper.get(w, 0) + k["launches"]
+                    break
+            else:
+                raise AssertionError(f"operator plane: {k['name']} in the trace, not launched")
+        assert by_wrapper == {w: n for w, n in launches.items() if n}, (
+            "operator plane: the trace's launches differ from the counts", by_wrapper,
+            {w: n for w, n in launches.items() if n}, [k["name"][:80] for k in dt["kernels"]])
+        assert launches["verify_prehashed_table"] > 0, "operator plane: kernel 3 not launched"
+        lp = stopped["loop_profile"]
+        assert lp["samples"] > 0 and os.path.isfile(lp["path"]), lp
+        # the rounds against the plain versions and the host oracle
+        chk = check_recorded(torch, ed, host, rec, rng, n_vals, "operator plane")
+        # the routes
+        want_search = [(x.height, x.index, x.tx.hex().upper()) for x in got["search_txs"]]
+        assert [(t["height"], t["index"], t["tx"]) for t in got["tx_search"]["txs"]] == want_search
+        assert got["tx_search"]["total_count"] == len(want_search) == tip * CATCHUP_TXS
+        tx = got["tx"]
+        assert (tx["height"], tx["index"], tx["tx"]) == (
+            tip, CATCHUP_TXS - 1, blocks[tip].data.txs[-1].hex().upper()), tx
+        assert got["abci_query"]["response"]["value"] == \
+            f"v{CATCHUP_TXS - 1}".encode().hex().upper(), got["abci_query"]
+        info = got["abci_info"]["response"]
+        assert info["last_block_height"] == tip, info
+        assert info["last_block_app_hash"] == handed.want_app.hex().upper(), info
+        health = got["health"]
+        assert health["monitored"] is True and health["latest_block_height"] == tip, health
+        assert health["status"] in ("ok", "warn", "critical"), health
+        dh = got["dump_health"]
+        assert dh["enabled"] is True and {"scheduler", "lightserve"} <= set(dh["subsystems"])
+        led = got["ledger_route"]
+        assert led["enabled"] is True and led["entries"] == []
+        assert led["summary"]["rounds"] == got["ledger"]["rounds"] == len(rec.rounds), (
+            led["summary"]["rounds"], got["ledger"]["rounds"], len(rec.rounds))
+        traces = got["dump_traces"]
+        assert traces["enabled"] is True and traces["records"], "dump_traces: an empty ring"
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    steps = tip - 1
+    split = "; ".join(
+        f"{k['name']} {k['launches']} launches: launch (cudaLaunchKernel) median "
+        f"{k['launch_ms']['median']:.4f} ms total {k['launch_ms']['total']:.2f}, queue median "
+        f"{k['queue_ms']['median']:.4f} ms, device median {k['device_ms']['median']:.4f} ms "
+        f"total {k['device_ms']['total']:.2f}" for k in port_rows)
+    other = [(k["name"][:60], k["launches"], k["device_ms"]["total"])
+             for k in dt["kernels"] if k["name"] not in TRACE_KERNELS]
+    top = [(s["count"], " < ".join(s["stack"][:3])) for s in lp["top_stacks"][:3]]
+    subs = {k: v["status"] for k, v in dh["subsystems"].items()}
+    print(f"main path: operator plane: phase 12's node served by the port's RPCServer "
+          f"(LightServePlane, HealthMonitor, ProfileCapture on cuda, VerifyScheduler, its kvstore "
+          f"app over the ABCI socket); profile_start armed the device trace "
+          f"(activities {dt0['activities']}), a second start refused ({second.code}); a "
+          f"LightProxy's LightClient synced 1 -> {tip} sequentially over RPC "
+          f"({got['seq_rounds']} rounds of {n_vals} rows), the consumer read commit, "
+          f"validators, block at {len(got['reads'])} heights and status through the proxy, each "
+          f"equal to the source chain's; {OPERATOR_CLIENTS} RPCProvider clients skipped 1 -> "
+          f"{tip} at once in {got['swarm_rounds']} rounds of {got['swarm_rows']} rows, every one "
+          f"at the source's header; profile_stop: the trace {trace_mb:.1f} MiB, per-kernel "
+          f"launches equal to the phase's counts {json.dumps(by_wrapper)} ("
+          f"{dt['launch_calls']} launch calls, {dt['unpaired']} kernels without one), the "
+          f"loop profile {lp['samples']} samples; routes: tx_search "
+          f"{got['tx_search']['total_count']} txs equal to search_txs, tx, abci_query "
+          f"{bytes.fromhex(got['abci_query']['response']['value'])!r}, abci_info height "
+          f"{info['last_block_height']}, health {health['status']}, dump_health {subs}, "
+          f"dump_dispatch_ledger {led['summary']['rounds']} rounds (the ledger's), dump_traces "
+          f"{len(traces['records'])} records; every round equal to its plain version "
+          f"({chk['windows']} at their shape, {chk['small_rounds']} small-tier rounds' "
+          f"{chk['small_rows']} rows together), {chk['sampled']} seeded rows to the host oracle "
+          f"(tolerance: exact); launches {json.dumps({k: v for k, v in launches.items() if v})} "
+          f"| {smi}")
+    print(f"time: operator plane: the proxy's sync over RPC {got['seq_s'] * 1e3 / steps:.2f} ms a "
+          f"step ({steps} steps, {got['seq_s'] * 1e3:.2f} ms) beside catch-up (c)'s in-process "
+          f"{step_c * 1e3:.2f} ms a step in this run; the consumer's {4 * len(got['reads'])} "
+          f"reads through the proxy {got['read_s'] * 1e3:.2f} ms; {OPERATOR_CLIENTS} skipping "
+          f"clients {got['swarm_s'] * 1e3:.2f} ms; phase {wall:.1f} s | {smi}")
+    print(f"trace: operator plane, per kernel from torch.profiler's CUDA trace (paired by "
+          f"correlation id; queue = kernel start less its launch call's start): {split}; other "
+          f"kernels (PyTorch's own) {other}; other device activity {json.dumps(dt['other_gpu'])}; "
+          f"the loop profile's top stacks (samples, innermost frames) {top}; health roll-up "
+          f"{dh['status']} {subs}, incidents {len(dh['incidents'])} | {smi}")
+    return launches, chk["err"], wall
 
 
 # --- the multi-device path: a mesh of shards ---------------------------------
@@ -5539,20 +5963,28 @@ def main() -> int:
     lap("11 verify service")
 
     # --- 12. the event plane: a joining node's events, index and socket app -
+    # --- 13. the operator plane: that node profiled over its RPC, a proxy --
     t0 = time.perf_counter()
-    ev_launches, events_errs = events_phase(torch, ops, host, smi, rng, catchup_src,
-                                            catchup_walls["a"])
+    ev_launches, events_errs, (op_launches, op_errs, op_wall) = events_phase(
+        torch, ops, host, smi, rng, catchup_src, catchup_walls["a"],
+        operator=lambda node: operator_phase(torch, ops, host, smi, rng, node,
+                                             catchup_walls["c_step"]))
     for row in rows:
-        row["launches"] += ev_launches.get(row["name"], 0)
-        row["max_abs_err"] = max(row["max_abs_err"], events_errs.get(row["name"], 0))
+        for got, errs in ((ev_launches, events_errs), (op_launches, op_errs)):
+            row["launches"] += got.get(row["name"], 0)
+            row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0))
     print(f"main path: event plane launches per kernel "
-          f"{json.dumps({k: v for k, v in ev_launches.items() if v})} (added to the kernels "
-          f"line's launches); phase 12 took {time.perf_counter() - t0:.1f} s | {smi}")
+          f"{json.dumps({k: v for k, v in ev_launches.items() if v})}, operator plane "
+          f"{json.dumps({k: v for k, v in op_launches.items() if v})} (added to the kernels "
+          f"line's launches); phases 12 and 13 took {time.perf_counter() - t0:.1f} s, phase 13 "
+          f"{op_wall:.1f} s of it | {smi}")
     del catchup_src
 
     lap("12 event plane")
+    phase_walls["12 event plane"] = round(phase_walls["12 event plane"] - op_wall, 1)
+    phase_walls["13 operator plane"] = round(op_wall, 1)
 
-    # --- 13. result lines ---------------------------------------------------
+    # --- 14. result lines ---------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

@@ -26,7 +26,13 @@ machine that drives them, for an NVIDIA H100 (Hopper, sm_90a):
     libs/      protoio, bits, log, service, metrics, events, pubsub, fail,
                autofile, flowrate, tmjson, math, clist, cmap, rand, timer,
                sync, cli
-    obs/       the span tracer, the device-cost ledger and its report
+    obs/       the span tracer, the device-cost ledger and its report,
+               the health plane, the cluster merge and the profiler
+               (torch.profiler device trace, event-loop stack sampler)
+    rpc/       the JSON-RPC server, its route table, the HTTP, websocket
+               and local clients and the light client's RPC provider
+    light/     the light client, its store and verifier, and the light
+               proxy
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead (see ``device.py``).

@@ -162,6 +162,18 @@ VERBATIM = [
     "state/txindex.py",
     "state/sink_sql.py",
     "abci/cli.py",
+    # the observability plane and the RPC (A5c, A5d); obs/profiler.py is a
+    # rewrite over torch.profiler, not a copy
+    "obs/cluster.py",
+    "obs/health.py",
+    "obs/__init__.py",
+    "rpc/__init__.py",
+    "rpc/server.py",
+    "rpc/core.py",
+    "rpc/client.py",
+    "rpc/light_provider.py",
+    "rpc/openapi.yaml",
+    "light/proxy.py",
 ]
 
 _PROBE = r"""
@@ -182,7 +194,8 @@ for name in ("consensus.state_machine", "state.execution", "l2node.mock",
              "sequencer.state_v2", "sequencer.verify", "sequencer.broadcast_reactor",
              "libs.tmjson", "libs.sync", "libs.cli", "version", "ethutil",
              "libs.pubsub", "types.event_bus", "state.txindex", "state.sink_sql",
-             "abci.cli"):
+             "abci.cli", "obs.cluster", "obs.health", "obs.profiler", "rpc.server",
+             "rpc.core", "rpc.client", "rpc.light_provider", "light.proxy"):
     assert "tendermint_tpu_torch." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -559,6 +572,67 @@ REWORDED = {
         "              perf capture degrades to a structured JSON artifact\n"
         "              instead of hanging when the card or its driver is gone.\n",
     )],
+    "obs/health.py": [
+        ("PR 2/5/7 built the *recording* stack (flight ring, cluster tracing,\n"
+         "quorum/wall attribution) but nothing watches",
+         "The *recording* stack (flight ring, cluster tracing,\n"
+         "quorum/wall attribution) exists, but nothing watches"),
+        ("(the PR 5 arrival-lag sensor vs a good-sample baseline tail),",
+         "(the arrival-lag sensor vs a good-sample baseline tail),"),
+        ("receipt->applied SLO (PR 10's 96 ms p95",
+         "receipt->applied SLO (a measured 96 ms p95"),
+        ("  PR 9 finding that live nets go event-loop-bound",
+         "  finding that live nets go event-loop-bound"),
+        ("(the event loop is the scarce resource per PR 9)",
+         "(the event loop is the scarce resource)"),
+        ("exactly the PR 7 back-off signal,",
+         "exactly the pacing back-off signal,"),
+        ("first vote (the PR 5 sensor, fed synchronously",
+         "first vote (the arrival-lag sensor, fed synchronously"),
+        ("applied plane targets PR 10's measured 96 ms p95",
+         "applied plane targets a measured 96 ms p95"),
+        ("(lightserve proof cache: PR 8 measured\n",
+         "(lightserve proof cache: measured\n"),
+        ("due callback. PR 9 showed live nets above ~32",
+         "due callback. Live nets above ~32"),
+        ("pre-quorum vote (the PR 5 arrival-lag sensor).",
+         "pre-quorum vote (the arrival-lag sensor)."),
+    ],
+    # the port's device trace is torch.profiler's, not JAX's
+    "rpc/core.py": [
+        ('"""Arm an on-demand profiling session: a jax device trace',
+         '"""Arm an on-demand profiling session: a torch.profiler trace'),
+        ("instead — the\n        # PR 4 falsy-tracer bug class",
+         "instead — the\n        # falsy-tracer bug class"),
+    ],
+    # a connection accepted just before close() whose handler had yet to
+    # start is not among the writers closed once: wait_closed() waited for
+    # it forever; the port's stop closes the writers until it returns
+    "rpc/server.py": [(
+        "        # py3.12) never returns\n"
+        "        for w in list(self._conns):\n"
+        "            w.close()\n"
+        "        for t in list(self._ws_tasks):\n"
+        "            t.cancel()\n"
+        "        if self._server:\n"
+        "            await self._server.wait_closed()\n",
+        "        # py3.12) never returns — again for any accepted before close()\n"
+        "        # whose handler had yet to start, until the server is closed\n"
+        "        for t in list(self._ws_tasks):\n"
+        "            t.cancel()\n"
+        "        if self._server:\n"
+        "            closed = asyncio.ensure_future(self._server.wait_closed())\n"
+        "            while True:\n"
+        "                for w in list(self._conns):\n"
+        "                    w.close()\n"
+        "                done, _ = await asyncio.wait([closed], timeout=0.05)\n"
+        "                if done:\n"
+        "                    break\n",
+    )],
+    "rpc/openapi.yaml": [(
+        "arms a jax device trace (guarded,",
+        "arms a torch.profiler trace (guarded,",
+    )],
 }
 
 
@@ -885,3 +959,80 @@ def test_preload_in_background_loads_all_three_native_libraries():
     paths = [pathlib.Path(line).resolve() for line in out.stdout.split()]
     assert [p.name.split(".")[0] for p in paths] == ["_tmbls", "_tmsecp", "_tmcrypto"]
     assert all(p.parent == PORT / "_kbuild" for p in paths), paths
+
+
+# function-level imports of the observability plane, the RPC and the light
+# proxy, in CATCHUP_LAZY's form
+SLICE22_LAZY = [
+    ("obs/health.py", 1029, "obs.report", "wall_conservation"),
+    ("rpc/core.py", 137, "obs.health", "VERDICT_NAMES"),
+    ("rpc/core.py", 173, "crypto.shape_registry", "default_shape_registry"),
+    ("rpc/core.py", 174, "obs.ledger", "default_ledger"),
+    ("rpc/core.py", 202, "obs.profiler", "ProfilerUnavailable"),
+    ("rpc/core.py", 412, "state.execution", "ABCIResponses"),
+    ("rpc/core.py", 770, "types.evidence", "decode_evidence"),
+    ("rpc/client.py", 194, "rpc.core", "RPCCore"),
+    ("rpc/light_provider.py", 241, "light.types", "LightBlock"),
+    ("light/proxy.py", 103, "rpc.light_provider", "header_from_json"),
+    ("light/proxy.py", 162, "rpc.server", "RPCServer"),
+]
+
+
+@pytest.mark.parametrize("rel", sorted({c[0] for c in SLICE22_LAZY}))
+def test_observability_and_rpc_lazy_imports_are_found_and_resolve(rel):
+    """The same for the health plane, the RPC and the light proxy."""
+    _check_lazy(rel, SLICE22_LAZY)
+
+
+_NO_JAX_SLICE22 = r"""
+import importlib, sys
+sys.modules["jax"] = None
+names = ["obs", "obs.cluster", "obs.health", "obs.profiler", "rpc", "rpc.server",
+         "rpc.core", "rpc.client", "rpc.light_provider", "light.proxy"]
+mods = {n: importlib.import_module("tendermint_tpu_torch." + n) for n in names}
+obs = mods["obs"]
+assert {"HealthMonitor", "ProfileCapture", "cluster_report", "report_text"} <= set(obs.__all__)
+cap = obs.ProfileCapture(sys.argv[1], device="cuda")
+assert cap.device == "cuda"
+import torch
+if not torch.cuda.is_available():
+    started = cap.start(device=True)
+    dt = started["device_trace"]
+    assert dt["enabled"] is False and "is_available" in dt["error"], dt
+    assert "torch" in sys.modules
+    cap.stop()
+leaked = sorted(m for m in sys.modules
+                if m == "tendermint_tpu" or m.startswith("tendermint_tpu."))
+assert not leaked, leaked
+print(len(mods))
+"""
+
+
+def test_observability_and_rpc_import_without_jax(tmp_path):
+    """The observability plane, the RPC and the light proxy import with
+    `import jax` made to fail and load nothing of the JAX package; a
+    capture asked for a CUDA trace where there is no CUDA reports the
+    trace off, with its reason."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_SLICE22, str(tmp_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "10"
+
+
+def test_profiler_is_a_torch_profiler_rewrite():
+    """obs/profiler.py is a rewrite: no line of it names JAX, its device
+    trace is torch.profiler's, and its stack sampler is the reference's
+    class byte for byte."""
+    src = (PORT / "obs" / "profiler.py").read_text()
+    ref = (REF / "obs" / "profiler.py").read_text()
+    assert "jax" not in src.lower() and "jax.profiler.start_trace" in ref
+    assert "torch.profiler" in src and "export_chrome_trace" in src
+
+    def sampler(text):
+        start = text.index("class _StackSampler")
+        return text[start:text.index("\n\n\n", start)]
+
+    assert sampler(src) == sampler(ref)
+    assert "class ProfilerUnavailable(RuntimeError):" in src

@@ -31,6 +31,21 @@ def mod(root: str, name: str):
     return importlib.import_module(f"{root}.{name}")
 
 
+@pytest.fixture(autouse=True)
+def tmjson_registries(monkeypatch):
+    """Each test sees both packages' tmjson type registries without the
+    "test/..." names other test modules of the process registered (the
+    reference's tests/test_libs_json_sync.py registers its own _Car under
+    "test/Car"), and leaves them as it found them: the registries are
+    process-wide, and a worker may run those modules in either order."""
+    for root in ("tendermint_tpu_torch", "tendermint_tpu"):
+        tmjson = mod(root, "libs.tmjson")
+        monkeypatch.setattr(tmjson, "_by_name", {
+            k: v for k, v in tmjson._by_name.items() if not k.startswith("test/")})
+        monkeypatch.setattr(tmjson, "_by_class", {
+            k: v for k, v in tmjson._by_class.items() if not v.startswith("test/")})
+
+
 # --- protoio (test_libs.py) ------------------------------------------------
 
 

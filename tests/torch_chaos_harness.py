@@ -15,10 +15,14 @@ genesis of ``tests/helpers.py`` likewise, with the same seeds.
 
 ``ChaosVerifyService`` kills and restarts the port's verify service on
 ``device`` (``tests/test_torch_verify_service.py`` on ``device="cpu"``).
-Left out until its module is ported: ``health_factory`` (it builds
-``obs/health.py``'s monitor). The reference's helpers for per-node
-tracers, weighted powers, stubbed verifiers, ring topologies and
-gossip-tick counts come with the callers that need them.
+``build_chaos_handles`` takes the reference's per-node tracers
+(``tracer_factory``), ping interval, weighted powers and live health plane
+(``health_factory``, ``obs/health.py``'s monitor on ``cs.health``), and
+``node_dump`` gives a node's ``dump_traces``-shaped record for
+``obs.cluster`` (``tests/test_torch_health.py``,
+``tests/test_torch_cluster_obs.py``). The reference's helpers for stubbed
+verifiers, ring topologies and gossip-tick counts come with the callers
+that need them.
 """
 
 from __future__ import annotations
@@ -61,6 +65,15 @@ def make_validators(n: int, power: int = 10, seed: bytes = b"val"):
     return vs, [by_addr[v.address] for v in vs.validators]
 
 
+def make_weighted_validators(powers, seed: bytes = b"val"):
+    """Like make_validators with per-validator voting powers; pvs[i] is
+    validator index i of the sorted set."""
+    pvs = [MockPV.from_secret(seed + b"%d" % i) for i in range(len(powers))]
+    vs = ValidatorSet([Validator(pv.get_pub_key(), p) for pv, p in zip(pvs, powers)])
+    by_addr = {pv.get_pub_key().address(): pv for pv in pvs}
+    return vs, [by_addr[v.address] for v in vs.validators]
+
+
 def make_genesis(vs, chain_id: str = CHAIN_ID) -> GenesisDoc:
     doc = GenesisDoc(
         chain_id=chain_id,
@@ -90,6 +103,21 @@ def make_node(vs, pv, genesis, l2=None, config=None, **kw):
         block_store, l2, priv_validator=pv, **kw,
     )
     return cs, app, l2, block_store, state_store
+
+
+def memoize_host_oracle(monkeypatch) -> None:
+    """For one test (`monkeypatch`), the port's ed25519 host oracle checks
+    each distinct (key, message, signature) once and reuses its verdict.
+    An in-proc mesh on device="cpu" checks every vote once a receiver and
+    every LastCommit once a node on that oracle (Python integers, ~4 ms a
+    signature), all behind one GIL: the work stretches the spread of vote
+    arrivals the health and cluster planes measure. The verdicts are the
+    oracle's."""
+    import functools
+
+    from tendermint_tpu_torch.crypto import ed25519
+
+    monkeypatch.setattr(ed25519, "verify", functools.lru_cache(maxsize=None)(ed25519.verify))
 
 
 def process_verifier(device: str = "cuda"):
@@ -151,7 +179,7 @@ class ChaosVerifyService:
 # --- the mesh ----------------------------------------------------------------
 
 
-def _wire_node(cs, nk):
+def _wire_node(cs, nk, ping_interval: float = 10.0):
     """Fresh transport + switch + consensus reactor for one node."""
     transport = None
     sw = None
@@ -165,24 +193,44 @@ def _wire_node(cs, nk):
         )
 
     transport = MultiplexTransport(nk, node_info)
-    sw = Switch(transport)
+    sw = Switch(transport, ping_interval=ping_interval)
     sw.add_reactor("consensus", ConsensusReactor(cs, vote_batch=True))
     return transport, sw
 
 
-def build_chaos_handles(n: int = 4, config=None, device: str = "cuda") -> list[NodeHandle]:
+def build_chaos_handles(
+    n: int = 4,
+    config=None,
+    device: str = "cuda",
+    tracer_factory=None,
+    ping_interval: float = 10.0,
+    powers=None,
+    health_factory=None,
+) -> list[NodeHandle]:
     """n validator NodeHandles (not yet listening/started), as the
     reference harness builds them, `config` the per-node ConsensusConfig.
     Every node verifies on the process verifier, which must be on `device`
-    (process_verifier)."""
+    (process_verifier). `tracer_factory(name) -> Tracer` gives each node
+    its own span ring (None: the process-wide tracer); a small
+    `ping_interval` makes the peers' clock-offset estimates converge in a
+    short run; `powers` gives validator i of the sorted set its voting
+    power; `health_factory(name, tracer) -> HealthMonitor` gives each node
+    a live health plane on `cs.health`, its incidents in that node's
+    tracer."""
     process_verifier(device)
-    vs, pvs = make_validators(n)
+    if powers is not None:
+        vs, pvs = make_weighted_validators(powers)
+    else:
+        vs, pvs = make_validators(n)
     genesis = make_genesis(vs)
     handles: list[NodeHandle] = []
     for i, pv in enumerate(pvs):
-        cs, app, l2, bs, ss = make_node(vs, pv, genesis, config=config)
+        tracer = tracer_factory(f"n{i}") if tracer_factory else None
+        health = health_factory(f"n{i}", tracer) if health_factory else None
+        cs, app, l2, bs, ss = make_node(vs, pv, genesis, config=config,
+                                        tracer=tracer, health=health)
         nk = NodeKey.generate()
-        transport, sw = _wire_node(cs, nk)
+        transport, sw = _wire_node(cs, nk, ping_interval=ping_interval)
         handles.append(
             NodeHandle(
                 name=f"n{i}",
@@ -213,7 +261,8 @@ def _make_restart(handles: list[NodeHandle]):
         """Rebuild p2p around the same consensus state (same privval and
         stores, fresh node key) and rejoin."""
         handle.node_key = NodeKey.generate()
-        handle.transport, handle.switch = _wire_node(handle.cs, handle.node_key)
+        handle.transport, handle.switch = _wire_node(
+            handle.cs, handle.node_key, ping_interval=handle.switch.ping_interval)
         net.install(handle)
         await handle.transport.listen()
         await handle.switch.start()
@@ -250,6 +299,20 @@ async def stop_mesh(handles: list[NodeHandle]) -> None:
             continue
         await h.cs.stop()
         await h.switch.stop()
+
+
+def node_dump(handle: NodeHandle) -> dict:
+    """A `dump_traces`-shaped dict for one in-proc node, the input of
+    obs.cluster; meaningful when the mesh was built with per-node tracers
+    (tracer_factory)."""
+    tracer = handle.cs.tracer
+    return {
+        "node_id": handle.node_key.id,
+        "moniker": handle.name,
+        "epoch_wall_ns": tracer.epoch_wall_ns,
+        "records": [r.to_json() for r in tracer.records()],
+        "peer_clock": handle.switch.peer_clock_table(),
+    }
 
 
 async def chain_hashes(handles: list[NodeHandle], height: int) -> set:
