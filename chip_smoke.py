@@ -152,7 +152,7 @@ Phases (any failure raises and the exit code is non-zero):
    ``NET_PEER_DEGREE`` (4), every gossiped vote pre-verified by the node's
    ``VoteBatcher`` through the scheduler; the native AEAD
    (``_tmcrypto.so``) must load first. Each runs to
-   ``NET_HEIGHTS`` (3) heights plus one. Checks: every node the same block (so
+   ``NET_HEIGHTS`` (1) heights plus one. Checks: every node the same block (so
    the same app hash) at every height, every stored LastCommit signature
    true by the host oracle, the ledger's consensus-class rounds (modes a
    and c: signature rounds from ``min_device_batch`` rows, at least one per
@@ -242,9 +242,10 @@ Phases (any failure raises and the exit code is non-zero):
    after, every verify round it caused held against the plain version
    (``check_recorded``). (a) ``SWARM_CLIENTS`` (1,000) ``LightClient``s sync
    from the trust root at height 1 to 128 through one ``LightServePlane``
-   over the source's stores (``tests/torch_lightserve_swarm.py``), its
-   ``ServeVerifier`` on a started ``VerifyScheduler``'s ``lightserve``
-   lane; then the swarm's divergent-witness scenario (a fork re-signed by
+   over the source's stores (the client loop and scenarios of
+   ``tendermint_tpu_torch.tools.lightserve_bench``, through
+   ``tests/torch_lightserve_swarm.py``), its ``ServeVerifier`` on a started
+   ``VerifyScheduler``'s ``lightserve`` lane; then the swarm's divergent-witness scenario (a fork re-signed by
    the 150 keys, the honest plane as witness: ``LightClientAttackEvidence``
    into the honest node's ``EvidencePool``) and forged-header scenario (the
    tampered witness removed). Checks: every client synced, hit rate > 0.9,
@@ -366,8 +367,31 @@ Phases (any failure raises and the exit code is non-zero):
    those under ``min_device_batch``); SIGINT: all five exit 0. The chain of
    phase 9 is built, and its syncing nodes start, with the app's InitChain
    through the ``Handshaker``, as a node's does, so the CLI's node syncs it.
-15. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+15. The harnesses (``harness_phase``): the port's ``tools/`` at their own
+   sizes. (a) ``verify_service_bench.run_family`` at 4, 32 and 100
+   validators (``HARNESS_SIZES``), 2 warm and 2 measured heights, up to 8
+   worker processes a size, the service's rounds capped at 16,384: one
+   ``python -m tendermint_tpu_torch verify-service --device cuda`` child a
+   size owns the card, and each worker's nodes submit per height n real
+   ed25519 vote rows and one n-signer BLS group through their own
+   ``RemoteVerifyScheduler``. Checks: every size without error, real
+   signatures, zero degrades; while it runs (``CardHolders``) nvidia-smi's
+   compute apps list the smoke and the service child and no worker, and
+   no worker holds a ``/dev/nvidia*`` file. Prints per size the wall a
+   height, requests per dispatch, the IPC round trip and the service
+   ledger's rounds by tier and bucket (the child's launches are not
+   counted). (b) ``qc_bench.run_qc_catchup`` at its defaults (4, 32, 100
+   validators, 8 blocks) on the native pairing and on the card's
+   (``TM_TPU_BLS_PAIRING_DEVICE=1``): ms a block of the baseline and the QC
+   window, flatness, growth, proof compression. (c) ``bench_replay``, 64
+   commits x 128 validators, ``--device cuda``, in this process: windowed
+   and per-block sigs/s. (d) ``soak --iters 1 --device cuda`` as a child,
+   seed ``SOAK_SEED``: ``ok`` and its heights. (b) and (c) count launches,
+   added to the kernels line and each row's ``harness_launches``; the tools
+   assert every verdict.
+
+Then the ``time:`` walls per phase, the ``kernels`` JSON line, the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero before printing any result. The full
 ptxas report is kept beside the build, in
@@ -471,9 +495,10 @@ WINDOW = 64
 
 # the in-process consensus net: the live size of the JAX package's
 # committee_scale sweep (bench.py, _run_committee_net), and the heights
-# each mode commits past the first
+# each mode commits past the first (1, cut from 3 so that phase 15's
+# harnesses fit the script's 1200-second limit on a slow host)
 NET_VALIDATORS = 32
-NET_HEIGHTS = 3
+NET_HEIGHTS = 1
 # mode (c)'s topology: past 8 nodes each node dials its next NET_PEER_DEGREE
 # ring successors (the JAX package's committee net: bench.py's degree rule,
 # tests/torch_chaos_harness.ring_peer_indices), about 2 x NET_PEER_DEGREE
@@ -3300,7 +3325,8 @@ def ledger_rounds(ledger) -> list:
 def serve_swarm(torch, ops, src, vkeys, n_clients: int, now_ns: int):
     """Part (a) of phase 10: n_clients LightClients sync src's chain from
     the trust root at height 1 to its last proven height through one
-    LightServePlane over the source node's stores (tests/
+    LightServePlane over the source node's stores (the port's
+    tools/lightserve_bench.py's client loop and scenarios, through tests/
     torch_lightserve_swarm.py's run_swarm), its ServeVerifier on a started
     VerifyScheduler's lightserve lane, that scheduler the process default;
     then the swarm's divergent-witness and forged-header scenarios. Launch
@@ -5418,6 +5444,294 @@ def testnet_phase(smi, device: str = "cuda"):
           f"height {TESTNET_HEIGHT} {out['height_s']:.2f} s after start | {smi}")
 
 
+# --- the harnesses: the port's tools/ at their own sizes ---------------------
+
+# committee sizes of the verify-service family and of the QC catch-up: the
+# tools' own defaults (run_family, run_qc_catchup), not cut
+HARNESS_SIZES = (4, 32, 100)
+HARNESS_HEIGHTS = 2  # measured heights a size of the verify-service family
+HARNESS_WARM = 2  # warm heights before them
+HARNESS_PROCS = 8  # worker processes at most a size
+# the service's round cap: the knee the reference harness names for a card
+# (its default, 2,048, stays the tool's)
+HARNESS_MAX_BATCH = 16384
+HARNESS_POLL_S = 1.0  # nvidia-smi and /proc polls while the family runs
+SOAK_SEED = 0  # the soak iteration's scenario seed
+SOAK_TIMEOUT_S = 240
+
+
+def compute_apps() -> list[tuple]:
+    """(pid, used memory) of each compute app nvidia-smi lists: a row for
+    each CUDA context on the card. In a PID namespace of its own the PIDs
+    are not this namespace's."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30,
+    ).stdout
+    rows = [[f.strip() for f in ln.split(",")] for ln in out.splitlines() if ln.strip()]
+    return [(int(r[0]), r[1]) for r in rows if len(r) == 2 and r[0].isdigit()]
+
+
+def opens_card(pid: int) -> bool:
+    """Whether process `pid` holds a /dev/nvidia* file open, as a process
+    with a CUDA context does."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+class CardHolders(threading.Thread):
+    """While the verify-service family runs: every HARNESS_POLL_S, the
+    compute apps nvidia-smi lists, and the bench's children alive (found by
+    the socket path run_size gives them, vsbench-<this pid>-<n>.sock: the
+    service child, `verify-service`, and the `--worker` processes), each
+    with whether it holds the card's device files. polls[n] for size n."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.polls: dict[int, list] = collections.defaultdict(list)
+        self.done = threading.Event()
+        self._sock = re.compile(rb"vsbench-%d-(\d+)\.sock" % os.getpid())
+
+    def children(self) -> dict:
+        found = {}
+        for d in os.listdir("/proc"):
+            if not d.isdigit():
+                continue
+            try:
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    args = f.read().split(b"\0")
+            except OSError:
+                continue
+            m = next((self._sock.search(a) for a in args if self._sock.search(a)), None)
+            role = "worker" if b"--worker" in args else "service" if b"verify-service" in args else None
+            if m and role:
+                found.setdefault(int(m.group(1)), []).append((role, int(d)))
+        return found
+
+    def run(self):
+        while not self.done.wait(HARNESS_POLL_S):
+            kids = self.children()
+            if not kids:
+                continue
+            apps = compute_apps()
+            for n, procs in kids.items():
+                self.polls[n].append({
+                    "apps": apps,
+                    "service": [p for r, p in procs if r == "service"],
+                    "workers": [p for r, p in procs if r == "worker"],
+                    "holding": [p for _, p in procs if opens_card(p)],
+                })
+
+
+def check_holders(n: int, polls: list) -> str:
+    """A size's holders: the service child held the card and no worker ever
+    did (by their device files), and nvidia-smi listed two contexts at most
+    and two at some poll, the smoke's and the service's: no worker's. It
+    counts rows, since in a PID namespace of its own nvidia-smi's PIDs are
+    not this namespace's. Returns the line's account."""
+    services = {p for q in polls for p in q["service"]}
+    workers = {p for q in polls for p in q["workers"]}
+    holding = {p for q in polls for p in q["holding"]}
+    counts = [len(q["apps"]) for q in polls]
+    assert services and workers, f"harnesses (a) n={n}: the bench's children were not seen"
+    assert not workers & holding, f"harnesses (a) n={n}: a worker holds the card {workers & holding}"
+    assert services & holding, f"harnesses (a) n={n}: the service child never held the card"
+    assert max(counts) == 2, (
+        f"harnesses (a) n={n}: nvidia-smi listed {sorted(set(counts))} contexts a poll, not the "
+        f"smoke's and the service's: {polls[counts.index(max(counts))]['apps']}")
+    both = polls[counts.index(2)]["apps"]
+    return (f"{len(polls)} polls: nvidia-smi listed 2 contexts at most, the smoke's and the "
+            f"service's, in {counts.count(2)} ({both}), never a worker's; {len(workers)} workers "
+            f"seen, none with /dev/nvidia* open, the service with them")
+
+
+def service_family(smi) -> list:
+    """Phase 15 (a): verify_service_bench.run_family at HARNESS_SIZES, one
+    `python -m tendermint_tpu_torch verify-service --device cuda` child a
+    size and up to HARNESS_PROCS worker processes submitting n ed25519 vote
+    rows and one n-signer BLS group a node and height, watched by
+    CardHolders. Every size: no error, real signatures, zero degrades, the
+    holders' checks. The service's launches are in its own process, which
+    serves no launch counts: its ledger's rounds stand for them."""
+    from tendermint_tpu_torch.crypto.batch_verifier import BIGTABLE_MIN
+    from tendermint_tpu_torch.tools import verify_service_bench as vsb
+
+    watch = CardHolders()
+    watch.start()
+    t0 = time.perf_counter()
+    try:
+        fam = vsb.run_family(sizes=HARNESS_SIZES, heights=HARNESS_HEIGHTS, warm=HARNESS_WARM,
+                             max_procs=HARNESS_PROCS, service_max_batch=HARNESS_MAX_BATCH,
+                             device="cuda")
+    finally:
+        watch.done.set()
+        watch.join()
+    wall = time.perf_counter() - t0
+    rows = fam["sizes"]
+    assert [r["n"] for r in rows] == list(HARNESS_SIZES), rows
+    for r in rows:
+        assert "error" not in r, f"harnesses (a) n={r['n']}: {r.get('error')}"
+        assert r["sig_verify"] == "real" and r["degrades"] == 0, r
+        holders = check_holders(r["n"], watch.polls[r["n"]])
+        led = r["service_ledger"]
+        tiers = {"small": {}, "big": {}}
+        for b, v in led["by_bucket"].items():
+            tiers["big" if int(b) >= BIGTABLE_MIN else "small"][b] = v["rounds"]
+        engines = {k: v["rounds"] for k, v in led["per_engine"].items()}
+        print(f"main path: harnesses (a) verify-service n={r['n']}: {r['processes']} worker "
+              f"processes, {HARNESS_WARM} warm + {HARNESS_HEIGHTS} measured heights of {r['n']} "
+              f"ed25519 rows and one {r['n']}-signer BLS group a node; wall "
+              f"{r['wall_ms_per_height']} ms a height, requests per dispatch "
+              f"{r['requests_per_dispatch']} (all rounds {r['requests_per_dispatch_all_rounds']}), "
+              f"IPC round trip {r['ipc_rtt_mean_ms']} ms (overhead {r['ipc_overhead_ms']} ms), "
+              f"remote submissions {r['remote_submissions']}, degrades {r['degrades']}, "
+              f"sig_verify {r['sig_verify']}, tenants {r['per_client_tenants']}, spawn to done "
+              f"{r['spawn_to_done_s']} s; the service's ledger: {led['rounds']} rounds "
+              f"{json.dumps(engines)}, {led['rows_requested']} rows, signature rounds by tier and "
+              f"bucket {json.dumps(tiers)} (those under min_device_batch on its host oracle; "
+              f"its launches are in the child, not counted), device "
+              f"{led['device_seconds'] * 1e3:.2f} ms, prep {led['host_prep_seconds'] * 1e3:.2f} "
+              f"ms; {holders} | {smi}")
+    print(f"time: harnesses (a): the family {wall:.1f} s, headline {fam['metric']} "
+          f"{fam['value']} ms | {smi}")
+    return wall
+
+
+def qc_catchup(torch, ops, smi) -> tuple:
+    """Phase 15 (b): qc_bench.run_qc_catchup at its defaults (committees of
+    4, 32 and 100, 8 blocks of genuine ed25519 precommits and BLS
+    dual-signs) through one VerifyScheduler over the process verifier, on
+    the native pairing and then the card's (BLS_GATE=1); the tool asserts
+    every verdict. Launch counts zeroed before each route, read after."""
+    from tendermint_tpu_torch.tools import qc_bench
+
+    launches, walls = {}, {}
+    gate = os.environ.pop(BLS_GATE, None)
+    try:
+        for route in ("native", "device"):
+            if route == "device":
+                os.environ[BLS_GATE] = "1"
+            t0 = time.perf_counter()
+            ops.reset_launches()
+            res = qc_bench.run_qc_catchup(device="cuda")
+            torch.cuda.synchronize()
+            got = ops.kernel_launches()
+            walls[route] = time.perf_counter() - t0
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            # the committees' tables are built on the first route and kept
+            for name in ("verify_prehashed_table", "verify_prehashed_bigcache") + (
+                    ("neg_pubkey_table", "neg_pubkey_bigtable") if route == "native" else ()):
+                assert got[name] > 0, f"harnesses (b) {route}: {name} was not launched"
+            if route == "device":
+                assert got["miller"] > 0 and got["final_exp"] > 0, got
+            else:
+                assert got["miller"] == got["final_exp"] == 0, got
+            per = {r["validators"]: (r["baseline_wall_per_block_ms"], r["qc_wall_per_block_ms"],
+                                     r["proof_compression"], r["qc_rounds"]) for r in res["rows"]}
+            print(f"main path: harnesses (b) QC catch-up, {route} pairing: ms a block "
+                  f"(baseline verify_commits_light, QC verify_commits_qc), proof compression, QC "
+                  f"rounds by committee {json.dumps(per)}; QC flatness {res['qc_flatness']}, "
+                  f"baseline growth {res['baseline_growth']}, compression at "
+                  f"{max(HARNESS_SIZES)} {res['proof_compression_at_max']}; every verdict true; "
+                  f"launches {json.dumps({k: v for k, v in got.items() if v})}; "
+                  f"{walls[route]:.1f} s | {smi}")
+    finally:
+        os.environ.pop(BLS_GATE, None)
+        if gate is not None:
+            os.environ[BLS_GATE] = gate
+    return launches, walls
+
+
+def replay_window(torch, ops, smi) -> tuple:
+    """Phase 15 (c): tools/bench_replay.py at its defaults, 64 commits x
+    128 validators through verify_commits_light in one window and then
+    block by block, `--device cuda`, in this process (its command line
+    handed in; the tool asserts every verdict). Launch counts zeroed
+    before, read after."""
+    import contextlib
+    import importlib
+    import io
+
+    argv = sys.argv
+    sys.argv = ["bench_replay", "--device", "cuda"]
+    try:
+        sys.modules.pop("tendermint_tpu_torch.tools.bench_replay", None)
+        tool = importlib.import_module("tendermint_tpu_torch.tools.bench_replay")
+    finally:
+        sys.argv = argv
+    assert (tool.BLOCKS, tool.VALS, tool.DEVICE) == (64, 128, "cuda")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with contextlib.redirect_stdout(out):
+        tool.main()
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    wall = time.perf_counter() - t0
+    for name in ("neg_pubkey_bigtable", "verify_prehashed_bigcache", "verify_prehashed_table"):
+        assert launches[name] > 0, f"harnesses (c): {name} was not launched"
+    lines = [ln for ln in out.getvalue().splitlines() if not ln.startswith("#")]
+    assert len(lines) == 3 and "for 8192 sigs" in lines[0], lines
+    print(f"main path: harnesses (c) bench_replay {tool.BLOCKS} x {tool.VALS}: "
+          f"{' | '.join(lines)}; every verdict true; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; {wall:.1f} s | {smi}")
+    return launches, wall
+
+
+def soak_child(smi) -> float:
+    """Phase 15 (d): `python -m tendermint_tpu_torch.tools.soak --iters 1
+    --seed SOAK_SEED --device cuda` as a child: the seeded random chaos
+    scenario on a 4-validator in-proc mesh, every node on the child's
+    process verifier on the card. Exit 0 and `ok`; its launches are in the
+    child, not counted."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tendermint_tpu_torch.tools.soak", "--iters", "1",
+         "--seed", str(SOAK_SEED), "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=SOAK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, f"harnesses (d): soak exit {out.returncode}: {out.stderr[-3000:]}"
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert doc["ok"] is True and doc["iterations"] == 1, doc
+    res = doc["results"][0]
+    assert res["ok"] and res["forks"] == 1, res
+    att = res["latency_attribution"]["steps"]
+    print(f"main path: harnesses (d) soak, seed {res['seed']}, 4 validators: ok, heights "
+          f"{json.dumps(res['heights'])}, forks {res['forks']}, health "
+          f"{json.dumps(res['health'])}; cs.commit p50 {att.get('cs.commit', {}).get('p50_ms')} "
+          f"ms; the child's wall {wall:.1f} s (its torch import and kernel load included; its "
+          f"launches are in the child, not counted) | {smi}")
+    return wall
+
+
+def harness_phase(torch, ops, smi) -> dict:
+    """Phase 15: the port's harnesses at their own sizes (a-d). Returns the
+    in-process launches per kernel ((b) and (c); (a) and (d) run in
+    children)."""
+    t0 = time.perf_counter()
+    wall_a = service_family(smi)
+    qc_launches, qc_walls = qc_catchup(torch, ops, smi)
+    replay_launches, wall_c = replay_window(torch, ops, smi)
+    wall_d = soak_child(smi)
+    launches = {k: qc_launches.get(k, 0) + replay_launches.get(k, 0)
+                for k in set(qc_launches) | set(replay_launches)}
+    print(f"time: harnesses: (a) {wall_a:.1f} s, (b) native {qc_walls['native']:.1f} s, device "
+          f"{qc_walls['device']:.1f} s, (c) {wall_c:.1f} s, (d) {wall_d:.1f} s; phase 15 "
+          f"{time.perf_counter() - t0:.1f} s | {smi}")
+    return launches
+
+
+
 # --- the multi-device path: a mesh of shards ---------------------------------
 
 # shards of the mesh phase: the JAX tests' mesh size (tests/conftest.py)
@@ -6504,7 +6818,18 @@ def main() -> int:
 
     lap("14 assembled node")
 
-    # --- 15. result lines ---------------------------------------------------
+    # --- 15. the harnesses: the port's tools at their own sizes -------------
+    harness_launches = harness_phase(torch, ops, smi)
+    for row in rows:
+        row["harness_launches"] = harness_launches.get(row["name"], 0)
+        row["launches"] += row["harness_launches"]
+    print(f"main path: harnesses launches per kernel, (b) and (c) in this process "
+          f"{json.dumps({k: v for k, v in harness_launches.items() if v})} (added to the kernels "
+          f"line's launches, and each row's harness_launches) | {smi}")
+
+    lap("15 harnesses")
+
+    # --- result lines -------------------------------------------------------
     kernels_line = json.dumps({"kernels": rows})
     last = json.dumps({
         "ok": True,

@@ -48,6 +48,7 @@ from .test_torch_consensus import (  # noqa: F401 (cpu_verifier: autouse)
     make_node,
     make_validators,
 )
+from .torch_chaos_harness import sign_commit
 
 NETWORK = "bsync-chain"
 
@@ -60,7 +61,6 @@ def ns_extra(root: str) -> SimpleNamespace:
     return SimpleNamespace(
         root=root,
         BlocksyncReactor=m("blocksync.reactor").BlocksyncReactor,
-        VoteSet=m("types.vote_set").VoteSet,
         NodeKey=m("p2p.key").NodeKey,
         NodeInfo=m("p2p.node_info").NodeInfo,
         Switch=m("p2p.switch").Switch,
@@ -100,18 +100,6 @@ def ref_host_verifier(monkeypatch):
 # --- chains, stores and switches ------------------------------------------------
 
 
-def sign_commit(ns, vs, pvs, height, block_id, time_ns=T0):
-    """All validators precommit block_id at round 0; returns the Commit."""
-    votes = EXTRA[ns.root].VoteSet(CHAIN_ID, height, 0, ns.VoteType.PRECOMMIT, vs)
-    for i, pv in enumerate(pvs):
-        v = ns.Vote(type=ns.VoteType.PRECOMMIT, height=height, round=0,
-                    block_id=block_id, timestamp_ns=time_ns + i,
-                    validator_address=pv.get_pub_key().address(), validator_index=i)
-        pv.sign_vote(CHAIN_ID, v)
-        votes.add_vote(v, verified=True)
-    return votes.make_commit()
-
-
 def build_chain(ns, n_vals: int, heights: int, seed: bytes = b"bsync", txs: int = 3):
     """A chain of `heights` blocks of package `ns` on a fixed clock: each
     height a proposal block through the BlockExecutor with `txs` kvstore
@@ -138,7 +126,7 @@ def build_chain(ns, n_vals: int, heights: int, seed: bytes = b"bsync", txs: int 
                 l2.request_block_data(h), t)
             parts = block.make_part_set()
             bid = ns.BlockID(block.hash(), parts.header)
-            commit = sign_commit(ns, state.validators, pvs, h, bid, time_ns=t + 1)
+            commit = sign_commit(state.validators, pvs, h, 0, bid, time_ns=t + 1)
             bs.save_block(block, parts, commit)
             state = await executor.apply_block(state, bid, block)
             last_commit = commit
@@ -333,7 +321,7 @@ def test_verify_commits_light_batches_many_heights():
     entries = []
     for h in range(1, 9):
         bid = PORT.BlockID(bytes([h]) * 32, PORT.PartSetHeader(1, bytes([h]) * 32))
-        entries.append((bid, h, sign_commit(PORT, vs, pvs, h, bid)))
+        entries.append((bid, h, sign_commit(vs, pvs, h, 0, bid)))
     bad = entries[4][2]
     for i in range(3):
         bad.signatures[i].signature = b"\x00" * 64

@@ -349,16 +349,10 @@ def _exec_chain(en, n_vals: int, heights: int):
 
 
 def _forked(en, cache, vs, pvs, fork_at, tip):
-    """Each package's own fork builder: the port's swarm twin, the JAX
-    package's tools/lightserve_bench.py."""
-    if en.root == PORT.root:
-        from .torch_lightserve_swarm import forked_light_chain, served_chain
-
-        return forked_light_chain(cache, served_chain(None, None, vs, pvs, CHAIN_ID),
-                                  fork_at, tip)
-    from tools.lightserve_bench import forked_light_chain
-
-    return forked_light_chain(cache, vs, pvs, fork_at, tip)
+    """Each package's own fork builder: its tools/lightserve_bench.py."""
+    tool = "tendermint_tpu_torch.tools" if en.root == PORT.root else "tools"
+    bench = importlib.import_module(tool + ".lightserve_bench")
+    return bench.forked_light_chain(cache, vs, pvs, fork_at, tip)
 
 
 def _flip(en, ev, indices):
@@ -377,7 +371,7 @@ def _pool_run(en):
     """The pool's judgement of one seeded equivocation and one seeded
     light-client attack on package `en`'s 4-validator chain of 8 blocks:
     verdicts, evidence bytes and hashes, pending lists (encoded)."""
-    from .torch_lightserve_swarm import BlocksProvider
+    from tendermint_tpu_torch.tools._inproc import MockProvider
 
     bs, ss, vs, pvs = _exec_chain(en, 4, 8)
     target = bs.height - 1
@@ -407,7 +401,7 @@ def _pool_run(en):
     forked = _forked(en, plane.cache, vs, pvs, max(2, target - 2), target)
     c = en.LightClient(
         CHAIN_ID, en.TrustOptions(3600 * 10**9, 1, plane.cache.get(1).header.hash()),
-        BlocksProvider(list(forked.values()), name="byzantine-primary"),
+        MockProvider(list(forked.values()), name="byzantine-primary"),
         [plane.provider("honest-witness")], en.LightStore(en.net.MemKV()),
         now_ns=lambda: now,
     )

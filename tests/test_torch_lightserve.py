@@ -5,8 +5,8 @@ the ``ServeVerifier``'s hop dedup, shared failure verdicts and per-client
 time checks; a sequential client refusing non-adjacent blocks; a
 server-assisted swarm; the scheduler's ``lightserve`` lane; the trusted
 store's prune safety; and the 1,000-client swarm of
-``tools/lightserve_bench.py`` through the port's twin,
-``tests/torch_lightserve_swarm.py``, at the reference's size (4
+``tools/lightserve_bench.py`` through the port's copy,
+``tendermint_tpu_torch.tools.lightserve_bench``, at the reference's size (4
 validators, 6 heights) with its asserts. Each contract runs one body on
 both packages' roots (the JAX package's as the yardstick). Beside them:
 
@@ -22,9 +22,8 @@ The port verifies on its process verifier on ``device="cpu"``
 ``min_device_batch`` no round reaches (``ref_host_verifier``). Six tests
 of the reference file that need ``rpc.*`` hold in ``test_torch_rpc.py``;
 the ``light_block`` route over a live port ``Node`` and the prewarm
-families (the port's ``tools.prewarm``) hold here; the swarm test drives
-the reference's ``tools/lightserve_bench.py``, whose port waits (ROADMAP.md,
-item A6). Tolerance: exact (verdicts, stats, hashes).
+families (the port's ``tools.prewarm``) hold here. Tolerance: exact
+(verdicts, stats, hashes).
 """
 
 from __future__ import annotations
@@ -359,15 +358,15 @@ def test_light_store_prune_mid_bisection_keeps_anchor(sn):
 
 def test_swarm_1000_clients_shared_rounds_and_attack_evidence():
     """1,000 simulated light clients sync a 4-validator net of the port
-    through its serving plane (tests/torch_lightserve_swarm.py): cache hit
+    through its serving plane (the port's tools/lightserve_bench.py): cache hit
     rate > 0.9, device dispatches sublinear in the client count, the
     divergent-witness scenario lands LightClientAttackEvidence in the
     port's evidence pool, the forged-header witness removed."""
     from tendermint_tpu_torch.types.evidence import LightClientAttackEvidence, decode_evidence
 
-    from .torch_lightserve_swarm import run_swarm
+    from tendermint_tpu_torch.tools.lightserve_bench import run_swarm
 
-    stats = run_swarm(n_clients=1000, heights=6, n_vals=4)
+    stats = run_swarm(n_clients=1000, heights=6, n_vals=4, device="cpu")
     assert stats["synced"] == stats["n_clients"] == 1000
     assert stats["cache"]["hit_rate"] > 0.9
     assert stats["verify"]["executed"] <= 8

@@ -1034,7 +1034,7 @@ def test_blocksync_window_through_a_port_service_matches_reference(
 
     from tendermint_tpu.parallel import scheduler as ref_sched
 
-    from .test_torch_blocksync import sign_commit
+    from .torch_chaos_harness import sign_commit
     from .test_torch_consensus import CHAIN_ID, PORT, REF, make_validators
 
     monkeypatch.setattr(ref_sched, "_default_scheduler", None)
@@ -1045,7 +1045,7 @@ def test_blocksync_window_through_a_port_service_matches_reference(
         entries = []
         for h in range(1, 40):
             bid = ns.BlockID(bytes([h]) * 32, ns.PartSetHeader(1, bytes([h]) * 32))
-            entries.append((bid, h, sign_commit(ns, vs, pvs, h, bid)))
+            entries.append((bid, h, sign_commit(vs, pvs, h, 0, bid)))
         for i in range(6):  # 60 of 160: what is left is under 2/3
             entries[19][2].signatures[i].signature = b"\x00" * 64
         window[ns.root] = (vs, entries)

@@ -11,10 +11,14 @@ privval, app, L2 and stores), around fresh transport/switch. ``tests/test_torch_
 runs it on ``device="cpu"``; ``chip_smoke.py``'s phase 10 on the card.
 
 It imports nothing of the JAX package, so the smoke can load it where JAX
-is absent. Its node builder is therefore ``make_node`` of
-``tests/test_torch_consensus.py`` written out over the port alone (that
-module builds both packages' namespaces when imported); the validators and
-genesis of ``tests/helpers.py`` likewise, with the same seeds.
+is absent. Its validators, genesis and node builder are therefore those of
+``tendermint_tpu_torch/tools/_inproc.py`` (the builders of
+``tests/helpers.py`` and ``tests/test_consensus.py`` over the port alone,
+with the same seeds), which the port's ``lightserve_bench`` builds its net
+with too. ``sign_commit`` is ``tests/helpers.py``'s (without QC
+dual-signs) over the package of the set it is given; the port's
+``bench_replay`` tool signs its window with it, and ``soak`` reads a
+node's ledger through ``node_ledger``.
 
 ``ChaosVerifyService`` kills and restarts the port's verify service on
 ``device`` (``tests/test_torch_verify_service.py`` on ``device="cpu"``).
@@ -31,42 +35,34 @@ that need them.
 from __future__ import annotations
 
 import asyncio
+import importlib
 
 from tendermint_tpu_torch.abci.client import LocalClient
-from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
 from tendermint_tpu_torch.chaos import NodeHandle
 from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
 from tendermint_tpu_torch.consensus.replay import Handshaker
 from tendermint_tpu_torch.consensus.state_machine import ConsensusConfig, ConsensusState
-from tendermint_tpu_torch.l2node.mock import MockL2Node
 from tendermint_tpu_torch.p2p.key import NodeKey
 from tendermint_tpu_torch.p2p.node_info import NodeInfo
 from tendermint_tpu_torch.p2p.switch import Switch
 from tendermint_tpu_torch.p2p.transport import MultiplexTransport, NetAddress
 from tendermint_tpu_torch.state.execution import BlockExecutor
 from tendermint_tpu_torch.state.state import State
-from tendermint_tpu_torch.state.store import StateStore
-from tendermint_tpu_torch.store.block_store import BlockStore
-from tendermint_tpu_torch.store.kv import MemKV
-from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+from tendermint_tpu_torch.tools._inproc import (  # noqa: F401 (re-exported)
+    CHAIN_ID,
+    T0,
+    make_genesis,
+    make_node,
+    make_validators,
+)
 from tendermint_tpu_torch.types.priv_validator import MockPV
 from tendermint_tpu_torch.types.validator import Validator
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
 NETWORK = "chaos-chain"
-CHAIN_ID = "test-chain"  # tests/helpers.py's
-T0 = 1_700_000_000_000_000_000
 
 
 # --- builders (tests/helpers.py and test_torch_consensus.make_node) --------
-
-
-def make_validators(n: int, power: int = 10, seed: bytes = b"val"):
-    """(ValidatorSet, [MockPV]) with privvals ordered to match the set."""
-    pvs = [MockPV.from_secret(seed + b"%d" % i) for i in range(n)]
-    vs = ValidatorSet([Validator(pv.get_pub_key(), power) for pv in pvs])
-    by_addr = {pv.get_pub_key().address(): pv for pv in pvs}
-    return vs, [by_addr[v.address] for v in vs.validators]
 
 
 def make_weighted_validators(powers, seed: bytes = b"val"):
@@ -78,35 +74,22 @@ def make_weighted_validators(powers, seed: bytes = b"val"):
     return vs, [by_addr[v.address] for v in vs.validators]
 
 
-def make_genesis(vs, chain_id: str = CHAIN_ID) -> GenesisDoc:
-    doc = GenesisDoc(
-        chain_id=chain_id,
-        genesis_time_ns=T0,
-        validators=[
-            GenesisValidator("ed25519", v.pub_key.data, v.voting_power,
-                             bls_pub_key=v.bls_pub_key)
-            for v in vs.validators
-        ],
-    )
-    doc.validate_and_complete()
-    return doc
-
-
-def make_node(vs, pv, genesis, l2=None, config=None, **kw):
-    """(cs, app, l2, block_store, state_store): KVStoreApplication through
-    LocalClient, MemKV stores, MockL2Node; `kw` goes to ConsensusState."""
-    l2 = l2 or MockL2Node()
-    app = KVStoreApplication()
-    state = State.from_genesis(genesis)
-    state_store = StateStore(MemKV())
-    state_store.bootstrap(state)
-    block_store = BlockStore(MemKV())
-    executor = BlockExecutor(state_store, block_store, LocalClient(app), l2)
-    cs = ConsensusState(
-        config or ConsensusConfig.test_config(), state, executor,
-        block_store, l2, priv_validator=pv, **kw,
-    )
-    return cs, app, l2, block_store, state_store
+def sign_commit(vs, pvs, height: int, round_: int, block_id, chain_id: str = CHAIN_ID,
+                time_ns: int = T0):
+    """All validators precommit block_id (tests/helpers.py's, without the
+    QC dual-signs); returns the Commit. The vote classes are those of
+    `vs`'s package, so a set of either package signs its own commit."""
+    root = type(vs).__module__.split(".")[0]
+    vote = importlib.import_module(root + ".types.vote")
+    votes = importlib.import_module(root + ".types.vote_set").VoteSet(
+        chain_id, height, round_, vote.VoteType.PRECOMMIT, vs)
+    for i, pv in enumerate(pvs):
+        v = vote.Vote(type=vote.VoteType.PRECOMMIT, height=height, round=round_,
+                      block_id=block_id, timestamp_ns=time_ns + i,
+                      validator_address=pv.get_pub_key().address(), validator_index=i)
+        pv.sign_vote(chain_id, v)
+        votes.add_vote(v, verified=True)
+    return votes.make_commit()
 
 
 async def rebuild_node(pv, genesis, app, l2, block_store, state_store,
@@ -338,6 +321,21 @@ def node_dump(handle: NodeHandle) -> dict:
         "records": [r.to_json() for r in tracer.records()],
         "peer_clock": handle.switch.peer_clock_table(),
     }
+
+
+def node_ledger(handle: NodeHandle):
+    """The DispatchLedger behind a handle's verify path, if any: a
+    scheduler-backed verifier (classed adapter or the scheduler itself)
+    or an explicitly attached `cs.dispatch_ledger`."""
+    cs = handle.cs
+    led = getattr(cs, "dispatch_ledger", None)
+    if led is not None:
+        return led
+    verifier = getattr(cs, "verifier", None)
+    sched = getattr(verifier, "_sched", None)  # _ClassedVerifier
+    if sched is None:
+        sched = getattr(cs, "verify_scheduler", None)
+    return getattr(sched, "ledger", None)
 
 
 async def chain_hashes(handles: list[NodeHandle], height: int) -> set:
