@@ -363,8 +363,21 @@ Phases (any failure raises and the exit code is non-zero):
    ``verify-service --device cuda`` child and four ``start --device cuda``
    children on the card, every ``[scheduler] remote_socket`` the
    service's: all reach height 3 with equal height-2 block hashes, no child
-   builds the kernels, the service's rounds merged across its tenants (and
-   those under ``min_device_batch``); SIGINT: all five exit 0. The chain of
+   builds the kernels. Then a validator crashes: ``node3``'s child is
+   SIGKILLed (no flush; its CUDA context and its connection to the service
+   torn down mid-stream), the 3 survivors (3 of 4 power) commit 2 more
+   heights through the service, and ``node3`` restarts by the same ``start
+   --device cuda`` on the same home and ``remote_socket`` until it stands at
+   the survivors' height + 1. Checks: the service child never exits;
+   nvidia-smi's compute apps one fewer after the kill and back after the
+   restart (counted, not by PID); the service's ``per_client`` table marks
+   the killed connection ``closed`` and holds a new row for the restart;
+   the restart's ``cuda kernels`` line says reused (no rebuild after a
+   crash); one block hash across the 4 at their lowest common height.
+   Prints the walls kill -> survivors at +2, the restart's boot (torch's
+   import, the kernels' load) and restart -> caught up, and the service's
+   rounds merged across its tenants (and those under
+   ``min_device_batch``); SIGINT: all five exit 0. The chain of
    phase 9 is built, and its syncing nodes start, with the app's InitChain
    through the ``Handshaker``, as a node's does, so the CLI's node syncs it.
 15. The harnesses (``harness_phase``): the port's ``tools/`` at their own
@@ -5333,9 +5346,21 @@ def testnet_phase(smi, device: str = "cuda"):
     `verify-service --device cuda` child (its stats port for the ledger);
     four `start --device cuda` children share the card. All reach
     TESTNET_HEIGHT with equal block hashes at height 2, no child built the
-    kernels (each log's `cuda kernels` line: reused), then SIGINT: every
-    child exits 0."""
+    kernels (each log's `cuda kernels` line: reused). Then the crash:
+    node3's child dies by SIGKILL (its CUDA context and its service
+    connection torn down mid-stream), the 3 survivors, 3 of 4 power, commit
+    2 more heights through the service, and node3 restarts by the same
+    command on the same home and socket (its log's `cuda kernels` line:
+    reused) until it stands at the survivors' height + 1. Checks: the
+    service child never exits; nvidia-smi's compute apps one fewer after
+    the kill and as many as before after the restart (counted, since its
+    PIDs are not this namespace's); the service's per_client table marks
+    the killed connection closed and holds a new one for the restart; one
+    block hash across the 4 at their lowest common height. Then SIGINT:
+    every child exits 0. Returns nothing; prints the recovery walls (kill
+    to the survivors at +2, the restart's boot, restart to caught up)."""
     import shutil
+    import signal
     import tempfile
 
     from tendermint_tpu_torch.__main__ import main as cli_main
@@ -5343,10 +5368,75 @@ def testnet_phase(smi, device: str = "cuda"):
     from tendermint_tpu_torch.p2p.key import NodeKey
 
     n = TESTNET_VALIDATORS
+    victim = n - 1
     tmp = tempfile.mkdtemp(prefix="smk")
     base = os.path.join(tmp, "net")
     sock = os.path.join(tmp, "vs.sock")
     out = {}
+
+    async def height(port: int) -> int:
+        return int((await rpc_call(port, "status"))["sync_info"]["latest_block_height"])
+
+    def service_up(svc, what: str) -> None:
+        assert svc.poll() is None, f"testnet: the service exited rc={svc.poll()} ({what})"
+
+    async def apps_until(count: int, what: str) -> float:
+        """Polls nvidia-smi's compute apps until it lists `count`; the
+        seconds that took."""
+        t0 = time.perf_counter()
+        seen = None
+        while time.perf_counter() - t0 < NODE_WAIT_S:
+            seen = len(compute_apps())
+            if seen == count:
+                return time.perf_counter() - t0
+            await asyncio.sleep(0.1)
+        raise AssertionError(f"testnet: nvidia-smi lists {seen} compute apps {what}, not {count}")
+
+    async def crash_restart(procs, homes, rpc, stats, env) -> None:
+        """SIGKILL node `victim`, the survivors at +2, the restart caught
+        up; out[...] gets the walls and the tables the checks read."""
+        svc, survivors = procs[0], range(victim)
+        before = json.loads(await http_get(stats, "/dump_dispatch_ledger"))["per_client"]
+        apps0 = len(compute_apps()) if device == "cuda" else None
+        t_kill = time.perf_counter()
+        os.kill(procs[1 + victim].pid, signal.SIGKILL)
+        out["killed_rc"] = await wait_exit(procs[1 + victim], NODE_STOP_S)
+        target = max([await height(rpc[i]) for i in survivors]) + 2
+        for i in survivors:
+            await rpc_until(rpc[i], lambda s: int(
+                s["sync_info"]["latest_block_height"]) >= target,
+                f"survivor node{i} height {target}", procs[1 + i])
+            service_up(svc, "after the kill")
+        out["survive_ms"] = (time.perf_counter() - t_kill) * 1e3
+        out["target"] = target
+        if device == "cuda":
+            await apps_until(apps0 - 1, "after the kill")
+        out["closed_mid"] = json.loads(
+            await http_get(stats, "/dump_dispatch_ledger"))["per_client"]
+        # the restart: the same command, home and socket; its imports timed
+        renv = dict(env, PYTHONPROFILEIMPORTTIME="1")
+        t_restart = time.perf_counter()
+        proc = procs[1 + victim] = spawn_cli(
+            ["--home", homes[victim], "start"],
+            os.path.join(tmp, f"node{victim}-restart.log"), device, env=renv)
+        await rpc_until(rpc[victim], lambda s: True, "the restart's RPC", proc)
+        out["restart_boot_s"] = time.perf_counter() - t_restart
+        catchup = max([await height(rpc[i]) for i in survivors]) + 1
+        await rpc_until(rpc[victim], lambda s: int(
+            s["sync_info"]["latest_block_height"]) >= catchup,
+            f"restarted node{victim} height {catchup}", proc)
+        out["caught_up_ms"] = (time.perf_counter() - t_restart) * 1e3
+        out["catchup"] = catchup
+        service_up(svc, "after the restart")
+        if device == "cuda":
+            await apps_until(apps0, "after the restart")
+        out["apps"] = apps0
+        h = min([await height(p) for p in rpc])
+        out["common"] = (h, {(await rpc_call(p, "block", height=h))["block_id"]["hash"]
+                             for p in rpc})
+        out["per_client"] = (before, json.loads(
+            await http_get(stats, "/dump_dispatch_ledger"))["per_client"])
+        service_up(svc, "at the end")
 
     async def drive():
         procs = []
@@ -5391,6 +5481,9 @@ def testnet_phase(smi, device: str = "cuda"):
                 blk = await rpc_call(rpc[i], "block", height=2)
                 hashes.add(blk["block_id"]["hash"])
             out["hashes"] = hashes
+            t1 = time.perf_counter()
+            await crash_restart(procs, homes, rpc, stats, env)
+            out["crash_s"] = time.perf_counter() - t1
             out["ledger"] = json.loads(await http_get(stats, "/dump_dispatch_ledger"))
             t1 = time.perf_counter()
             out["rcs"] = await sigint_all(procs)
@@ -5402,29 +5495,45 @@ def testnet_phase(smi, device: str = "cuda"):
                     p.wait()
 
     logs = {}
+    names = ["service"] + [f"node{i}" for i in range(n)] + [f"node{victim}-restart"]
     try:
         try:
             asyncio.run(drive())
         finally:
-            for name in ["service"] + [f"node{i}" for i in range(n)]:
+            for name in names:
                 path = os.path.join(tmp, f"{name}.log")
                 if os.path.exists(path):
                     with open(path, errors="replace") as f:
                         logs[name] = f.read()
     except BaseException:
         for name, text in logs.items():
+            text = "\n".join(ln for ln in text.splitlines() if not ln.startswith("import time:"))
             print(f"testnet: {name}'s log's tail\n{text[-2000:]}", file=sys.stderr)
         raise
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     assert len(out["hashes"]) == 1, f"testnet: height 2 differs {out['hashes']}"
+    assert out["killed_rc"] == -signal.SIGKILL, f"testnet: node{victim} rc {out['killed_rc']}"
+    h_common, common = out["common"]
+    assert len(common) == 1, f"testnet: height {h_common} differs after the restart {common}"
+    before, after = out["per_client"]
+    closed = sorted(k for k in before if out["closed_mid"].get(k, {}).get("closed"))
+    fresh = sorted(k for k in after if k not in before and k != "_closed")
+    assert len(closed) == 1, f"testnet: closed rows after the kill {closed}: {out['closed_mid']}"
+    assert after[closed[0]].get("closed") and after[closed[0]]["submissions"] > 0, after
+    assert [k for k in fresh if not after[k].get("closed") and after[k]["submissions"]], (
+        f"testnet: no live row of the restart's connection: {after}")
     assert out["rcs"] == [0] * (n + 1), (out["rcs"], {k: v[-1500:] for k, v in logs.items()})
     builds = {}
-    for i in range(n):
-        m = re.search(r"cuda kernels (.*)", logs[f"node{i}"])
+    for name in names[1:]:
+        m = re.search(r"cuda kernels (.*)", logs[name])
         assert device != "cuda" or (m and "reused=True" in m.group(1)), (
-            f"testnet: node{i} did not load a finished build: {m and m.group(1)}")
-        builds[f"node{i}"] = m.group(1) if m else None
+            f"testnet: {name} did not load a finished build: {m and m.group(1)}")
+        builds[name] = m.group(1) if m else None
+    restart_log = logs[f"node{victim}-restart"]
+    torch_us = [int(m.group(1)) for m in re.finditer(
+        r"import time:\s+\d+ \|\s+(\d+) \|\s+torch$", restart_log, re.M)]
+    load = re.search(r"seconds=([0-9.]+)", builds[f"node{victim}-restart"] or "")
     led = out["ledger"]
     entries = led.get("entries", [])
     sig = [e for e in entries if e["engine"] == "sig"]
@@ -5434,14 +5543,26 @@ def testnet_phase(smi, device: str = "cuda"):
           f"--device {device}` child and {n} `start --device {device}` children on one card, "
           f"every [scheduler] remote_socket the service's; all reached height {TESTNET_HEIGHT}, "
           f"height 2's block hash equal on all ({out['hashes'].pop()[:16]}...); no node built the "
-          f"kernels: {json.dumps(builds)}; the service's ledger, merged across "
+          f"kernels: {json.dumps(builds)}; the crash: node{victim} SIGKILLed (rc "
+          f"{out['killed_rc']}), the 3 survivors at height {out['target']} through the service, "
+          f"nvidia-smi's compute apps {out['apps']} -> {out['apps'] and out['apps'] - 1} -> "
+          f"{out['apps']}, node{victim} restarted on its home and socket to height "
+          f"{out['catchup']}, the service up throughout, its per_client row {closed[0]} closed "
+          f"({json.dumps(after[closed[0]])}) and new rows {fresh}; one block hash at the lowest "
+          f"common height {h_common} ({common.pop()[:16]}...); the service's ledger, merged across "
           f"{len(led.get('per_client', {}))} tenants: {summary.get('rounds')} rounds, "
           f"{summary.get('rows_requested')} rows requested, {len(sig)} signature rounds in its "
           f"entries (rows {[e['requested'] for e in sig][:40]}), {under} of them under "
           f"min_device_batch (8) to the host oracle; SIGINT: all {n + 1} exited 0 in "
           f"{out['stop_s']:.2f} s | {smi}")
     print(f"time: testnet: the service bound {out['service_s']:.2f} s after start, every node at "
-          f"height {TESTNET_HEIGHT} {out['height_s']:.2f} s after start | {smi}")
+          f"height {TESTNET_HEIGHT} {out['height_s']:.2f} s after start; the crash: kill -> "
+          f"survivors at +2 {out['survive_ms']:.2f} ms, the restart's boot (spawn to its RPC "
+          f"answering) {out['restart_boot_s']:.2f} s, of it torch's import "
+          f"{torch_us[0] / 1e6 if torch_us else float('nan'):.2f} s and the kernels' load "
+          f"{float(load.group(1)) if load else float('nan'):.2f} s, restart -> caught up "
+          f"{out['caught_up_ms']:.2f} ms, the crash's part of the phase "
+          f"{out['crash_s']:.2f} s | {smi}")
 
 
 # --- the harnesses: the port's tools/ at their own sizes ---------------------

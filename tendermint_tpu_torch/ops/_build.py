@@ -3,9 +3,11 @@ sources, into ``tendermint_tpu_torch/_kbuild/`` (git-ignored).
 
 Two routes, both for sm_90a:
 - ``torch.utils.cpp_extension.load`` with every source in one call, when
-  ``ninja`` is present (ninja compiles the sources in parallel). Only
-  ``binding.cpp`` includes ``torch/extension.h`` and it goes to the host
-  compiler; nvcc sees only the plain-C ``.cu`` files.
+  ``ninja`` is present (ninja compiles the sources in parallel), under the
+  build cache's lock, so a process killed mid-build leaves no baton that
+  holds the next one. Only ``binding.cpp`` includes ``torch/extension.h``
+  and it goes to the host compiler; nvcc sees only the plain-C ``.cu``
+  files.
 - otherwise one ``nvcc -c`` per ``.cu`` file, all started together, then
   ``nvcc -shared`` over the objects into a plain shared library bound with
   ``ctypes``. The library is named by its build key (the sources and
@@ -35,6 +37,7 @@ wall seconds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -246,20 +249,29 @@ def _build_ctypes() -> _CtypesKernels:
 
 def _build_extension():
     """torch's ``load``, which reuses a finished build of the same sources
-    and flags through its own hash and file baton."""
+    and flags through its own hash and file baton. It runs under the build
+    cache's ``fcntl`` lock, which the OS drops when its holder dies. torch's
+    baton is a file (``lock`` in the build directory) that a process killed
+    mid-build leaves behind, and every later ``load`` would wait on it for
+    ever; under the lock no live process holds it, so a baton found there
+    is a dead process's and is removed (ninja rebuilds the outputs whose
+    commands its log does not record as finished)."""
     from torch.utils.cpp_extension import load
 
     so = os.path.join(BUILD_DIR, "tm_kernels.so")
-    before = os.path.getmtime(so) if os.path.exists(so) else None
-    lib = load(
-        name="tm_kernels",
-        sources=[BINDING_SOURCE, *KERNEL_SOURCES],
-        build_directory=BUILD_DIR,
-        extra_cflags=["-O2"],
-        extra_cuda_cflags=["-O3", ARCH, "-std=c++17"],
-        verbose=False,
-    )
-    after = os.path.getmtime(so) if os.path.exists(so) else None
+    with kernel_cache.build_lock(so):
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(os.path.join(BUILD_DIR, "lock"))
+        before = os.path.getmtime(so) if os.path.exists(so) else None
+        lib = load(
+            name="tm_kernels",
+            sources=[BINDING_SOURCE, *KERNEL_SOURCES],
+            build_directory=BUILD_DIR,
+            extra_cflags=["-O2"],
+            extra_cuda_cflags=["-O3", ARCH, "-std=c++17"],
+            verbose=False,
+        )
+        after = os.path.getmtime(so) if os.path.exists(so) else None
     BUILD_INFO.update(reused=before is not None and before == after, path=so)
     return lib
 

@@ -219,3 +219,78 @@ def test_native_libraries_and_kernels_share_the_port_build_directory():
     assert _build.BUILD_DIR == kernel_cache.cache_dir()
     assert pathlib.Path(kernel_cache.cache_dir()) == ROOT / "tendermint_tpu_torch" / "_kbuild"
     assert pathlib.Path(kernel_cache.repo_root()) == ROOT
+
+
+# torch's protocol around a build of `load` (cpp_extension._jit_compile):
+# the baton file `lock` in the build directory, then ninja writes the
+# library; `die` stops inside the build, as a process killed mid-build does
+EXT_CHILD = r'''
+import json, os, sys, time
+sys.modules["jax"] = None
+build_dir, mode, ready = sys.argv[1:4]
+import torch.utils.cpp_extension as ce
+from torch.utils.file_baton import FileBaton
+
+def load(name, sources, build_directory, **kw):
+    baton = FileBaton(os.path.join(build_directory, "lock"))
+    if baton.try_acquire():
+        try:
+            with open(os.path.join(build_directory, name + ".so"), "wb") as f:
+                f.write(b"half")
+                if mode == "die":
+                    f.flush()
+                    open(ready, "w").close()
+                    time.sleep(600)
+                f.write(b" and whole")
+        finally:
+            baton.release()
+    else:
+        baton.wait()
+    return name
+
+ce.load = load
+ce.is_ninja_available = lambda: True
+from tendermint_tpu_torch.ops import _build
+_build.BUILD_DIR = build_dir
+_build.kernels()
+print(json.dumps(_build.BUILD_INFO))
+'''
+
+
+def test_a_start_after_a_build_killed_midway_builds(tmp_path):
+    """The torch_extension route: a process SIGKILLed inside torch's
+    ``load`` leaves its baton file and a half-written library behind. The
+    next start builds the library whole and leaves no baton, where with
+    the baton taken as live it would wait for ever."""
+    import signal
+
+    kbuild, ready = tmp_path / "kbuild", tmp_path / "ready"
+    kbuild.mkdir()
+
+    def start(mode):
+        return subprocess.Popen(
+            [sys.executable, "-c", EXT_CHILD, str(kbuild), mode, str(ready)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+
+    dying = start("die")
+    deadline = time.monotonic() + 60
+    while not ready.exists() and time.monotonic() < deadline and dying.poll() is None:
+        time.sleep(0.05)
+    assert ready.exists(), dying.communicate()[1][-3000:]
+    os.kill(dying.pid, signal.SIGKILL)
+    dying.communicate()
+    assert (kbuild / "lock").exists() and (kbuild / "tm_kernels.so").read_bytes() == b"half"
+
+    restart = start("build")
+    try:
+        out, err = restart.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        restart.kill()
+        restart.communicate()
+        pytest.fail("the start after the killed build waited on its baton")
+    assert restart.returncode == 0, err[-3000:]
+    info = json.loads(out.strip().splitlines()[-1])
+    assert info["route"] == "torch_extension" and info["reused"] is False
+    assert (kbuild / "tm_kernels.so").read_bytes() == b"half and whole"
+    assert not (kbuild / "lock").exists()
